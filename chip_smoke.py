@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (rxmd_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py [--mc 4 4 3] [--steps 20] [--seed 0]
+
+Drives the port's main path, `md.Engine` on the in-repo CHON deck
+(tests/data, 168-atom cell replicated --mc, 8,064 atoms by default) in
+float32.  Each phase checks its results and raises on a failed check; the
+first failure ends the run with a non-zero exit code and no result line.
+
+  1. device: torch's name for card 0, and nvidia-smi's name and power limit;
+  2. build: nvcc compiles rxmd_tpu_torch/csrc/pairsweep.cu for sm_90a;
+  3. kernels: each CUDA sweep against its plain PyTorch version on the card,
+     on the deck's real slot layout;
+  4. slice: prepare + --steps NVE steps with full-CG QEq (isQEq=1), PRINTE
+     lines; launch counts of both kernels; total energy against the same
+     steps run with the plain sweeps; and on the 168-atom cell, 5 steps on
+     the card against the float64 CPU run of the plain sweeps;
+  5. timing, printed and never checked: atom-steps/s for isQEq=1 and 2, ms
+     per step by phase (CUDA events), ms per launch of each kernel beside its
+     plain version.
+
+The last three lines are the kernels' JSON record, nvidia-smi's name and
+power limit, and {"ok": true, "device": {...}}.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(REPO, "tests", "data")
+FFIELD = os.path.join(DATA, "ffield_chon_synth")
+CELL = os.path.join(DATA, "chon168.xyz")
+SOURCE = "rxmd_tpu_torch/csrc/pairsweep.cu"
+REPLACES = "rxmd_tpu/ops/pairsweep.py:289"
+
+# kernel vs plain sweep, float32, same candidate pairs, other summation
+# order: the bars of tests/test_pairsweep.py (energy sums 2e-3 relative,
+# forces 2e-4 of max|f|, virial sums 2e-3 of max|W|, QEq rows 3e-4 of max)
+TOL_E, TOL_F, TOL_W, TOL_Q = 2e-3, 2e-4, 2e-3, 3e-4
+# per-step total energy of the kernel run against the plain-sweep run on
+# the card: both float32, so they part only through summation order and
+# CG stops; at 1e-4 relative that is ~10x above the float32 noise of a
+# 20-step run and far below any wrong pair term
+TOL_TE = 1e-4
+# 168-atom cell, float32 on the card against float64 on the CPU, 5 steps:
+# float32 CG stops at relative Est change 2.4e-6 (the 20-ulp floor), so
+# charges differ by ~1e-4 e and PE components by ~1e-5 of |PE|
+TOL_SMALL_PE = 1e-4
+TOL_SMALL_POS = 1e-4     # [A]
+DEVICE = "cuda"          # the slice's device; main() requires a card
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def load_deck(mc, dtype, device):
+    from rxmd_tpu_torch import ffield, system
+    ff = ffield.parse_ffield(FFIELD)
+    st = system.from_cellfile(CELL, ff.name_to_type, mc=mc, dtype=dtype,
+                              device=device)
+    return ff, st
+
+
+def make_engine(mc, device, dtype="float32", **cfg):
+    from rxmd_tpu_torch import config, md
+    ff, st = load_deck(mc, torch.float64, "cpu")
+    kw = dict(dtype=dtype, isQEq=1, pstep=5)
+    kw.update(cfg)
+    return md.Engine(ff, st, config.RunConfig(**kw), device=device)
+
+
+def cuda_ms(fn, reps):
+    """Mean ms of fn() over reps launches, by CUDA events after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_kernels(engine, seed):
+    """Each CUDA sweep against sweep_plain on the deck's slot layout.
+    Returns {name: dict(max_abs_err, ms, plain_ms)}."""
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    e = engine
+    e._rebuild(e.state)
+    s = e.state
+    ops = e._make_pair_ops(s.pos, s.H, s.types, e._slotmap)
+    rng = np.random.default_rng(seed)
+    n = s.n
+    q = rng.normal(scale=0.2, size=n)
+    q -= q.mean()
+    hs, ht = rng.normal(size=(2, n))
+    t = lambda a: torch.as_tensor(a, dtype=e.dtype, device=e.device)
+    grid, soa = e.pairk, e._slotmap.slot_of_atom
+    cases = (("nonbond", ops.nonbond_planes(t(q)), e._nb_fn),
+             ("qeq", ops.qeq_planes(t(hs), t(ht), t(q)), e._qeq_fn))
+    cand = (grid.tc_n[0] * grid.tc_n[1] * grid.n_zb * grid.C
+            * len(grid.cols) * grid.Wp)
+    ps.plain_pairs.clear()
+    ps.sweep_plain(grid, cases[1][1], cases[1][2])
+    (_, (tgt, _, _)), = ps.plain_pairs.values()
+    npairs = int(tgt.shape[0])
+    log(f"sweep work: {cand:.4e} candidate slots per sweep, {npairs} "
+        f"directed pairs of filled slots within the taper radius")
+    res = {}
+    for name, packed, fn in cases:
+        got = ps.sweep(grid, packed, fn)
+        torch.cuda.synchronize()
+        ref = ps.sweep_plain(grid, packed, fn)
+        check(got.shape == ref.shape == (fn.out_k, grid.n_targets),
+              f"{name}: output shape {tuple(got.shape)}")
+        g = ps.gather_rows(grid, got, soa).double().cpu().numpy()
+        r = ps.gather_rows(grid, ref, soa).double().cpu().numpy()
+        check(np.isfinite(g).all(), f"{name}: non-finite kernel rows")
+        err = float(np.abs(g - r).max())
+        if name == "nonbond":
+            for k in (0, 1):
+                check(abs(g[k].sum() - r[k].sum()) <= TOL_E * max(
+                    1.0, abs(r[k].sum())), f"{name} energy row {k}")
+            check(np.abs(g[2:5] - r[2:5]).max() <= TOL_F * np.abs(
+                r[2:5]).max(), f"{name} forces")
+            w, wr = g[5:].sum(1), r[5:].sum(1)
+            check(np.abs(w - wr).max() <= TOL_W * max(
+                1.0, np.abs(wr).max()), f"{name} virial")
+        else:
+            for k in range(3):
+                check(np.abs(g[k] - r[k]).max() <= TOL_Q * max(
+                    1.0, np.abs(r[k]).max()), f"{name} row {k}")
+        ms = cuda_ms(lambda: ps.sweep(grid, packed, fn), 20)
+        # the whole plain sweep, its pair search included, as the kernel
+        plain_ms = cuda_ms(lambda: (ps.plain_pairs.clear(),
+                                    ps.sweep_plain(grid, packed, fn)), 3)
+        log(f"kernel {name}: max_abs_err {err:.3e} over {fn.out_k}x{n} rows; "
+            f"{ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} us/call")
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return res
+
+
+def total_energies(lines):
+    """Total energy per atom from PRINTE lines ("MDstep: step TE PE ...")."""
+    return np.array([float(x.split()[2]) for x in lines
+                     if x.startswith("MDstep:")])
+
+
+def drive(engine, steps, seed, echo):
+    """init_velocity + run(steps) with a PRINTE line every step."""
+    lines = []
+
+    def sink(x):
+        lines.append(x)
+        if echo:
+            log(x)
+
+    engine.cfg.pstep = 1
+    engine.init_velocity(seed=seed)
+    engine.run(steps, log=sink)
+    return lines
+
+
+def phase_slice(mc, steps, seed):
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    e = make_engine(mc, DEVICE)
+    log(f"slice: {e.state.n} atoms, pair grid nslots {e.pairk.nslots}, "
+        f"{len(e.pairk.cols)} stencil columns, "
+        f"{e.pairk.tc_n[0] * e.pairk.tc_n[1] * e.pairk.n_zb} blocks, "
+        f"window {e.pairk.Wp} slots")
+    kres = phase_kernels(e, seed)
+
+    e = make_engine(mc, DEVICE)
+    for k in ps.launches:
+        ps.launches[k] = 0
+    lines = drive(e, steps, seed, echo=True)
+    torch.cuda.synchronize()
+    launches = dict(ps.launches)
+    te = total_energies(lines)
+    check(len(te) == steps + 1 and np.isfinite(te).all(),
+          f"{steps + 1} finite PRINTE lines")
+    for x in (e.state.pos, e.state.vel, e.state.q, e.force, e.comps):
+        check(bool(torch.isfinite(x).all()), "finite state and forces")
+    check(e.state.pos.shape == (e.state.n, 3), "position shape")
+    check(launches["nonbond"] == steps + 1,
+          f"nonbond launches {launches['nonbond']} == steps + 1")
+    check(launches["qeq"] >= e.cg_iters > 0,
+          f"qeq launches {launches['qeq']} >= CG iterations {e.cg_iters}")
+    log(f"launches: {launches}; CG iterations summed {e.cg_iters}")
+
+    ref = make_engine(mc, DEVICE)
+    ref.pair_sweep = ps.sweep_plain
+    te_ref = total_energies(drive(ref, steps, seed, echo=False))
+    rel = np.abs(te - te_ref) / np.abs(te_ref)
+    log(f"total energy vs the plain-sweep run: max rel diff {rel.max():.3e} "
+        f"(bound {TOL_TE})")
+    check(rel.max() <= TOL_TE, "total energy against the plain-sweep run")
+    return e, kres, launches
+
+
+def phase_small_reference(seed, nsteps=5):
+    """168-atom cell: float32 kernels on the card against the float64 plain
+    sweeps on the CPU (the configuration the CPU tests hold to rxmd_tpu)."""
+    runs = []
+    for dev, dt in ((DEVICE, "float32"), ("cpu", "float64")):
+        e = make_engine((1, 1, 1), dev, dtype=dt, rebuild_every=4)
+        e.init_velocity(seed=seed)
+        e.prepare()
+        e.run(nsteps, log=None)
+        runs.append((e.comps.double().cpu().numpy(),
+                     e.state.pos.double().cpu().numpy()))
+    (c32, p32), (c64, p64) = runs
+    pe_err = np.abs(c32 - c64).max() / abs(c64[0])
+    pos_err = np.abs(p32 - p64).max()
+    log(f"168-atom cell, {nsteps} steps, float32 card vs float64 CPU: PE "
+        f"components max diff {pe_err:.3e} of |PE| (bound {TOL_SMALL_PE}), "
+        f"positions {pos_err:.3e} A (bound {TOL_SMALL_POS})")
+    check(np.isfinite(c32).all() and pe_err <= TOL_SMALL_PE,
+          "168-atom PE components")
+    check(pos_err <= TOL_SMALL_POS, "168-atom positions")
+
+
+def phase_timing(e, mc, steps, seed):
+    from rxmd_tpu_torch import md
+    n = e.state.n
+    for isq in (1, 2):
+        eng = e if isq == 1 else make_engine(mc, DEVICE, isQEq=2)
+        if isq == 2:
+            eng.init_velocity(seed=seed)
+            eng.prepare()
+            eng.run(2, log=None)
+        it0 = eng.cg_iters
+        wall = eng.run(steps, log=None)
+        log(f"isQEq={isq}: {n * steps / wall:.4e} atom-steps/s "
+            f"({wall / steps * 1e3:.2f} ms/step over {steps} steps, "
+            f"{(eng.cg_iters - it0) / steps:.1f} CG iterations/step)")
+        eng.phases = md.PhaseTimer()
+        eng._rebuild(eng.state)
+        t0 = time.perf_counter()
+        eng.run(steps, log=None)
+        wall = time.perf_counter() - t0
+        ms = eng.phases.ms()
+        eng.phases = None
+        parts = ", ".join(
+            f"{k} {v / (c if k == 'rebuild' else steps):.2f}"
+            for k, (v, c) in sorted(ms.items()))
+        log(f"isQEq={isq} ms/step by phase (rebuild: ms per rebuild, every "
+            f"{eng.rebuild_every} steps or on drift): {parts}; wall "
+            f"{wall / steps * 1e3:.2f} ms/step")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mc", nargs=3, type=int, default=(4, 4, 3))
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log(f"device: {kind} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}); nvidia-smi: {smi}")
+
+    so, secs = ps.build(force=True)
+    log(f"build: nvcc {SOURCE} -> {os.path.relpath(so, REPO)} in "
+        f"{secs:.1f} s")
+
+    mc = tuple(args.mc)
+    e, kres, launches = phase_slice(mc, args.steps, args.seed)
+    phase_small_reference(args.seed)
+    phase_timing(e, mc, args.steps, args.seed)
+
+    rec = {"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": launches[name],
+         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
+         "plain_ms": kres[name]["plain_ms"]}
+        for name in ("nonbond", "qeq")]}
+    log(json.dumps(rec))
+    log(nvidia_smi())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""rxmd_tpu_torch parameters, package boundary and engine guards.
+
+The port's copy of the force-field parser must give rxmd_tpu's arrays
+exactly, and its FFDev built from the ForceField must equal the one built
+from rxmd_tpu's FFDev arrays (`ffdev_from_numpy`), which is how the other
+parity tests hand the same weights to both packages.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from rxmd_tpu import ffield as jff, reax as jrx
+from rxmd_tpu_torch import config as tcfg, ffield as tff, md as tmd, \
+    reax as trx, system as tsys
+from rxmd_tpu_torch.ops import pairsweep as tps
+
+# the suite runs in several worker processes at once; one torch thread
+# each keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+FF = os.path.join(DATA, "ffield_chon_synth")
+CELL = os.path.join(DATA, "chon168.xyz")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def ffs():
+    return jff.parse_ffield(FF), tff.parse_ffield(FF)
+
+
+def test_parse_ffield_matches(ffs):
+    jf, tf = ffs
+    assert (jf.nso, jf.nboty, jf.nvaty, jf.ntoty, jf.nhbty) == (4, 10, 33, 10, 4)
+    for f in dataclasses.fields(jf):
+        a, b = getattr(jf, f.name), getattr(tf, f.name)
+        if isinstance(a, np.ndarray):
+            assert np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_ffdev_from_matches_jax_ffdev(ffs, dtype):
+    jf, tf = ffs
+    jffd = jrx.ffdev_from(jf, dtype=getattr(jnp, dtype))
+    a = trx.ffdev_from_numpy({k: np.asarray(v) for k, v in
+                              jffd._asdict().items()},
+                             dtype=getattr(torch, dtype))
+    b = trx.ffdev_from(tf, dtype=getattr(torch, dtype))
+    for f in dataclasses.fields(trx.FFDev):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, int):
+            assert x == y, f.name
+        else:
+            # exact: the same numpy values cast once to the same dtype
+            assert x.dtype == y.dtype and torch.equal(x, y), f.name
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, rxmd_tpu_torch, rxmd_tpu_torch.md, "
+            "rxmd_tpu_torch.ops.pairsweep; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "import torch; "
+            "assert not torch.backends.cuda.matmul.allow_tf32; "
+            "assert not torch.backends.cudnn.allow_tf32; "
+            "assert torch.get_float32_matmul_precision() == 'highest'")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _state():
+    tf = tff.parse_ffield(FF)
+    return tf, tsys.from_cellfile(CELL, tf.name_to_type)
+
+
+def test_engine_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    tf, st = _state()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmd.Engine(tf, st, tcfg.RunConfig(dtype="float32"), device="cuda")
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(mdmode=4), "mdmode=4"),
+    (dict(isPQEq=True), "PQEq"),
+    (dict(pair_kernel=False), "ELL and dense"),
+    (dict(nonbond_closed_form=False), "interpolation-table"),
+    (dict(term_cache=False), "term_cache"),
+])
+def test_engine_names_missing_paths(kw, what):
+    tf, st = _state()
+    with pytest.raises(NotImplementedError, match=what):
+        tmd.Engine(tf, st, tcfg.RunConfig(**kw), device="cpu")
+
+
+def test_sweep_refuses_other_devices():
+    grid = tps.make_pair_grid(np.diag([13.182, 11.574, 10.709]), 10.0,
+                              skin=0.4)
+    tf, _ = _state()
+    fn = tps.make_qeq_pair_fn(trx.ffdev_from(tf, dtype=torch.float32),
+                              tf.nso, 100.0)
+    packed = torch.zeros((8, grid.nslots), device="meta")
+    with pytest.raises(ValueError, match="no pair sweep"):
+        tps.sweep(grid, packed, fn)

@@ -1,0 +1,207 @@
+"""rxmd_tpu_torch pair sweeps (ops/pairsweep) against rxmd_tpu.
+
+* slot binning equals rxmd_tpu's exactly (stable sort by cell id);
+* the plain sweeps against rxmd_tpu's Pallas `_sweep` in interpret mode,
+  float32, at tests/test_pairsweep.py's bars (energy 2e-3 relative, force
+  2e-4 of max|f|, virial 2e-3, QEq 3e-4): same math, other summation order
+  and the TPU's wider candidate windows;
+* the plain sweeps in float64 against rxmd_tpu's independent ELL forms
+  (`nonbond_cf_energy_forces`, the `cf_qeq_kernel` matvecs) within 1e-9:
+  same pairs, same closed-form kernels, another summation order.
+
+The CUDA kernels are held against the plain sweeps in test_torch_cuda.py.
+"""
+import os
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from rxmd_tpu import ffield as jff, system as jsys, neighbors as jnb, \
+    reax as jrx, units
+from rxmd_tpu.ops import pairsweep as jps
+from rxmd_tpu_torch import reax as trx
+from rxmd_tpu_torch.ops import pairsweep as tps
+
+# the suite runs in several worker processes at once; one torch thread
+# each keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+FF = os.path.join(DATA, "ffield_chon_synth")
+CELL = os.path.join(DATA, "chon168.xyz")
+SKIN = 0.4
+
+
+def _setup(dtype):
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ff = jff.parse_ffield(FF)
+    st = jsys.from_cellfile(CELL, ff.name_to_type, dtype=jdt)
+    jffd = jrx.ffdev_from(ff, dtype=jdt)
+    tffd = trx.ffdev_from_numpy({k: np.asarray(v)
+                                 for k, v in jffd._asdict().items()},
+                                dtype=tdt)
+    H = np.asarray(st.H)
+    img = jnb.make_image_table(st.n, jnb.nimg_for_cutoff(H, 10.0 + SKIN),
+                               jdt)
+    grid = jps.make_pair_grid(H, units.RCTAP0, skin=SKIN, ccap=8)
+    tgrid = tps.make_pair_grid(H, units.RCTAP0, skin=SKIN, ccap=8)
+    pose = jnb.ext_positions(st.pos, st.H, img)
+    sm = jps.bin_slots(pose, jnp.ones(pose.shape[0], bool), grid, st.n)
+    tpose = torch.tensor(np.asarray(pose))
+    tsm = tps.bin_slots(tpose, torch.ones(tpose.shape[0], dtype=torch.bool),
+                        tgrid, st.n)
+    rng = np.random.default_rng(11)
+    q = rng.normal(scale=0.1, size=st.n)
+    q -= q.mean()
+    hs, ht = rng.normal(size=(2, st.n))
+    S = img.n_images
+    own = np.asarray(img.owner)
+    types = np.asarray(st.types)
+    m = pose.shape[0]
+    ext = {"x": np.asarray(pose[:, 0]), "y": np.asarray(pose[:, 1]),
+           "z": np.asarray(pose[:, 2]), "type": types[own].astype(dtype),
+           "gid": np.asarray(st.gid)[own].astype(dtype),
+           "prim": (np.arange(m) < st.n).astype(dtype),
+           "q": np.tile(q, S).astype(dtype), "hs": np.tile(hs, S).astype(dtype),
+           "ht": np.tile(ht, S).astype(dtype)}
+    return dict(ff=ff, st=st, jffd=jffd, tffd=tffd, img=img, grid=grid,
+                tgrid=tgrid, sm=sm, tsm=tsm, q=q, hs=hs, ht=ht, ext=ext,
+                jdt=jdt, tdt=tdt)
+
+
+@pytest.fixture(scope="module")
+def f32():
+    return _setup("float32")
+
+
+@pytest.fixture(scope="module")
+def f64():
+    return _setup("float64")
+
+
+NB_PLANES = ("x", "y", "z", "type", "gid", "q")
+QEQ_PLANES = ("x", "y", "z", "type", "prim", "hs", "ht", "q")
+
+
+def _packed(d, planes):
+    jp = jps.pack_slots(d["sm"].slot_src,
+                        [jnp.asarray(d["ext"][p], d["jdt"]) for p in planes])
+    tp = tps.pack_slots(d["tsm"].slot_src,
+                        [torch.tensor(d["ext"][p]) for p in planes])
+    return jp, tp
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_slot_binning_matches(f32, f64, dtype):
+    d = f32 if dtype == "float32" else f64
+    assert d["grid"] == tuple(d["tgrid"])
+    assert np.array_equal(np.asarray(d["sm"].slot_src),
+                          d["tsm"].slot_src.numpy())
+    assert np.array_equal(np.asarray(d["sm"].slot_of_atom),
+                          d["tsm"].slot_of_atom.numpy())
+    assert int(d["sm"].overflow) == int(d["tsm"].overflow) <= d["grid"].ccap
+    jp, tp = _packed(d, QEQ_PLANES)
+    assert np.array_equal(np.asarray(jp), tp.numpy())
+
+
+def _plain_rows(d, planes, fn):
+    _, tp = _packed(d, planes)
+    out = tps.sweep(d["tgrid"], tp, fn)          # CPU tensor: plain sweep
+    return tps.gather_rows(d["tgrid"], out, d["tsm"].slot_of_atom).numpy()
+
+
+def test_nonbond_plain_matches_pallas(f32):
+    d = f32
+    jp, _ = _packed(d, NB_PLANES)
+    pair_fn, out_k, consts = jps.make_nonbond_pair_fn(
+        d["jffd"], d["ff"].nso, float(d["jffd"].rctap2))
+    out = jps._sweep(d["grid"], jp, pair_fn, out_k, consts=consts,
+                     interpret=True)
+    ref = np.asarray(jps.gather_rows(d["grid"], out, d["sm"].slot_of_atom))
+    fn = tps.make_nonbond_pair_fn(d["tffd"], d["ff"].nso,
+                                  float(d["tffd"].rctap2))
+    got = _plain_rows(d, NB_PLANES, fn)
+    for k in (0, 1):
+        assert abs(got[k].sum() - ref[k].sum()) < 2e-3 * max(
+            1.0, abs(ref[k].sum()))
+    assert np.abs(got[2:5] - ref[2:5]).max() < 2e-4 * np.abs(ref[2:5]).max()
+    w, wr = got[5:].sum(1), ref[5:].sum(1)
+    assert np.abs(w - wr).max() < 2e-3 * max(1.0, np.abs(wr).max())
+
+
+def test_qeq_plain_matches_pallas(f32):
+    d = f32
+    jp, _ = _packed(d, QEQ_PLANES)
+    pair_fn, out_k, consts = jps.make_qeq_pair_fn(
+        d["jffd"], d["ff"].nso, float(d["jffd"].rctap2))
+    out = jps._sweep(d["grid"], jp, pair_fn, out_k, consts=consts,
+                     interpret=True)
+    ref = np.asarray(jps.gather_rows(d["grid"], out, d["sm"].slot_of_atom))
+    fn = tps.make_qeq_pair_fn(d["tffd"], d["ff"].nso, float(d["tffd"].rctap2))
+    got = _plain_rows(d, QEQ_PLANES, fn)
+    for k in range(3):
+        assert np.abs(got[k] - ref[k]).max() < 3e-4 * max(
+            1.0, np.abs(ref[k]).max()), k
+
+
+@pytest.fixture(scope="module")
+def ell64(f64):
+    d = f64
+    st = d["st"]
+    rc2b = np.asarray(d["jffd"].rc2b)
+    rc2b = (np.sqrt(rc2b) + SKIN) ** 2 * (rc2b > 0)
+    nbrs = jnb.build_neighbors_brute(st.pos, st.H, st.types, d["img"],
+                                     jnp.asarray(rc2b), (10.0 + SKIN) ** 2,
+                                     24, 1024)
+    assert int(nbrs.cntnb.max()) <= 1024
+    return nbrs
+
+
+def test_nonbond_plain_matches_ell_f64(f64, ell64):
+    d = f64
+    st = d["st"]
+    q = jnp.asarray(d["q"])
+    amask = jnp.ones(st.n, bool)
+    ctx = jrx.nb_ctx(st.pos, q, st.H, st.types, d["img"], ell64, st.gid,
+                     amask, d["jffd"])
+    evdw, eclmb, _, f, w = jrx.nonbond_cf_energy_forces(
+        ctx, q, st.types, amask, d["jffd"], with_virial=True, img=d["img"])
+    fn = tps.make_nonbond_pair_fn(d["tffd"], d["ff"].nso,
+                                  float(d["tffd"].rctap2))
+    got = _plain_rows(d, NB_PLANES, fn)
+    assert abs(got[0].sum() - float(evdw)) <= 1e-9 * abs(float(evdw))
+    assert abs(got[1].sum() - float(eclmb)) <= 1e-9 * abs(float(eclmb))
+    f = np.asarray(f)
+    assert np.abs(got[2:5].T - f).max() <= 1e-9 * np.abs(f).max()
+    w = np.asarray(w)
+    w6 = np.array([w[0, 0], w[1, 1], w[2, 2], w[1, 2], w[2, 0], w[0, 1]])
+    assert np.abs(got[5:].sum(1) - w6).max() <= 1e-9 * np.abs(w6).max()
+
+
+def test_qeq_plain_matches_ell_f64(f64, ell64):
+    d = f64
+    st = d["st"]
+    n = st.n
+    img = d["img"]
+    amask = jnp.ones(n, bool)
+    ctx = jrx.nb_ctx(st.pos, None, st.H, st.types, img, ell64, st.gid, amask,
+                     d["jffd"])
+    in_range = ctx.mask & (ctx.dr2 < d["jffd"].rctap2)
+    hess = jrx.cf_qeq_kernel(ctx.dr2, jrx.ctx_prm(ctx, st.types, d["jffd"]),
+                             d["jffd"], in_range)
+    mask = ell64.masknb
+    hz = jnp.where(mask, hess, 0.0)
+    oj = img.owner_of(ctx.idx)
+    idxnb = jnp.where(mask, ell64.idxnb, 0)
+    estw = jnp.where(idxnb < n, 1.0, 0.5)
+    want = [jnp.sum(hz * jnp.where(mask, jnp.asarray(v)[oj], 0.0), axis=1)
+            for v in (d["hs"], d["ht"])]
+    want.append(jnp.sum(estw * hz * jnp.where(mask, jnp.asarray(d["q"])[oj],
+                                              0.0), axis=1))
+    fn = tps.make_qeq_pair_fn(d["tffd"], d["ff"].nso, float(d["tffd"].rctap2))
+    got = _plain_rows(d, QEQ_PLANES, fn)
+    for k in range(3):
+        w = np.asarray(want[k])
+        assert np.abs(got[k] - w).max() <= 1e-9 * np.abs(w).max(), k
