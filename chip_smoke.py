@@ -18,7 +18,14 @@ first failure ends the run with a non-zero exit code and no result line.
      the card against the float64 CPU run of the plain sweeps;
   5. timing, printed and never checked: atom-steps/s for isQEq=1 and 2, ms
      per step by phase (CUDA events), ms per launch of each kernel beside its
-     plain version.
+     plain version;
+  6. program: the port as users run it, at --mc: tools.geninit writes DAT/,
+     then `__main__.main` (tests/data/rxmd_chon.in with CLI overrides) runs
+     mdmode 5 from rxff.bin with frames in all four formats, restarts from
+     rxff.npz (NVE), runs mdmode 7 with an electric field and springs, and
+     opt.conjugate_gradient takes two iterations; each run's launch counts
+     of both kernels, its PRINTE lines and files are checked, and its
+     atom-steps/s, summary() table and optimizer seconds printed.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -28,6 +35,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +45,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, "tests", "data")
 FFIELD = os.path.join(DATA, "ffield_chon_synth")
 CELL = os.path.join(DATA, "chon168.xyz")
+RXMD_IN = os.path.join(DATA, "rxmd_chon.in")
 SOURCE = "rxmd_tpu_torch/csrc/pairsweep.cu"
 REPLACES = "rxmd_tpu/ops/pairsweep.py:289"
 
@@ -125,7 +134,7 @@ def phase_kernels(engine, seed):
             * len(grid.cols) * grid.Wp)
     ps.plain_pairs.clear()
     ps.sweep_plain(grid, cases[1][1], cases[1][2])
-    (_, (tgt, _, _)), = ps.plain_pairs.values()
+    (_, _, (tgt, _, _)), = ps.plain_pairs.values()
     npairs = int(tgt.shape[0])
     log(f"sweep work: {cand:.4e} candidate slots per sweep, {npairs} "
         f"directed pairs of filled slots within the taper radius")
@@ -272,6 +281,185 @@ def phase_timing(e, mc, steps, seed):
             f"{wall / steps * 1e3:.2f} ms/step")
 
 
+def zero_launches():
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    for k in ps.launches:
+        ps.launches[k] = 0
+
+
+def read_launches(what, need_cg=None):
+    """The launch counts of the run just ended; each kernel must have run.
+    `need_cg`: CG iterations the QEq kernel must at least match."""
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    torch.cuda.synchronize()
+    got = dict(ps.launches)
+    check(got["nonbond"] > 0 and got["qeq"] > 0,
+          f"{what}: both kernels launched ({got})")
+    if need_cg is not None:
+        check(got["qeq"] >= need_cg > 0,
+              f"{what}: qeq launches {got['qeq']} >= CG iterations {need_cg}")
+    return got
+
+
+class Tee:
+    """stdout that also keeps what was written."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, s):
+        self.parts.append(s)
+        return sys.__stdout__.write(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def run_main(argv):
+    """rxmd_tpu_torch.__main__.main in this process (so the launch counts
+    can be read), its output echoed and returned, with the engine it ran."""
+    from rxmd_tpu_torch import __main__ as prog, md
+    engines = []
+    run = md.Engine.run
+
+    def spy(self, *a, **k):
+        engines.append(self)
+        return run(self, *a, **k)
+    tee = Tee()
+    md.Engine.run, old = spy, sys.stdout
+    sys.stdout = tee
+    try:
+        rc = prog.main(argv, device=DEVICE)
+    finally:
+        md.Engine.run, sys.stdout = run, old
+    check(rc == 0, f"main {' '.join(argv[-4:])} returned {rc}")
+    return tee.text(), engines[0]
+
+
+def printe_pe(text):
+    """(step, PE per atom) of each PRINTE line."""
+    rows = [x.split() for x in text.splitlines() if x.startswith("MDstep:")]
+    return [(int(r[1]), float(r[3])) for r in rows]
+
+
+def phase_program(mc, steps):
+    """The port as a program at full width: geninit, then `main` from
+    rxff.bin (mdmode 5, frames in all four formats), a restart from its
+    rxff.npz (mdmode 1), mdmode 7 with a field and springs, and two
+    iterations of the CG optimizer on an engine built as main builds it."""
+    from rxmd_tpu_torch import config, ffield, md, opt
+    from rxmd_tpu_torch.io import checkpoint, refbin, traj
+    from rxmd_tpu_torch.tools import geninit
+    with tempfile.TemporaryDirectory() as tmp:
+        dat = os.path.join(tmp, "DAT")
+        check(geninit.main(["-i", CELL, "-f", FFIELD, "-o", dat, "-mc",
+                            *map(str, mc)]) == 0, "geninit")
+        os.remove(os.path.join(dat, "rxff.npz"))
+        # the in-repo deck's rxmd.in (full-CG QEq at 1e-7), with overrides
+        base = ["--rxmdin", RXMD_IN, "--ffield", FFIELD, "--outDir", dat,
+                "--dtype", "float32"]
+
+        # 1. main from rxff.bin: mdmode 5 every 10 steps, PRINTE every 5,
+        #    frames in all four formats every 10
+        zero_launches()
+        out, eng = run_main(base + [
+            "--mdmode", "5", "--sstep", "10", "--ntime_step", str(steps),
+            "--pstep", "5", "--fstep", "10", "--isBinary", "--isBondFile",
+            "--isPDB", "--isXYZ"])
+        got = read_launches("main", need_cg=eng.cg_iters)
+        check(got["nonbond"] == steps + 1,
+              f"main: nonbond launches {got['nonbond']} == steps + 1")
+        pe = printe_pe(out)
+        check(len(pe) == steps // 5 + 1 and all(np.isfinite(p) for _, p in pe),
+              "main: finite PRINTE lines")
+        n = eng.state.n
+        for step in (0, 10):
+            for ext in ("xyz", "pdb", "bnd", "bin"):
+                path = os.path.join(dat, f"{step:09d}.{ext}")
+                check(os.path.exists(path), f"frame {path}")
+            fr = next(traj.read_xyz_frames(os.path.join(dat, f"{step:09d}.xyz")))
+            check(fr["pos"].shape == (n, 3) and np.isfinite(fr["pos"]).all(),
+                  f"frame {step}: {n} finite positions")
+            for ext in ("pdb", "bnd"):
+                with open(os.path.join(dat, f"{step:09d}.{ext}")) as fh:
+                    check(sum(1 for _ in fh) == n, f"frame {step}.{ext} rows")
+            fb, _ = refbin.read_rxff_bin(os.path.join(dat, f"{step:09d}.bin"))
+            check(fb.n == n and fb.step == step
+                  and bool(torch.isfinite(fb.pos).all()),
+                  f"frame {step}.bin: {n} finite positions at step {step}")
+        with np.load(os.path.join(dat, "rxff.npz")) as z:
+            check(int(z["step"]) == steps, "rxff.npz step")
+        log(f"program: {n} atoms, launches {got}, CG iterations "
+            f"{eng.cg_iters}")
+        # the last PRINTE line's PE comes from the term lists cached at the
+        # last rebuild; a restart builds them anew, so hold it to the same
+        # state evaluated on fresh lists (prepare, as the restart does)
+        pe_fresh = float(eng.prepare()[0]) / n
+        log(f"last PE {pe[-1][1]:.6e} on the cached term lists, "
+            f"{pe_fresh:.6e} on fresh ones: rel diff "
+            f"{abs(pe_fresh - pe[-1][1]) / abs(pe_fresh):.3e}")
+        del eng
+
+        # 2. restart from rxff.npz, NVE
+        zero_launches()
+        out2, eng2 = run_main(base + ["--mdmode", "1", "--ntime_step", "10",
+                                      "--pstep", "5"])
+        got = read_launches("restart", need_cg=eng2.cg_iters)
+        head = [x for x in out2.splitlines() if "CURRENTSTEP" in x]
+        check(head and head[0].split()[-2] == str(steps),
+              f"restart header CURRENTSTEP {steps}: {head}")
+        pe2 = printe_pe(out2)
+        rel = abs(pe2[0][1] - pe_fresh) / abs(pe_fresh)
+        log(f"restart: first PE {pe2[0][1]:.6e} against the first run's end "
+            f"state {pe_fresh:.6e}: rel diff {rel:.3e} (bound {TOL_TE}); "
+            f"launches {got}")
+        check(pe2[0][0] == steps and rel <= TOL_TE, "restart PE")
+
+        # 3. mdmode 7 with a field along z and springs on C and O
+        zero_launches()
+        out3, eng3 = run_main(base + [
+            "--mdmode", "7", "--sstep", "5", "--ntime_step", "10", "--pstep",
+            "5", "--efield", "3", "0.05", "--spring", "2.0", "1", "3"])
+        got = read_launches("mdmode 7", need_cg=eng3.cg_iters)
+        pe3 = printe_pe(out3)
+        check(len(pe3) == 3 and all(np.isfinite(p) for _, p in pe3)
+              and bool(torch.isfinite(eng3.state.vel).all()),
+              "mdmode 7 with field and springs: finite output")
+        check(eng3.cfg.isEfield and eng3.cfg.spring_const == 2.0,
+              "field and springs on")
+        log(f"mdmode 7, field and springs: launches {got}")
+
+        # 4. the CG optimizer, on an engine built as main builds it
+        cfg = config.parse_rxmd_in(RXMD_IN)
+        cfg = config.apply_cli(cfg, config.cli_parser().parse_args(
+            base + ["--mdmode", "10"]))
+        ff = ffield.parse_ffield(cfg.ffield_path)
+        st = checkpoint.load(os.path.join(dat, "rxff.npz"), torch.float32)
+        e = md.Engine(ff, st, cfg, dtype=torch.float32, device=DEVICE)
+        pes, lines = [], []
+
+        def sink(x):
+            lines.append(x)
+            log(x)
+        zero_launches()
+        t0 = time.perf_counter()
+        pe_end = opt.conjugate_gradient(
+            e, max_iter=2, log=sink,
+            writer=lambda it, pos, p: pes.append((p, time.perf_counter())))
+        got = read_launches("optimizer", need_cg=e.cg_iters)
+        seq = [float(lines[0].split("PE0=")[1])] + [p for p, _ in pes]
+        ts = [t0] + [t for _, t in pes]
+        per_it = [b - a for a, b in zip(ts, ts[1:])]
+        log(f"optimizer: PE {seq}, seconds per iteration "
+            f"{[round(x, 3) for x in per_it]}, launches {got}")
+        check(len(pes) == 2 and all(b <= a for a, b in zip(seq, seq[1:]))
+              and pe_end == seq[-1], "optimizer: PE does not rise over two "
+              "iterations")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mc", nargs=3, type=int, default=(4, 4, 3))
@@ -297,6 +485,8 @@ def main():
     e, kres, launches = phase_slice(mc, args.steps, args.seed)
     phase_small_reference(args.seed)
     phase_timing(e, mc, args.steps, args.seed)
+    del e
+    phase_program(mc, args.steps)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

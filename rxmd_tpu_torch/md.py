@@ -1,18 +1,21 @@
 """MD engine: velocity Verlet + QEq + the cell-column pair sweep
 (counterpart of rxmd_tpu.md.Engine for one device).
 
-One step follows the reference main loop (ref: main.F90:37-100): half
-kick -> extended-Lagrangian charge DOF leapfrog -> drift -> QEq (every
-qstep) -> FORCE -> kinetic stress -> half kick.  A rebuild wraps the
-positions and rebuilds the skinned neighbor lists, the cached angle /
-torsion / hbond lists and the pair sweep's slot layout; the host loop
-rebuilds on a fixed cadence or when the drift monitor trips.
+One step follows the reference main loop (ref: main.F90:37-100):
+thermostat (every sstep) -> half kick -> extended-Lagrangian charge DOF
+leapfrog -> [momentum reset under a field] -> drift -> QEq (every qstep)
+-> FORCE (+ field and spring forces) -> kinetic stress -> half kick.  A
+rebuild wraps the positions and rebuilds the skinned neighbor lists, the
+cached angle / torsion / hbond lists and the pair sweep's slot layout; the
+host loop rebuilds on a fixed cadence or when the drift monitor trips,
+prints PRINTE lines, writes frames and keeps the per-phase timers.
 
-Ported configuration: orthogonal box, NVE (mdmode=1), closed-form
-nonbond, cached term lists, QEq off / full CG (isQEq=1) / extended
-Lagrangian (isQEq=2), the pair sweep as the only nonbond and QEq engine.
+Ported configuration: orthogonal box; mdmodes 0, 1, 4-8 (and 10 through
+`opt.conjugate_gradient`); closed-form nonbond; cached term lists; QEq off
+/ full CG (isQEq=1) / extended Lagrangian (isQEq=2); the electric field
+and spring restraints; the pair sweep as the only nonbond and QEq engine.
 Anything else raises NotImplementedError.  Steps run one per host
-iteration (`block_steps` is not used).
+iteration (`block_steps` is accepted and not used).
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ import torch
 from . import neighbors, qeq, reax, units
 from .config import RunConfig
 from .ffield import ForceField, effective_maxrc
+from .io import refbin, traj
 from .ops import pairsweep
 from .system import State
+from .utils.timers import RunProfile, Timers
 
 
 def _round_up(x, m):
@@ -86,6 +91,24 @@ def _skinned_cutoffs(ffd, rctap, skin):
     rctap2_ext = torch.tensor((rctap + skin) ** 2, dtype=rc2b.dtype,
                               device=rc2b.device)
     return rc2b_ext, rctap2_ext
+
+
+def _bond_table_from(bo, nbrs, gid, img, bo_cutoff):
+    """(partner gids, bond orders, counts) rows compacted to the front
+    (ref: WriteBND fileio.F90:27-148, BNDcutoff=0.3)."""
+    keep = bo.mask & (bo.bo[..., 0] > bo_cutoff)
+    idx = torch.where(bo.mask, nbrs.idxb, 0)
+    gids = torch.where(keep, gid[img.owner[idx]], -1)
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    gids = torch.gather(gids, 1, order)
+    bos = torch.gather(torch.where(keep, bo.bo[..., 0], 0.0), 1, order)
+    return gids, bos, keep.sum(dim=1)
+
+
+# mdmodes of the reference main loop (ref: main.F90:25,45-61): 1 NVE, 0 and
+# 6 velocity redraws, 4 vsfact scaling, 5 scaling to treq, 7 per-element
+# scaling, 8 scaling when >5% off treq, 10 structural optimization
+MDMODES = (0, 1, 4, 5, 6, 7, 8, 10)
 
 
 @torch.no_grad()
@@ -155,29 +178,34 @@ class Engine:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
+        dtype = dtype or getattr(torch, cfg.dtype)
+        if device.type == "cuda" and dtype != torch.float32:
+            raise ValueError(
+                f"Engine(device='cuda', dtype={dtype}): the CUDA sweep "
+                "kernels are float32; pass --dtype float32 (dtype="
+                "torch.float32), or run float64 on the CPU")
         H = state.H.cpu().numpy()
         missing = [name for cond, name in (
-            (cfg.mdmode != 1, f"mdmode={cfg.mdmode} (only NVE, mdmode=1)"),
+            (cfg.mdmode not in MDMODES, f"mdmode={cfg.mdmode}"),
             (cfg.isQEq not in (0, 1, 2), f"isQEq={cfg.isQEq}"),
             (cfg.isPQEq, "PQEq"),
             (ff.is_lg, "LG dispersion"),
-            (cfg.isEfield, "the electric field"),
-            (bool(cfg.spring_const), "spring restraints"),
             (not cfg.term_cache, "uncached many-body terms (term_cache)"),
             (cfg.tighten_lists, "tighten_lists"),
             (cfg.nonbond_closed_form is False,
              "the interpolation-table nonbond path"),
             (cfg.pair_kernel is False, "the ELL and dense nonbond/QEq forms"),
-            (cfg.save_run_profile, "the run profile"),
             (not np.allclose(H, np.diag(np.diag(H))), "a triclinic box"),
         ) if cond]
         if missing:
             raise NotImplementedError(
                 "rxmd_tpu_torch has no path for " + ", ".join(missing))
+        if cfg.mdmode == 0:
+            cfg.isQEq = 1      # ref: init.F90:56-63
         self.ff = ff
         self.cfg = cfg
         self.device = device
-        self.dtype = dtype or getattr(torch, cfg.dtype)
+        self.dtype = dtype
         rctap = units.RCTAP0
         self.rctap = rctap
         self.ffd = reax.ffdev_from(ff, dtype=self.dtype, rctap=rctap,
@@ -233,6 +261,20 @@ class Engine:
         # per-phase CUDA-event timing: set to a PhaseTimer to record
         self.phases = None
 
+        # spring restraints toward the initial configuration
+        # (ref: SpringForce pot.F90:95-110, ipos init.F90:231-232)
+        self.ipos = self.state.pos if cfg.spring_const else None
+        self._spring_mask = (
+            torch.isin(self.state.types,
+                       torch.as_tensor(list(cfg.spring_types),
+                                       dtype=torch.int64, device=device))
+            if cfg.spring_const and cfg.spring_types
+            else torch.ones((state.n,), dtype=torch.bool, device=device))
+
+        # per-phase host wall-clock accounting (ref: it_timer
+        # module.F90:215-217, FinalizeMD report main.F90:128-186)
+        self.timers = Timers()
+
     def _phase(self, name):
         return (contextlib.nullcontext() if self.phases is None
                 else self.phases(name))
@@ -269,7 +311,9 @@ class Engine:
         gidf = torch.where(ok, self.state.gid[own].to(pos.dtype), -1.0)
         isprim = ((src < n) & ok).to(pos.dtype)
         okf = ok.to(pos.dtype)
-        soa = sm.slot_of_atom
+        # the targets whose rows are read: the plain sweep computes only
+        # these, the CUDA kernels every target
+        tidx = ps.target_index(pg, sm.slot_of_atom)
         qeq_fn, nb_fn = self._qeq_fn, self._nb_fn
         sweep = self.pair_sweep
 
@@ -288,14 +332,15 @@ class Engine:
 
             @staticmethod
             def sweep3(hs, ht, qc):
-                out = sweep(pg, PairOps.qeq_planes(hs, ht, qc), qeq_fn)
-                rows = ps.gather_rows(pg, out, soa)
+                out = sweep(pg, PairOps.qeq_planes(hs, ht, qc), qeq_fn,
+                            rows=tidx)
+                rows = out[:, tidx]
                 return rows[0], rows[1], rows[2]
 
             @staticmethod
             def nonbond(q):
-                out = sweep(pg, PairOps.nonbond_planes(q), nb_fn)
-                return ps.gather_rows(pg, out, soa)
+                out = sweep(pg, PairOps.nonbond_planes(q), nb_fn, rows=tidx)
+                return out[:, tidx]
 
         return PairOps
 
@@ -335,25 +380,126 @@ class Engine:
             return res.q, q, torch.zeros_like(qsfv), res.iters
         return res.q, qsfp, qsfv, res.iters
 
-    def _forces(self, pos, q, s: State, lists, pair_ops, with_virial):
+    def _potential(self, pos, q, s: State, nbrs, lists, pair_ops,
+                   with_virial):
+        """Potential energy components, forces [and virial]: the nonbond
+        sweep's rows spliced into the bonded terms' autograd pass."""
         with self._phase("nonbond"):
             ext_nb = self._external_nonbond(pair_ops, q, s.types, with_virial)
         with self._phase("bonded"):
             return reax.energy_and_forces(
-                pos, q, s.H, s.types, s.gid, self.img, self.nbrs, self.ffd,
+                pos, q, s.H, s.types, s.gid, self.img, nbrs, self.ffd,
                 lists, with_virial=with_virial, external_nonbond=ext_nb)
 
-    # ------------------------------------------------------------------
+    def _external_forces(self, pos, q):
+        """Electric-field and spring forces, or None without either."""
+        cfg = self.cfg
+        f_extra = None
+        if cfg.isEfield:
+            # constant-field force on the core charges (ref:
+            # module.F90:359-383); PQEq's shell charges are not ported
+            f_extra = torch.zeros_like(pos)
+            f_extra[:, cfg.eFieldDir] = (-q * cfg.eFieldStrength
+                                         * units.EEV_KCAL)
+        if cfg.spring_const:
+            # harmonic restraint toward the initial positions
+            # (ref: SpringForce pot.F90:95-110)
+            fs = -cfg.spring_const * (pos - self.ipos)
+            fs = torch.where(self._spring_mask[:, None], fs, 0.0)
+            f_extra = fs if f_extra is None else f_extra + fs
+        return f_extra
+
+    def _forces(self, pos, q, s: State, nbrs, lists, pair_ops, with_virial):
+        out = self._potential(pos, q, s, nbrs, lists, pair_ops, with_virial)
+        f_extra = self._external_forces(pos, q)
+        if f_extra is None:
+            return out
+        f = out[1] + f_extra
+        if with_virial:
+            # the reference includes every force in the Σ pos·f stress
+            # accumulation (pot.F90:60-72)
+            return out[0], f, out[2] + torch.einsum("ia,ib->ab", f_extra,
+                                                    pos)
+        return out[0], f
+
+    def _thermostat(self, s: State, do_scale):
+        """mdmode-dispatched velocity scaling (ref: main.F90:45-61); a new
+        State, the old one's tensors untouched.  Velocities at rest (zero
+        kinetic energy, as geninit writes them) have no temperature to
+        scale and stay at rest; rxmd_tpu's factor sqrt(treq/0) * 0 makes
+        them NaN there."""
+        cfg = self.cfg
+        if not do_scale or cfg.mdmode not in (4, 5, 7, 8):
+            return s
+        v = s.vel
+        if cfg.mdmode == 4:
+            v = cfg.vsfact * v
+        elif cfg.mdmode == 5:
+            ke = torch.sum(self.hmas[s.types] * torch.sum(v * v, dim=1))
+            gke = ke / s.n
+            ctmp = (self.treq_red * units.UTEMP0) / (gke * units.UTEMP)
+            v = torch.where(ke > 0, torch.sqrt(ctmp), 1.0) * v
+        elif cfg.mdmode == 7:
+            # per-element rescale to treq (ref: main.F90:722-763); elements
+            # with one atom or none get factor 0, as in rxmd_tpu
+            nso = self.hmas.shape[0]
+            cnt = torch.zeros(nso, dtype=v.dtype, device=v.device).index_add_(
+                0, s.types, torch.ones_like(v[:, 0]))
+            ket = torch.zeros(nso, dtype=v.dtype, device=v.device).index_add_(
+                0, s.types, self.hmas[s.types] * torch.sum(v * v, dim=1))
+            ctmp = torch.where(cnt > 1.0, ket / torch.clamp(cnt, min=1.0),
+                               1.0)
+            scale = torch.sqrt((self.treq_red * units.UTEMP0)
+                               / (ctmp * units.UTEMP))
+            fac = torch.where(cnt > 1.0, torch.where(ket > 0, scale, 1.0),
+                              0.0)
+            v = self._zero_momentum(s.types, fac[s.types][:, None] * v)
+        else:
+            # rescale only if >5% off target (ref: main.F90:684-718)
+            ke = torch.sum(self.hmas[s.types] * torch.sum(v * v, dim=1)) / s.n
+            ctmp = torch.sqrt((self.treq_red * units.UTEMP0)
+                              / (ke * units.UTEMP))
+            need = (ke > 0) & (torch.abs(ctmp - 1.0) > 0.05)
+            v = torch.where(need, self._zero_momentum(s.types, ctmp * v), v)
+        return dataclasses.replace(s, vel=v)
+
+    def _zero_momentum(self, types, v):
+        """Remove center-of-mass momentum (ref: main.F90:766-797)."""
+        m = (2.0 * self.hmas)[types]
+        vcm = torch.sum(m[:, None] * v, dim=0) / torch.sum(m)
+        return v - vcm[None, :]
+
     @torch.no_grad()
-    def _rebuild(self, s: State):
-        """Wrap positions into the box, rebuild the skinned neighbor lists,
-        the cached many-body lists (slackened gates) and the slot layout."""
+    def remove_angular_momentum(self):
+        """Remove rigid rotation about the center of mass: subtract
+        (I^-1 L) x r from every velocity (what the reference's dead
+        `angular_momentum`, main.F90:480-553, documents; as rxmd_tpu)."""
+        s = self.state
+        m = (2.0 * self.hmas)[s.types]
+        com = torch.sum(m[:, None] * s.pos, dim=0) / torch.sum(m)
+        dr = s.pos - com
+        L = torch.sum(m[:, None] * torch.linalg.cross(dr, s.vel, dim=-1),
+                      dim=0)
+        r2 = torch.sum(dr * dr, dim=1)
+        inert = (torch.eye(3, dtype=s.pos.dtype, device=s.pos.device)
+                 * torch.sum(m * r2)
+                 - torch.einsum("i,ia,ib->ab", m, dr, dr))
+        omega = torch.linalg.solve(inert, L)
+        self.state = dataclasses.replace(
+            s, vel=s.vel - torch.linalg.cross(omega[None, :].expand_as(dr),
+                                              dr, dim=-1))
+
+    # ------------------------------------------------------------------
+    def _build_lists(self, pos, s: State, slack, margin):
+        """Skinned neighbor lists, the angle / torsion / hbond lists with
+        gates scaled by `slack` and `margin`, and the slot layout, for
+        wrapped positions `pos`.  Raises on any overflow; returns
+        (nbrs, (angle, torsion, hbond) cut to their counts, slot map)."""
         with self._phase("rebuild"):
-            pos = self._wrap(s.pos, s.H)
             nbrs = self._build_nbrs(pos, s.H, s.types)
             bo = reax.bond_order(pos, s.H, s.types, self.img, nbrs, self.ffd)
             amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
-            kw = dict(slack=self.term_slack, margin=self.term_margin)
+            kw = dict(slack=slack, margin=margin)
             caps = self.caps
             al = reax.build_angle_list(s.types, self.img, nbrs, bo, amask,
                                        self.ffd, cap=caps["ang"],
@@ -368,22 +514,32 @@ class Engine:
                                        kh=caps["kh"], rowcap=caps["hb_row"],
                                        **kw)
             sm = self._bin_pair_slots(pos, s.H)
+        mb, mnb = neighbors.check_overflow(nbrs)
+        self.timers.peak("bonded nbr list", mb, self.kb)
+        self.timers.peak("nonbonded nbr list", mnb, self.knb)
+        lists = (al, tl, hl)
+        self._check_list_overflow(lists)
+        self._check_slot_overflow(sm)
+        return nbrs, tuple(_trim(lst) for lst in lists), sm
+
+    @torch.no_grad()
+    def _rebuild(self, s: State):
+        """Wrap positions into the box, rebuild the skinned neighbor lists,
+        the cached many-body lists (slackened gates) and the slot layout."""
+        pos = self._wrap(s.pos, s.H)
+        self.nbrs, self.tlists, self._slotmap = self._build_lists(
+            pos, s, self.term_slack, self.term_margin)
         self.state = dataclasses.replace(s, pos=pos)
-        self.nbrs, self.tlists, self._slotmap = nbrs, (al, tl, hl), sm
-        neighbors.check_overflow(nbrs)
-        self._check_list_overflow()
-        self._check_slot_overflow()
-        self.tlists = tuple(_trim(lst) for lst in self.tlists)
         self._pos_ref = pos
         self._steps_since_rebuild = 0
         self._maxdr2_dev = None
 
-    def _check_list_overflow(self):
+    def _check_list_overflow(self, lists):
         """Abort on interaction-list overflow like the reference
         (ref: main.F90:402-407), naming every cap that tripped."""
         names = ("ang", "tor", "hbf")
-        counts = [int(lst.cnt) for lst in self.tlists]
-        caps = [lst.valid.shape[0] for lst in self.tlists]
+        counts = [int(lst.cnt) for lst in lists]
+        caps = [lst.valid.shape[0] for lst in lists]
         errors = []
         rows = [nm + "_row" if nm != "hbf" else "hb_row"
                 for nm, c in zip(names, counts) if c >= reax.ROW_OVERFLOW]
@@ -398,9 +554,12 @@ class Engine:
             raise RuntimeError("interaction-list overflow: "
                                + "; ".join(errors) + f" (caps={self.caps}; "
                                "ref aborts too, main.F90:402-407)")
+        for name, c, cap in zip(("angle list", "torsion list", "hbond list"),
+                                counts, caps):
+            self.timers.peak(name, c, cap)
 
-    def _check_slot_overflow(self):
-        ov = int(self._slotmap.overflow)
+    def _check_slot_overflow(self, sm):
+        ov = int(sm.overflow)
         if ov > self.pairk.ccap:
             raise RuntimeError(
                 f"pair-sweep cell overflow: {ov} > ccap={self.pairk.ccap} "
@@ -420,7 +579,8 @@ class Engine:
                                            s.types, pair_ops, isqeq=isq)
         if self.cfg.isQEq == 2:
             qsfp, qsfv = q, torch.zeros_like(qsfv)
-        comps, f = self._forces(s.pos, q, s, self.tlists, pair_ops, False)
+        comps, f = self._forces(s.pos, q, s, self.nbrs, self.tlists, pair_ops,
+                                False)
         self.state = dataclasses.replace(s, q=q, qsfp=qsfp, qsfv=qsfv)
         self.force = f
         self.comps = comps
@@ -434,7 +594,7 @@ class Engine:
         """One velocity-Verlet MD step on the engine state."""
         cfg = self.cfg
         dt = self.dt
-        s = self.state
+        s = self._thermostat(self.state, self.state.step % cfg.sstep == 0)
         f = self.force
         dthm = self.dthm[s.types][:, None]
         # first half kick (ref: main.F90:64, vkick main.F90:192-207)
@@ -442,6 +602,10 @@ class Engine:
         # extended-Lagrangian charge DOF leapfrog (ref: main.F90:67-68)
         qsfv = s.qsfv + 0.5 * dt * self.lex_w2 * (s.q - s.qsfp)
         qsfp = s.qsfp + dt * qsfv
+        if cfg.isEfield:
+            # the field pumps net momentum into the charged system;
+            # correct it every step (ref: main.F90:70-71)
+            v = self._zero_momentum(s.types, v)
         # drift (ref: main.F90:72); wrapping happens at list rebuilds
         pos = s.pos + dt * v
 
@@ -451,7 +615,8 @@ class Engine:
                                                pair_ops)
         else:
             q, nq = s.q, 0
-        comps, f2, w = self._forces(pos, q, s, self.tlists, pair_ops, True)
+        comps, f2, w = self._forces(pos, q, s, self.nbrs, self.tlists,
+                                    pair_ops, True)
 
         # per-step stress accumulation: kinetic m v_a v_b with the
         # half-kicked velocity + potential virial (ref: main.F90:86-94)
@@ -473,18 +638,39 @@ class Engine:
         self.force, self.comps, self.nqeq = f2, comps, nq
         self._steps_since_rebuild += 1
 
-    def run(self, nsteps=None, log=print):
+    def run(self, nsteps=None, log=print, writer=None):
         """Host driver loop (ref: main.F90:37-103): one step per
-        iteration, rebuilding on the cadence or when the drift monitor
-        (polled every `drift_check_every` steps) trips."""
+        iteration; velocity redraws (mdmodes 0 and 6), PRINTE every pstep,
+        `writer(state, comps)` every fstep, and a rebuild on the cadence or
+        when the drift monitor (polled every `drift_check_every` steps)
+        trips.  Returns the loop's wall seconds."""
         cfg = self.cfg
+        tm = self.timers
         nsteps = nsteps if nsteps is not None else cfg.ntime_step
         if not hasattr(self, "force"):
-            self.prepare()
+            if cfg.mdmode in (0, 6):
+                self.init_velocity()
+            with tm("first force"):
+                self.prepare()
+        profile = (RunProfile(cfg.run_profile_path, self.state.n)
+                   if cfg.save_run_profile else None)
         t0 = time.perf_counter()
-        for _ in range(nsteps):
-            if self.state.step % cfg.pstep == 0 and log:
-                log(self.printe_line())
+        for k in range(nsteps):
+            stepno = self.state.step
+            if cfg.mdmode in (0, 6) and stepno % cfg.sstep == 0 and k > 0:
+                # periodic Maxwell-Boltzmann redraw (ref: main.F90:53-54)
+                self.init_velocity(seed=stepno)
+            if stepno % cfg.pstep == 0:
+                nq = int(self.nqeq)
+                tm.count("QEq iterations", nq)
+                if log:
+                    with tm("PRINTE"):
+                        log(self.printe_line())
+                if profile is not None:
+                    profile.record(stepno, nq)
+            if writer is not None and stepno % cfg.fstep == 0:
+                with tm("trajectory output"):
+                    writer(self.state, self.comps)
             ssr = self._steps_since_rebuild
             drifted = (self._maxdr2_dev is not None
                        and ssr >= self.drift_check_from
@@ -492,16 +678,74 @@ class Engine:
                        and float(self._maxdr2_dev) ** 0.5
                        > 0.8 * self.drift_trigger)
             if ssr >= self.rebuild_every or drifted:
-                self._rebuild(self.state)
-            self.step()
+                if drifted:
+                    tm.count("drift-triggered rebuilds", 1)
+                with tm("neighbor rebuild"):
+                    self._rebuild(self.state)
+            with tm("MD step (dispatch)"):
+                self.step()
+            tm.count("MD steps", 1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
+        tm.add("MD loop (wall)", wall, nsteps)
+        if profile is not None:
+            profile.close()
         if log:
             log(self.printe_line())
             log(f"total (sec): {wall:.4f}  "
                 f"atom-steps/s: {self.state.n * nsteps / wall:.3e}")
         return wall
+
+    def summary(self):
+        """End-of-run per-phase timing / occupancy / memory report
+        (ref: FinalizeMD main.F90:128-186)."""
+        return self.timers.summary_lines(device=self.device)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def bond_table(self, bo_cutoff=0.3):
+        """(partner gids (N,kb), bond orders, counts) for .bnd output
+        (ref: WriteBND fileio.F90:27-148, BNDcutoff=0.3)."""
+        s = self.state
+        nbrs = self._build_nbrs(s.pos, s.H, s.types)
+        bo = reax.bond_order(s.pos, s.H, s.types, self.img, nbrs, self.ffd)
+        return _bond_table_from(bo, nbrs, s.gid, self.img, bo_cutoff)
+
+    def write_frame(self, base_path: str):
+        """Write configured trajectory formats (ref: OUTPUT fileio.F90:5-20)."""
+        cfg = self.cfg
+        names = self.ff.atom_names
+        if cfg.is_xyz:
+            traj.write_xyz(base_path + ".xyz", self.state, names)
+        if cfg.is_pdb:
+            traj.write_pdb(base_path + ".pdb", self.state, names)
+        if cfg.is_bondfile:
+            g, b, c = self.bond_table()
+            traj.write_bnd(base_path + ".bnd", self.state, g, b, c)
+        if cfg.is_binary:
+            refbin.write_rxff_bin(base_path + ".bin", self.state)
+
+    @torch.no_grad()
+    def stress(self):
+        """Stress tensor [GPa] of the current state: kinetic term plus the
+        potential virial (the bonded terms' autograd strain gradient plus
+        the nonbond sweep's pair virial rows) over the volume, on the
+        current lists and slot layout (ref: pot.F90:65-72 +
+        main.F90:86-94).  Field and spring forces are not in it, as in
+        rxmd_tpu's strain-derivative stress.  Symmetric 3x3 numpy array;
+        pressure = trace/3."""
+        if not hasattr(self, "nbrs"):
+            self._rebuild(self.state)
+        s = self.state
+        pair_ops = self._make_pair_ops(s.pos, s.H, s.types, self._slotmap)
+        _, _, w = self._potential(s.pos, s.q, s, self.nbrs, self.tlists,
+                                  pair_ops, True)
+        m = (2.0 * self.hmas)[s.types]
+        kin = torch.einsum("i,ia,ib->ab", m, s.vel, s.vel)
+        vol = torch.abs(torch.linalg.det(s.H))
+        sym = 0.5 * (w + w.T)
+        return ((kin + sym) / vol * units.USTRS).cpu().numpy()
 
     # ------------------------------------------------------------------
     def pressure_gpa(self, reset=True):

@@ -222,8 +222,8 @@ def _target_slots(grid: PairGrid):
             + np.arange(per)[None, :]).reshape(-1)
 
 
-def gather_rows(grid: PairGrid, out, slot_of_atom):
-    """Per-primary-atom rows of a sweep output: map atom -> target index."""
+def target_index(grid: PairGrid, slot_of_atom):
+    """Target index of each primary atom's slot."""
     ccap = grid.ccap
     nz = grid.nc[2]
     ny = grid.nc[1]
@@ -232,7 +232,12 @@ def gather_rows(grid: PairGrid, out, slot_of_atom):
     cy = colslot % ny - grid.tc_lo[1]
     z = slot_of_atom % (nz * ccap) - grid.zb_lo * ccap
     p = cx * grid.tc_n[1] + cy
-    return out[:, p * (grid.n_zb * grid.C) + z]
+    return p * (grid.n_zb * grid.C) + z
+
+
+def gather_rows(grid: PairGrid, out, slot_of_atom):
+    """Per-primary-atom rows of a sweep output: map atom -> target index."""
+    return out[:, target_index(grid, slot_of_atom)]
 
 
 # ---------------------------------------------------------------------------
@@ -300,9 +305,9 @@ def _taper(dr2, dr1, ctap):
     return tap, dtap
 
 
-def _pair_terms(fn: PairFn, r, s):
-    """Per-pair output rows (out_k, P) of `fn` for target planes r (K, P)
-    and source planes s (K, P); pairs that fail a gate contribute 0."""
+def _pair_geometry(fn: PairFn, r, s):
+    """Displacement, gate, distance, taper and type parameters of the
+    pairs of target planes r (K, P) and source planes s (K, P)."""
     d = r[:3] - s[:3]
     dr2 = torch.sum(d * d, dim=0)
     nso = fn.table.shape[0]
@@ -313,12 +318,28 @@ def _pair_terms(fn: PairFn, r, s):
     dr2s = torch.where(ok, dr2, 1.0)
     dr1 = torch.sqrt(dr2s)
     tap, dtap = _taper(dr2s, dr1, fn.ctap)
+    return d, ok, dr2s, dr1, tap, dtap, prm
+
+
+def _qeq_weights_of(fn: PairFn, r, s):
+    """The QEq body's pair weights (2, P): the hessian element and the
+    hessian times the Est weight; its rows are these times the source's
+    hs, ht and q."""
+    _, ok, dr2s, dr1, tap, _, prm = _pair_geometry(fn, r, s)
+    gamij = torch.where(ok, prm[:, 1], 1.0)
+    hess = units.CCLMB0_QEQ * tap * (dr1 * dr2s + gamij) ** (-1.0 / 3.0)
+    hess = torch.where(ok, hess, 0.0)
+    estw = torch.where(s[4] > 0.5, 1.0, 0.5)
+    return torch.stack([hess, hess * estw])
+
+
+def _pair_terms(fn: PairFn, r, s):
+    """Per-pair output rows (out_k, P) of `fn` for target planes r (K, P)
+    and source planes s (K, P); pairs that fail a gate contribute 0."""
     if fn.name == "qeq":
-        gamij = torch.where(ok, prm[:, 1], 1.0)
-        hess = units.CCLMB0_QEQ * tap * (dr1 * dr2s + gamij) ** (-1.0 / 3.0)
-        hess = torch.where(ok, hess, 0.0)
-        estw = torch.where(s[4] > 0.5, 1.0, 0.5)
-        return torch.stack([hess * s[5], hess * s[6], hess * estw * s[7]])
+        w = _qeq_weights_of(fn, r, s)
+        return w[[0, 0, 1]] * s[5:8]
+    d, ok, dr2s, dr1, tap, dtap, prm = _pair_geometry(fn, r, s)
     ok = ok & (r[4] != s[4])                      # ref: pot.F90:715
     gamw = torch.where(ok, prm[:, 1], 1.0)
     alpha, rvdwi, dij = prm[:, 2], prm[:, 3], prm[:, 4]
@@ -347,30 +368,41 @@ def _pair_terms(fn: PairFn, r, s):
 
 
 # the plain sweep's last pair list per (grid, rc2, device), with the
-# position and type planes it came from (see _pair_list); clear it to time
-# the whole plain sweep
+# position and type planes and the target rows it came from (see
+# _pair_list); clear it to time the whole plain sweep
 plain_pairs = {}
 
 
-def _pair_list(grid: PairGrid, packed, rc2: float, chunk: int):
+def _same_rows(a, b):
+    if a is None or b is None:
+        return a is b
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _pair_list(grid: PairGrid, packed, rc2: float, chunk: int, rows=None):
     """(target index, target slot, source slot) of every pair of filled
-    slots within rc2.  Each filled target slot takes, per stencil column,
-    the filled slots of its own z-cell +- zreach cells, where every partner
-    within the cutoff lies.  The last list per (grid, rc2, device) is kept
-    with the position and type planes it came from: a CG solve sweeps the
-    same positions once per iteration."""
+    slots within rc2, for the filled targets among `rows` (all targets if
+    None).  Each filled target slot takes, per stencil column, the filled
+    slots of its own z-cell +- zreach cells, where every partner within the
+    cutoff lies.  The last list per (grid, rc2, device) is kept with the
+    position and type planes and the rows it came from: a CG solve sweeps
+    the same positions once per iteration."""
     dev = packed.device
     key = (grid, rc2, dev)
     hit = plain_pairs.get(key)
-    if hit is not None and torch.equal(hit[0], packed[:4]):
-        return hit[1]
+    if (hit is not None and _same_rows(hit[1], rows)
+            and torch.equal(hit[0], packed[:4])):
+        return hit[2]
     ccap, nzc = grid.ccap, grid.nc[2] * grid.ccap
     w = (2 * grid.zreach + 1) * ccap
     tslot = torch.as_tensor(_target_slots(grid), device=dev)
     coloffs = torch.as_tensor(_target_tables(grid)[1], dtype=torch.int64,
                               device=dev)
     filled = torch.nonzero(packed[0] != FAR).squeeze(1)       # sorted slots
-    real = torch.nonzero(packed[0, tslot] != FAR).squeeze(1)  # target index
+    if rows is None:
+        real = torch.nonzero(packed[0, tslot] != FAR).squeeze(1)
+    else:
+        real = rows[packed[0, tslot[rows]] != FAR]            # target index
     ts = tslot[real]
     nb = (ts - ts % nzc)[:, None] + coloffs[None, :]          # (T, cols)
     ws = nb + ((ts % nzc) // ccap - grid.zreach)[:, None] * ccap
@@ -394,24 +426,59 @@ def _pair_list(grid: PairGrid, packed, rc2: float, chunk: int):
         parts.append((real[sl][bi], ts[sl][bi], cand[bi, ci]))
     pairs = tuple(torch.cat(x) for x in zip(*parts)) if parts else (
         torch.zeros(0, dtype=torch.int64, device=dev),) * 3
-    plain_pairs[key] = (packed[:4].clone(), pairs)
+    plain_pairs[key] = (packed[:4].clone(), rows, pairs)
     return pairs
 
 
-def sweep_plain(grid: PairGrid, packed, fn: PairFn, chunk: int = None):
+# the QEq pair weights (hessian, hessian x Est weight) of the last pair list
+# per (grid, rc2, device), with the list and constants they came from
+plain_qeq_weights = {}
+
+
+def _qeq_weights(grid: PairGrid, packed, fn: PairFn, pairs, per: int):
+    """`_qeq_weights_of` on `pairs`.  They depend on nothing but the
+    position and type planes that key the pair list, so a CG solve
+    computes them once and reuses them every iteration."""
+    key = (grid, fn.rc2, packed.device)
+    hit = plain_qeq_weights.get(key)
+    if (hit is not None and hit[0] is pairs and hit[1] is fn.table
+            and hit[2] is fn.ctap):
+        return hit[3]
+    _, tsl, src = pairs
+    w = torch.cat([_qeq_weights_of(fn, packed[:5, tsl[p0:p0 + per]],
+                                   packed[:5, src[p0:p0 + per]])
+                   for p0 in range(0, tsl.shape[0], per)]
+                  or [packed.new_zeros((2, 0))], dim=1)
+    plain_qeq_weights[key] = (pairs, fn.table, fn.ctap, w)
+    return w
+
+
+def sweep_plain(grid: PairGrid, packed, fn: PairFn, rows=None,
+                chunk: int = None):
     """The sweep in plain PyTorch: the kernel's function on the same slot
-    layout, output (out_k, n_targets), any float dtype.
+    layout, output (out_k, n_targets), any float dtype.  With `rows` (a
+    tensor of target indices) only those targets' rows are computed, each
+    exactly as without it, and the other rows are 0.
 
     Padded slots contribute exactly zero in the kernel (FAR coordinates
     fail the cutoff), so only the pairs of filled slots within the cutoff
-    (`_pair_list`) reach the pair function, in chunks."""
+    (`_pair_list`) reach the pair function, in chunks; the QEq body's
+    pair weights are kept per pair list (`_qeq_weights`)."""
     dev = packed.device
     if chunk is None:
         chunk = 1 << (25 if dev.type == "cuda" else 22)
-    tgt, tsl, src = _pair_list(grid, packed, fn.rc2, chunk)
+    pairs = _pair_list(grid, packed, fn.rc2, chunk, rows)
+    tgt, tsl, src = pairs
     out = torch.zeros((fn.out_k, grid.n_targets), dtype=packed.dtype,
                       device=dev)
     per = max(1, chunk // 16)
+    if fn.name == "qeq":
+        w = _qeq_weights(grid, packed, fn, pairs, per)
+        for p0 in range(0, tgt.shape[0], per):
+            sl = slice(p0, p0 + per)
+            vals = w[[0, 0, 1], sl] * packed[5:8, src[sl]]
+            out.index_add_(1, tgt[sl], vals)
+        return out
     for p0 in range(0, tgt.shape[0], per):
         sl = slice(p0, p0 + per)
         vals = _pair_terms(fn, packed[:, tsl[sl]], packed[:, src[sl]])
@@ -535,13 +602,14 @@ def _launch(grid: PairGrid, packed, fn: PairFn):
     return out
 
 
-def sweep(grid: PairGrid, packed, fn: PairFn):
+def sweep(grid: PairGrid, packed, fn: PairFn, rows=None):
     """Run one sweep: (out_k, n_targets) where target t = (column p,
     z-block zb, slot c) maps to slot col_base[p] + (zb_lo + zb*block_zc)*
-    ccap + c.  A CUDA tensor goes through the CUDA kernel (or raises); a
-    CPU tensor through `sweep_plain`."""
+    ccap + c.  A CUDA tensor goes through the CUDA kernel (or raises),
+    which computes every target; a CPU tensor through `sweep_plain`, which
+    computes only `rows` when given (the targets the caller reads)."""
     if packed.device.type == "cuda":
         return _launch(grid, packed, fn)
     if packed.device.type == "cpu":
-        return sweep_plain(grid, packed, fn)
+        return sweep_plain(grid, packed, fn, rows)
     raise ValueError(f"no pair sweep for device {packed.device}")

@@ -1,0 +1,161 @@
+"""Structural optimization: nonlinear conjugate gradient (mdmode=10), the
+single-device counterpart of rxmd_tpu.opt.
+
+Reimplements the reference optimizer (ref: src/cg.F90:26-393): Polak-Ribiere
+style CG over atom positions, bracketing by step doubling from 1e-2/N with
+Wolfe-condition tests, golden-section line minimization, convergence when
+|dPE| <= ftol * N.  Each energy evaluation re-solves QEq, exactly like
+EvaluateEnergyWithStep (ref: cg.F90:358-387).
+
+The line-search control flow runs on the host and reads one float per
+probe.  Each probe builds its lists fresh: the neighbor lists, the angle /
+torsion / hbond lists with exact gates (slack 1, margin 0: what rxmd_tpu's
+uncached terms evaluate) and the pair sweep's slot layout, then a full CG
+and the forces, through the same sweep kernels as an MD step.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+GOLD = 0.5 * (np.sqrt(5.0) - 1.0)
+
+# reference line-search constants (ref: cg.F90:6-16)
+CG_MAX_BRACKET = 20       # CG_MaxBracketLoop
+CG_MAX_LINEMIN = 100      # CG_MaxLineMinLoop
+CG_WC1 = 1e-4             # Armijo constant
+CG_GSTOL = 1e-6           # golden-section interval tolerance (per atom)
+
+
+class _MDAdapter:
+    """Single-device engine: positions are a plain (n, 3) tensor."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.n = engine.state.n
+
+    def positions(self):
+        return self.engine.state.pos
+
+    @torch.no_grad()
+    def evaluate(self, pos):
+        """(PE, forces, charges) at `pos`, leaving `pos` untouched: a
+        wrapped copy, fresh exact-gate lists and slot layout (overflow
+        checked once), a full CG (isQEq=1), then the forces."""
+        e = self.engine
+        s = e.state
+        pw = e._wrap(pos, s.H)
+        nbrs, lists, sm = e._build_lists(pw, s, slack=1.0, margin=0.0)
+        pair_ops = e._make_pair_ops(pw, s.H, s.types, sm)
+        q, _, _, _ = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s.types, pair_ops,
+                                 isqeq=1)
+        comps, f = e._forces(pw, q, s, nbrs, lists, pair_ops, False)
+        return comps[0], f, q
+
+    def commit(self, pos, q):
+        self.engine.state = dataclasses.replace(self.engine.state,
+                                                pos=pos, q=q)
+
+
+def _make_adapter(engine):
+    from .md import Engine as MDEngine
+    if isinstance(engine, MDEngine):
+        return _MDAdapter(engine)
+    raise TypeError(
+        f"conjugate_gradient needs md.Engine, got {type(engine).__name__} "
+        "(rxmd_tpu_torch has no sharded engine)")
+
+
+def _dot(a, b):
+    return float(torch.sum(a * b))
+
+
+def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
+                       max_bracket: int = 50, log=print, writer=None):
+    """Minimize the potential energy of the engine's state in place
+    (ref: ConjugateGradient cg.F90:26-98)."""
+    ad = _make_adapter(engine)
+    cfg = engine.cfg
+    ftol = cfg.ftol if ftol is None else ftol
+    n = ad.n
+
+    pos = ad.positions()
+    pe_, g, q = ad.evaluate(pos)
+    pe = float(pe_)
+    p = g                                   # initial direction (cg.F90:50)
+    if log:
+        log(f"Start structural optimization. ftol={ftol:.2e} PE0={pe:.6f}")
+
+    def e_at(alpha, pos, p):
+        e, _, _ = ad.evaluate(pos + alpha * p)
+        return float(e)
+
+    def bracket(pos, p, pe0, f0):
+        """Double the step from 1e-2/N until the Armijo test fails
+        (ref: BracketSearchRange cg.F90:101-141 + WolfeConditions
+        cg.F90:144-208).  The reference's stop test reads
+        `.not.WolfeC1 .or. .not.WolfeC1` — i.e. only the Armijo rule
+        gates the bracket (the curvature bool is computed but unused);
+        we reproduce that observable behavior."""
+        stepl = 1e-2 / n
+        p_dot_f = _dot(p, f0)                      # p . force(x)
+        for _ in range(min(max_bracket, CG_MAX_BRACKET)):
+            stepl *= 2.0
+            e = e_at(stepl, pos, p)
+            armijo = e <= pe0 + p_dot_f * CG_WC1 * stepl
+            if not armijo:                         # bracket found
+                return stepl
+        return None
+
+    def golden(pos, p, b):
+        """Golden-section minimization on [0, b]: interval shrinks until
+        |a-d| <= CG_GStol/N, returns the right edge like the reference
+        (GoldenSectionSearch returns dx, cg.F90:242-281 + use at :232)."""
+        a = 0.0
+        x1 = b - GOLD * (b - a)
+        x2 = a + GOLD * (b - a)
+        f1 = e_at(x1, pos, p)
+        f2 = e_at(x2, pos, p)
+        for _ in range(CG_MAX_LINEMIN):
+            if abs(a - b) <= CG_GSTOL / n:
+                break
+            if f1 < f2:
+                b = x2
+            else:
+                a = x1
+            x1 = b - GOLD * (b - a)
+            x2 = a + GOLD * (b - a)
+            f1 = e_at(x1, pos, p)
+            f2 = e_at(x2, pos, p)
+        return b
+
+    for it in range(max_iter):
+        b = bracket(pos, p, pe, g)
+        if b is None:
+            if log:
+                log(f"no bracket found at iter {it}; at a minimum")
+            break
+        alpha = golden(pos, p, b)
+        pos = pos + alpha * p
+        g_old = g
+        pe_old = pe
+        pe_, g, q = ad.evaluate(pos)
+        pe = float(pe_)
+        if writer:
+            writer(it, pos, pe)
+        if log:
+            log(f"CG iter {it:4d}: PE={pe:.8f} dPE={pe - pe_old:.3e} "
+                f"alpha={alpha:.3e}")
+        if abs(pe - pe_old) <= ftol * n:    # ref: cg.F90:75
+            if log:
+                log(f"Energy converged at iter {it}")
+            break
+        b1 = _dot(g_old, g_old)
+        b2 = _dot(g, g)
+        b3 = _dot(g, g_old)
+        p = (b2 - b3) / b1 * p + g          # ref: cg.F90:82-89
+
+    ad.commit(pos, q)
+    return pe

@@ -65,7 +65,10 @@ def test_ffdev_from_matches_jax_ffdev(ffs, dtype):
 
 def test_import_leaves_jax_out():
     code = ("import sys, rxmd_tpu_torch, rxmd_tpu_torch.md, "
-            "rxmd_tpu_torch.ops.pairsweep; "
+            "rxmd_tpu_torch.ops.pairsweep, rxmd_tpu_torch.__main__, "
+            "rxmd_tpu_torch.opt, rxmd_tpu_torch.io.traj, "
+            "rxmd_tpu_torch.io.refbin, rxmd_tpu_torch.io.checkpoint, "
+            "rxmd_tpu_torch.tools.geninit, rxmd_tpu_torch.utils.timers; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "import torch; "
             "assert not torch.backends.cuda.matmul.allow_tf32; "
@@ -91,8 +94,19 @@ def test_engine_on_cuda_without_a_card_raises():
         tmd.Engine(tf, st, tcfg.RunConfig(dtype="float32"), device="cuda")
 
 
+def test_float64_on_cuda_raises_at_construction(monkeypatch):
+    """The CUDA sweep kernels are float32: a float64 engine on a card must
+    fail in the constructor, naming the fix, not deep in the first sweep.
+    The card is mocked; the check runs before anything touches it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    tf, st = _state()
+    with pytest.raises(ValueError, match="--dtype float32"):
+        tmd.Engine(tf, st, tcfg.RunConfig(dtype="float64"), device="cuda")
+
+
+# mdmodes 0, 1, 4-8 and 10 are ported; 2, 3 and 9 are not reference modes
 @pytest.mark.parametrize("kw,what", [
-    (dict(mdmode=4), "mdmode=4"),
+    (dict(mdmode=3), "mdmode=3"),
     (dict(isPQEq=True), "PQEq"),
     (dict(pair_kernel=False), "ELL and dense"),
     (dict(nonbond_closed_form=False), "interpolation-table"),
