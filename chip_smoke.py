@@ -9,22 +9,28 @@ float32.  Each phase checks its results and raises on a failed check; the
 first failure ends the run with a non-zero exit code and no result line.
 
   1. device: torch's name for card 0, and nvidia-smi's name and power limit;
-  2. build: nvcc compiles rxmd_tpu_torch/csrc/pairsweep.cu for sm_90a;
-  3. kernels: each CUDA sweep against its plain PyTorch version on the card,
-     on the deck's real slot layout;
+  2. build: nvcc compiles rxmd_tpu_torch/csrc/pairsweep.cu for sm_90a and
+     prints ptxas's registers and spills per kernel;
+  3. kernels: on the deck's real slot layout and the engine's walk, each
+     CUDA kernel against its plain PyTorch version on the card (nonbond;
+     qeq_build: the same entries per row and h within 1e-5 of max|h|;
+     qeq_apply on the same list), build + apply and the nonbond kernel
+     against `sweep_plain`, each timed by CUDA events beside its plain
+     version and its bound, and the QEq apply beside torch.sparse.mm over
+     the same list;
   4. slice: prepare + --steps NVE steps with full-CG QEq (isQEq=1), PRINTE
-     lines; launch counts of both kernels; total energy against the same
-     steps run with the plain sweeps; and on the 168-atom cell, 5 steps on
-     the card against the float64 CPU run of the plain sweeps;
+     lines; launch counts: nonbond once a step, qeq_build once per QEq
+     solve, qeq_apply once per matvec; total energy against the same steps
+     run with the plain versions; and on the 168-atom cell, 5 steps on the
+     card against the float64 CPU run of the plain versions;
   5. timing, printed and never checked: atom-steps/s for isQEq=1 and 2, ms
-     per step by phase (CUDA events), ms per launch of each kernel beside its
-     plain version;
+     per step by phase (CUDA events);
   6. program: the port as users run it, at --mc: tools.geninit writes DAT/,
      then `__main__.main` (tests/data/rxmd_chon.in with CLI overrides) runs
      mdmode 5 from rxff.bin with frames in all four formats, restarts from
      rxff.npz (NVE), runs mdmode 7 with an electric field and springs, and
      opt.conjugate_gradient takes two iterations; each run's launch counts
-     of both kernels, its PRINTE lines and files are checked, and its
+     (as in phase 4), its PRINTE lines and files are checked, and its
      atom-steps/s, summary() table and optimizer seconds printed.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
@@ -48,11 +54,24 @@ CELL = os.path.join(DATA, "chon168.xyz")
 RXMD_IN = os.path.join(DATA, "rxmd_chon.in")
 SOURCE = "rxmd_tpu_torch/csrc/pairsweep.cu"
 REPLACES = "rxmd_tpu/ops/pairsweep.py:289"
+KERNELS = ("nonbond", "qeq_build", "qeq_apply")
 
 # kernel vs plain sweep, float32, same candidate pairs, other summation
 # order: the bars of tests/test_pairsweep.py (energy sums 2e-3 relative,
 # forces 2e-4 of max|f|, virial sums 2e-3 of max|W|, QEq rows 3e-4 of max)
 TOL_E, TOL_F, TOL_W, TOL_Q = 2e-3, 2e-4, 2e-3, 3e-4
+# the QEq list of the kernel against the plain build: the same pairs (both
+# gate on the same float32 distance), h within 1e-5 of max|h| (float32
+# taper and powf against PyTorch's, ~1e-6 of max|h| apart)
+TOL_H = 1e-5
+# the card's peak rates for the bounds: float32 outside the tensor cores
+# and HBM3 (the H100 SXM data sheet, at 700 W)
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# operations per pair that passes the gates, counted from csrc/pairsweep.cu
+# (each +, -, *, / and each sqrtf, powf, expf as one): nonbond_kernel's
+# pair body; the hessian element of qeq_fill_kernel; qeq_apply_kernel's
+# three products and sums and the image weight
+OPS_NONBOND, OPS_QEQ_BUILD, OPS_QEQ_APPLY = 101, 27, 7
 # per-step total energy of the kernel run against the plain-sweep run on
 # the card: both float32, so they part only through summation order and
 # CG stops; at 1e-4 relative that is ~10x above the float32 noise of a
@@ -113,9 +132,64 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def bound(nbytes, nops):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move nbytes and do nops float32 operations."""
+    tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def walk_candidates(grid, walk):
+    """Filled slots the walk tests: per target and stencil column, the
+    filled slots of the column's reach around the target's z-cell."""
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    dev = walk.tslot.device
+    ccap, nz = grid.ccap, grid.nc[2]
+    coloffs = torch.as_tensor(ps._target_tables(grid)[1], device=dev).long()
+    zr = torch.as_tensor(ps._reach_table(grid), device=dev).long()
+    start = walk.cell_start.long()
+    ts = walk.tslot.long()
+    tz = (ts % (nz * ccap)) // ccap
+    cb = ((ts - ts % (nz * ccap))[:, None] + coloffs) // ccap
+    z0 = torch.clamp(tz[:, None] - zr, min=0)
+    z1 = torch.clamp(tz[:, None] + zr, max=nz - 1)
+    return int((start[cb + z1 + 1] - start[cb + z0]).sum())
+
+
+def max_rel(got, ref):
+    """Largest |got - ref| of each row over that row's max(1, max|ref|)."""
+    err = (got.double() - ref.double()).abs().amax(dim=1)
+    return err / ref.double().abs().amax(dim=1).clamp(min=1.0)
+
+
+def check_nonbond(name, got, ref):
+    g, r = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    check(np.isfinite(g).all(), f"{name}: non-finite kernel rows")
+    for k in (0, 1):
+        check(abs(g[k].sum() - r[k].sum()) <= TOL_E * max(
+            1.0, abs(r[k].sum())), f"{name} energy row {k}")
+    check(np.abs(g[2:5] - r[2:5]).max() <= TOL_F * np.abs(
+        r[2:5]).max(), f"{name} forces")
+    w, wr = g[5:].sum(1), r[5:].sum(1)
+    check(np.abs(w - wr).max() <= TOL_W * max(
+        1.0, np.abs(wr).max()), f"{name} virial")
+    return float(np.abs(g - r).max())
+
+
+def check_qeq_rows(name, got, ref):
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite rows")
+    rel = max_rel(got, ref)
+    check(bool((rel <= TOL_Q).all()), f"{name}: rows within {TOL_Q} of max "
+          f"(got {rel.tolist()})")
+    return float((got.double() - ref.double()).abs().max())
+
+
 def phase_kernels(engine, seed):
-    """Each CUDA sweep against sweep_plain on the deck's slot layout.
-    Returns {name: dict(max_abs_err, ms, plain_ms)}."""
+    """Each CUDA kernel against its plain version on the deck's slot layout
+    and the engine's walk (the path `Engine.step` runs), then build + apply
+    and the nonbond kernel through `sweep` against `sweep_plain`.  Returns
+    {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)}."""
     from rxmd_tpu_torch.ops import pairsweep as ps
     e = engine
     e._rebuild(e.state)
@@ -127,49 +201,144 @@ def phase_kernels(engine, seed):
     q -= q.mean()
     hs, ht = rng.normal(size=(2, n))
     t = lambda a: torch.as_tensor(a, dtype=e.dtype, device=e.device)
-    grid, soa = e.pairk, e._slotmap.slot_of_atom
-    cases = (("nonbond", ops.nonbond_planes(t(q)), e._nb_fn),
-             ("qeq", ops.qeq_planes(t(hs), t(ht), t(q)), e._qeq_fn))
-    cand = (grid.tc_n[0] * grid.tc_n[1] * grid.n_zb * grid.C
-            * len(grid.cols) * grid.Wp)
-    ps.plain_pairs.clear()
-    ps.sweep_plain(grid, cases[1][1], cases[1][2])
-    (_, _, (tgt, _, _)), = ps.plain_pairs.values()
-    npairs = int(tgt.shape[0])
-    log(f"sweep work: {cand:.4e} candidate slots per sweep, {npairs} "
-        f"directed pairs of filled slots within the taper radius")
+    q, hs, ht = t(q), t(hs), t(ht)
+    grid, walk, own = e.pairk, ops.walk, ops.own
+    nb_fn, qeq_fn = e._nb_fn, e._qeq_fn
+    nb_planes, qeq_planes = ops.nonbond_planes(q), ops.qeq_planes()
+    T, M = walk.tslot.shape[0], walk.slots.shape[0]
+    # what every walk kernel must read besides its planes: the filled
+    # slots, the cell prefix sums and the target slots (padded slots
+    # never reach a result, so planes count over the M filled slots only)
+    walk_bytes = 4 * M + 4 * walk.cell_start.shape[0] + 4 * T
     res = {}
-    for name, packed, fn in cases:
-        got = ps.sweep(grid, packed, fn)
-        torch.cuda.synchronize()
-        ref = ps.sweep_plain(grid, packed, fn)
-        check(got.shape == ref.shape == (fn.out_k, grid.n_targets),
-              f"{name}: output shape {tuple(got.shape)}")
-        g = ps.gather_rows(grid, got, soa).double().cpu().numpy()
-        r = ps.gather_rows(grid, ref, soa).double().cpu().numpy()
-        check(np.isfinite(g).all(), f"{name}: non-finite kernel rows")
-        err = float(np.abs(g - r).max())
-        if name == "nonbond":
-            for k in (0, 1):
-                check(abs(g[k].sum() - r[k].sum()) <= TOL_E * max(
-                    1.0, abs(r[k].sum())), f"{name} energy row {k}")
-            check(np.abs(g[2:5] - r[2:5]).max() <= TOL_F * np.abs(
-                r[2:5]).max(), f"{name} forces")
-            w, wr = g[5:].sum(1), r[5:].sum(1)
-            check(np.abs(w - wr).max() <= TOL_W * max(
-                1.0, np.abs(wr).max()), f"{name} virial")
-        else:
-            for k in range(3):
-                check(np.abs(g[k] - r[k]).max() <= TOL_Q * max(
-                    1.0, np.abs(r[k]).max()), f"{name} row {k}")
-        ms = cuda_ms(lambda: ps.sweep(grid, packed, fn), 20)
-        # the whole plain sweep, its pair search included, as the kernel
-        plain_ms = cuda_ms(lambda: (ps.plain_pairs.clear(),
-                                    ps.sweep_plain(grid, packed, fn)), 3)
-        log(f"kernel {name}: max_abs_err {err:.3e} over {fn.out_k}x{n} rows; "
-            f"{ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} us/call")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # the work of this layout: the old block sweep's slot tests, the walk's
+    # filled-slot candidates, and the pairs within the taper radius
+    blocks = grid.tc_n[0] * grid.tc_n[1] * grid.n_zb
+    old = blocks * grid.C * len(grid.cols) * (
+        grid.block_zc + 2 * grid.zreach) * grid.ccap
+    cand = walk_candidates(grid, walk)
+    i, tsl, src = ps.walk_pairs_plain(grid, walk, qeq_planes[:3], qeq_fn.rc2)
+    d, ok, *_ = ps._pair_geometry(nb_fn, nb_planes[:, tsl], nb_planes[:, src])
+    n_nb = int((ok & (nb_planes[4, tsl] != nb_planes[4, src])).sum())
+    del i, tsl, src, d, ok
+    log(f"sweep work: {T} targets, {M} of {grid.nslots} slots filled; "
+        f"{old:.4e} slot tests of the PR 1 block "
+        f"sweep, {cand:.4e} filled-slot candidates of the walk "
+        f"({old / cand:.1f}x fewer); {n_nb} nonbond pairs pass the gates")
+    # the PR 1 block sweep's bounds: its (K, nslots) planes in, (out_k,
+    # n_targets) rows out; the QEq sweep did the build's and the apply's
+    # operations on every pair
+    for name, K, out_k, ops_pair in (
+            ("nonbond", 6, 11, OPS_NONBOND),
+            ("qeq", 8, 3, OPS_QEQ_BUILD + OPS_QEQ_APPLY)):
+        bms, by = bound(4 * (K * grid.nslots + out_k * grid.n_targets),
+                        n_nb * ops_pair)
+        log(f"PR 1 {name} sweep bound: {bms * 1e3:.3f} us ({by})")
+
+    # nonbond: kernel against nonbond_plain on the engine's walk
+    got = ps.nonbond(grid, walk, nb_planes, nb_fn)
+    torch.cuda.synchronize()
+    ref = ps.nonbond_plain(grid, walk, nb_planes, nb_fn)
+    check(got.shape == ref.shape == (11, n), f"nonbond rows {got.shape}")
+    err = check_nonbond("nonbond", got, ref)
+    ms = cuda_ms(lambda: ps.nonbond(grid, walk, nb_planes, nb_fn), 20)
+    plain_ms = cuda_ms(lambda: ps.nonbond_plain(grid, walk, nb_planes, nb_fn),
+                       3)
+    # 6 planes and the rows' targets in, 11 rows out
+    nbytes = 4 * 6 * M + walk_bytes + 4 * T + 4 * 11 * n
+    bms, by = bound(nbytes, n_nb * OPS_NONBOND)
+    res["nonbond"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
+
+    # qeq_build: the kernel's list against qeq_build_plain's
+    lst = ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n)
+    torch.cuda.synchronize()
+    ref = ps.qeq_build_plain(grid, walk, qeq_planes, qeq_fn, own, n)
+    E = int(lst.rowptr[-1])
+    check(torch.equal(lst.rowptr, ref.rowptr),
+          f"qeq_build: entries per row (kernel {E}, plain "
+          f"{int(ref.rowptr[-1])})")
+    check(torch.equal(lst.src, ref.src), "qeq_build: the same sources")
+    hmax = float(ref.h.abs().max())
+    err = float((lst.h - ref.h).abs().max())
+    check(bool(torch.isfinite(lst.h).all()) and err <= TOL_H * hmax,
+          f"qeq_build: h within {TOL_H} of max|h| ({err:.3e} of {hmax:.3e})")
+    ms = cuda_ms(lambda: ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n),
+                 20)
+    plain_ms = cuda_ms(lambda: ps.qeq_build_plain(grid, walk, qeq_planes,
+                                                  qeq_fn, own, n), 3)
+    # 5 planes and the owners in, the row pointers and the list out
+    nbytes = 4 * 6 * M + walk_bytes + 4 * (T + 1) + 8 * E
+    bms, by = bound(nbytes, E * OPS_QEQ_BUILD)
+    res["qeq_build"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"QEq list: {E} entries, {8 * E / 1e6:.1f} MB")
+
+    # qeq_apply: the kernel against qeq_apply_plain on the kernel's list,
+    # hs and ht the columns of an (n, 2) state, as the CG passes them
+    X = torch.stack([hs, ht], dim=1)
+    got = ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q)
+    torch.cuda.synchronize()
+    ref = ps.qeq_apply_plain(lst, walk, hs, ht, q)
+    check(got.shape == ref.shape == (3, n), f"qeq_apply rows {got.shape}")
+    err = check_qeq_rows("qeq_apply", got, ref)
+    ms = cuda_ms(lambda: ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q), 50)
+    plain_ms = cuda_ms(lambda: ps.qeq_apply_plain(lst, walk, hs, ht, q), 10)
+    nbytes = 4 * (T + 1) + 8 * E + 4 * T + 4 * 3 * n + 4 * 3 * n
+    bms, by = bound(nbytes, E * OPS_QEQ_APPLY)
+    res["qeq_apply"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by,
+                            library_ms=library_apply_ms(lst, walk, hs, ht))
+    # what the strided read costs: the apply on the columns, on contiguous
+    # vectors, and on contiguous copies of the columns (copies included),
+    # in turns
+    forms = {
+        "columns": lambda: ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q),
+        "contiguous": lambda: ps.qeq_apply(lst, walk, hs, ht, q),
+        "copies + apply": lambda: ps.qeq_apply(
+            lst, walk, X[:, 0].contiguous(), X[:, 1].contiguous(), q)}
+    order = list(forms) + list(forms)[::-1]
+    times = [(k, cuda_ms(forms[k], 50)) for k in order]
+    log("qeq_apply us per launch in turns: " + ", ".join(
+        f"{k} {t * 1e3:.1f}" for k, t in times))
+
+    # build + apply (the engine's sweep3) and the nonbond kernel through
+    # `sweep` (every filled target, ghosts included) against sweep_plain
+    okf = (e._slotmap.slot_src >= 0).to(e.dtype)
+    packed = torch.cat([qeq_planes,
+                        torch.stack([hs, ht, q])[:, own.long()] * okf])
+    ref = ps.sweep_plain(grid, packed, qeq_fn)
+    got = torch.stack(ops.sweep3(hs, ht, q))
+    check_qeq_rows("sweep3 (build + apply)", got,
+                   ps.gather_rows(grid, ref, e._slotmap.slot_of_atom))
+    check_qeq_rows("sweep (qeq)", ps.sweep(grid, packed, qeq_fn), ref)
+    check_nonbond("sweep (nonbond)", ps.sweep(grid, nb_planes, nb_fn),
+                  ps.sweep_plain(grid, nb_planes, nb_fn))
+    for name in KERNELS:
+        r = res[name]
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.1f} us")
+        log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3e}; "
+            f"{r['ms'] * 1e3:.1f} us/launch, plain {r['plain_ms'] * 1e3:.1f} "
+            f"us/call, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of it), library {lib}")
     return res
+
+
+def library_apply_ms(lst, walk, hs, ht):
+    """ms of torch.sparse.mm over the same list as a CSR matrix (h only:
+    H·[hs, ht]), the yardstick of the QEq apply; None if it does not run."""
+    code = lst.src
+    col = torch.where(code >= 0, code, ~code)
+    x = torch.stack([hs, ht], dim=1)
+    try:
+        H = torch.sparse_csr_tensor(lst.rowptr, col, lst.h,
+                                    size=(walk.tslot.shape[0], lst.nown))
+        return cuda_ms(lambda: torch.sparse.mm(H, x), 50)
+    except RuntimeError as exc:
+        log(f"torch.sparse.mm over the QEq list does not run: {exc}")
+        return None
 
 
 def total_energies(lines):
@@ -197,17 +366,15 @@ def phase_slice(mc, steps, seed):
     from rxmd_tpu_torch.ops import pairsweep as ps
     e = make_engine(mc, DEVICE)
     log(f"slice: {e.state.n} atoms, pair grid nslots {e.pairk.nslots}, "
-        f"{len(e.pairk.cols)} stencil columns, "
-        f"{e.pairk.tc_n[0] * e.pairk.tc_n[1] * e.pairk.n_zb} blocks, "
-        f"window {e.pairk.Wp} slots")
+        f"{len(e.pairk.cols)} stencil columns, z-reach per column "
+        f"{min(ps._reach_table(e.pairk))}-{e.pairk.zreach} cells")
     kres = phase_kernels(e, seed)
 
     e = make_engine(mc, DEVICE)
-    for k in ps.launches:
-        ps.launches[k] = 0
-    lines = drive(e, steps, seed, echo=True)
-    torch.cuda.synchronize()
-    launches = dict(ps.launches)
+    zero_launches()
+    with QeqCounter() as qc:
+        lines = drive(e, steps, seed, echo=True)
+    launches = read_launches("slice", qc)
     te = total_energies(lines)
     check(len(te) == steps + 1 and np.isfinite(te).all(),
           f"{steps + 1} finite PRINTE lines")
@@ -216,12 +383,11 @@ def phase_slice(mc, steps, seed):
     check(e.state.pos.shape == (e.state.n, 3), "position shape")
     check(launches["nonbond"] == steps + 1,
           f"nonbond launches {launches['nonbond']} == steps + 1")
-    check(launches["qeq"] >= e.cg_iters > 0,
-          f"qeq launches {launches['qeq']} >= CG iterations {e.cg_iters}")
-    log(f"launches: {launches}; CG iterations summed {e.cg_iters}")
+    log(f"launches: {launches}; {qc.solves} QEq solves, {qc.matvecs} "
+        f"matvecs; CG iterations summed {e.cg_iters}")
 
     ref = make_engine(mc, DEVICE)
-    ref.pair_sweep = ps.sweep_plain
+    ref.plain_sweeps = True
     te_ref = total_energies(drive(ref, steps, seed, echo=False))
     rel = np.abs(te - te_ref) / np.abs(te_ref)
     log(f"total energy vs the plain-sweep run: max rel diff {rel.max():.3e} "
@@ -287,17 +453,42 @@ def zero_launches():
         ps.launches[k] = 0
 
 
-def read_launches(what, need_cg=None):
-    """The launch counts of the run just ended; each kernel must have run.
-    `need_cg`: CG iterations the QEq kernel must at least match."""
+class QeqCounter:
+    """Counts, inside a `with` block, the QEq solves and the matvecs each
+    made: the gradient's, one per CG update, and the stop test's own unless
+    the solve ended at nmax (qeq._cg)."""
+
+    def __enter__(self):
+        from rxmd_tpu_torch import qeq
+        self.solves = self.matvecs = 0
+        self._qeq, self._solve = qeq, qeq.solve
+
+        def solve(*a, **k):
+            res = self._solve(*a, **k)
+            nmax = 1 if k.get("isqeq", 1) == 2 else k.get("nmax", 500)
+            self.solves += 1
+            self.matvecs += 1 + res.iters + (res.iters < nmax)
+            return res
+        qeq.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self._qeq.solve = self._solve
+
+
+def read_launches(what, qc):
+    """The launch counts of the run just ended: nonbond ran, qeq_build once
+    per QEq solve and qeq_apply once per matvec of `qc`, a QeqCounter."""
     from rxmd_tpu_torch.ops import pairsweep as ps
     torch.cuda.synchronize()
     got = dict(ps.launches)
-    check(got["nonbond"] > 0 and got["qeq"] > 0,
-          f"{what}: both kernels launched ({got})")
-    if need_cg is not None:
-        check(got["qeq"] >= need_cg > 0,
-              f"{what}: qeq launches {got['qeq']} >= CG iterations {need_cg}")
+    check(got["nonbond"] > 0, f"{what}: nonbond launched ({got})")
+    check(got["qeq_build"] == qc.solves > 0,
+          f"{what}: qeq_build launches {got['qeq_build']} == QEq solves "
+          f"{qc.solves}")
+    check(got["qeq_apply"] == qc.matvecs,
+          f"{what}: qeq_apply launches {got['qeq_apply']} == matvecs "
+          f"{qc.matvecs}")
     return got
 
 
@@ -365,11 +556,12 @@ def phase_program(mc, steps):
         # 1. main from rxff.bin: mdmode 5 every 10 steps, PRINTE every 5,
         #    frames in all four formats every 10
         zero_launches()
-        out, eng = run_main(base + [
-            "--mdmode", "5", "--sstep", "10", "--ntime_step", str(steps),
-            "--pstep", "5", "--fstep", "10", "--isBinary", "--isBondFile",
-            "--isPDB", "--isXYZ"])
-        got = read_launches("main", need_cg=eng.cg_iters)
+        with QeqCounter() as qc:
+            out, eng = run_main(base + [
+                "--mdmode", "5", "--sstep", "10", "--ntime_step", str(steps),
+                "--pstep", "5", "--fstep", "10", "--isBinary",
+                "--isBondFile", "--isPDB", "--isXYZ"])
+        got = read_launches("main", qc)
         check(got["nonbond"] == steps + 1,
               f"main: nonbond launches {got['nonbond']} == steps + 1")
         pe = printe_pe(out)
@@ -405,9 +597,10 @@ def phase_program(mc, steps):
 
         # 2. restart from rxff.npz, NVE
         zero_launches()
-        out2, eng2 = run_main(base + ["--mdmode", "1", "--ntime_step", "10",
-                                      "--pstep", "5"])
-        got = read_launches("restart", need_cg=eng2.cg_iters)
+        with QeqCounter() as qc:
+            out2, eng2 = run_main(base + ["--mdmode", "1", "--ntime_step",
+                                          "10", "--pstep", "5"])
+        got = read_launches("restart", qc)
         head = [x for x in out2.splitlines() if "CURRENTSTEP" in x]
         check(head and head[0].split()[-2] == str(steps),
               f"restart header CURRENTSTEP {steps}: {head}")
@@ -420,10 +613,12 @@ def phase_program(mc, steps):
 
         # 3. mdmode 7 with a field along z and springs on C and O
         zero_launches()
-        out3, eng3 = run_main(base + [
-            "--mdmode", "7", "--sstep", "5", "--ntime_step", "10", "--pstep",
-            "5", "--efield", "3", "0.05", "--spring", "2.0", "1", "3"])
-        got = read_launches("mdmode 7", need_cg=eng3.cg_iters)
+        with QeqCounter() as qc:
+            out3, eng3 = run_main(base + [
+                "--mdmode", "7", "--sstep", "5", "--ntime_step", "10",
+                "--pstep", "5", "--efield", "3", "0.05", "--spring", "2.0",
+                "1", "3"])
+        got = read_launches("mdmode 7", qc)
         pe3 = printe_pe(out3)
         check(len(pe3) == 3 and all(np.isfinite(p) for _, p in pe3)
               and bool(torch.isfinite(eng3.state.vel).all()),
@@ -446,10 +641,11 @@ def phase_program(mc, steps):
             log(x)
         zero_launches()
         t0 = time.perf_counter()
-        pe_end = opt.conjugate_gradient(
-            e, max_iter=2, log=sink,
-            writer=lambda it, pos, p: pes.append((p, time.perf_counter())))
-        got = read_launches("optimizer", need_cg=e.cg_iters)
+        with QeqCounter() as qc:
+            pe_end = opt.conjugate_gradient(
+                e, max_iter=2, log=sink,
+                writer=lambda it, pos, p: pes.append((p, time.perf_counter())))
+        got = read_launches("optimizer", qc)
         seq = [float(lines[0].split("PE0=")[1])] + [p for p, _ in pes]
         ts = [t0] + [t for _, t in pes]
         per_it = [b - a for a, b in zip(ts, ts[1:])]
@@ -477,9 +673,13 @@ def main():
     log(f"device: {kind} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}); nvidia-smi: {smi}")
 
-    so, secs = ps.build(force=True)
+    so, secs, msgs = ps.build(force=True, verbose=True)
     log(f"build: nvcc {SOURCE} -> {os.path.relpath(so, REPO)} in "
         f"{secs:.1f} s")
+    for line in msgs.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "stack frame")):
+            log(f"  ptxas: {line.strip()}")
 
     mc = tuple(args.mc)
     e, kres, launches = phase_slice(mc, args.steps, args.seed)
@@ -490,10 +690,8 @@ def main():
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches[name],
-         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
-         "plain_ms": kres[name]["plain_ms"]}
-        for name in ("nonbond", "qeq")]}
+         "replaces": REPLACES, "launches": launches[name], **kres[name]}
+        for name in KERNELS]}
     log(json.dumps(rec))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

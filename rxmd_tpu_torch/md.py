@@ -243,10 +243,10 @@ class Engine:
         rc2 = float(self.ffd.rctap2)
         self._nb_fn = pairsweep.make_nonbond_pair_fn(self.ffd, ff.nso, rc2)
         self._qeq_fn = pairsweep.make_qeq_pair_fn(self.ffd, ff.nso, rc2)
-        # the sweep the pair ops run: `pairsweep.sweep` takes the CUDA
-        # kernels for CUDA tensors; a reference run may set
-        # `pairsweep.sweep_plain` here to run the plain version on any device
-        self.pair_sweep = pairsweep.sweep
+        # the pair ops run the CUDA kernels for CUDA tensors (the plain
+        # versions for CPU tensors); a reference run may set this to run the
+        # plain versions on any device
+        self.plain_sweeps = False
         self.cg_iters = 0          # CG iterations summed over every QEq solve
 
         # rebuild trigger: pair lists are valid while drift < skin/2, cached
@@ -294,9 +294,11 @@ class Engine:
         return pairsweep.bin_slots(pose, valid, self.pairk, pos.shape[0])
 
     def _make_pair_ops(self, pos, H, types, sm):
-        """Closures running the pair sweeps for this step's positions:
-        sweep3 (QEq matvec + Est rows) and nonbond (energy/force/virial
-        rows), each (rows, n) per primary atom."""
+        """Closures running the pair kernels for this step's positions over
+        the slot map's walk (the primary atoms in slot order): sweep3 (QEq
+        matvec + Est rows; the hessian list is built at its first call, once
+        per QEq solve, and applied at every call) and nonbond (energy/force/
+        virial rows), each (rows, n) per primary atom."""
         ps = pairsweep
         pg = self.pairk
         n = pos.shape[0]
@@ -310,19 +312,21 @@ class Engine:
         tslot = torch.where(ok, types[own].to(pos.dtype), 0.0)
         gidf = torch.where(ok, self.state.gid[own].to(pos.dtype), -1.0)
         isprim = ((src < n) & ok).to(pos.dtype)
-        okf = ok.to(pos.dtype)
-        # the targets whose rows are read: the plain sweep computes only
-        # these, the CUDA kernels every target
-        tidx = ps.target_index(pg, sm.slot_of_atom)
+        walk = ps.atom_walk(sm)
+        own32 = own.to(torch.int32)
         qeq_fn, nb_fn = self._qeq_fn, self._nb_fn
-        sweep = self.pair_sweep
+        if self.plain_sweeps:
+            build, apply, nb_rows = (ps.qeq_build_plain, ps.qeq_apply_plain,
+                                     ps.nonbond_plain)
+        else:
+            build, apply, nb_rows = ps.qeq_build, ps.qeq_apply, ps.nonbond
+        hessian = []                   # the QEq list, at the first sweep3
 
         class PairOps:
             @staticmethod
-            def qeq_planes(hs, ht, qc):
-                """(8, nslots) planes x, y, z, type, is_primary, hs, ht, q."""
-                ch = torch.stack([hs, ht, qc], dim=1)[own].T * okf
-                return torch.cat([pos3, tslot[None], isprim[None], ch])
+            def qeq_planes():
+                """(5, nslots) planes x, y, z, type, is_primary."""
+                return torch.cat([pos3, tslot[None], isprim[None]])
 
             @staticmethod
             def nonbond_planes(q):
@@ -332,16 +336,18 @@ class Engine:
 
             @staticmethod
             def sweep3(hs, ht, qc):
-                out = sweep(pg, PairOps.qeq_planes(hs, ht, qc), qeq_fn,
-                            rows=tidx)
-                rows = out[:, tidx]
+                if not hessian:
+                    hessian.append(build(pg, walk, PairOps.qeq_planes(),
+                                         qeq_fn, own32, n))
+                # hs and ht are the columns of the CG's (n, 2) state
+                rows = apply(hessian[0], walk, hs, ht, qc)
                 return rows[0], rows[1], rows[2]
 
             @staticmethod
             def nonbond(q):
-                out = sweep(pg, PairOps.nonbond_planes(q), nb_fn, rows=tidx)
-                return out[:, tidx]
+                return nb_rows(pg, walk, PairOps.nonbond_planes(q), nb_fn)
 
+        PairOps.walk, PairOps.own = walk, own32
         return PairOps
 
     def _external_nonbond(self, pair_ops, q, types, with_virial):

@@ -2,26 +2,36 @@
 
 Atoms (owned + periodic images) are binned into a cell grid and packed
 into a fixed-capacity SLOT layout, z-fastest, so one (cx, cy) column of
-cells is contiguous.  For each block of C target slots a sweep walks the
-pruned 2-D column stencil; each column's candidates are one contiguous
-z-window of slots.  Pair outputs accumulate on the target row only (no
-scatter, no atomics).  Padded slots carry FAR coordinates and fail every
-cutoff.
+cells is contiguous; a cell's atoms fill its first slots.  Padded slots
+carry FAR coordinates.  Pair outputs accumulate on the target row only (no
+scatter, no atomics).
 
 Two pair bodies ride the sweep: the closed-form vdW + Coulomb
-energy/force/virial sweep (once per MD step) and the QEq hessian matvec +
-Est sweep (once per CG iteration).  `sweep` runs the hand-written CUDA
-kernel of csrc/pairsweep.cu for a CUDA tensor and `sweep_plain`, the same
-function in plain PyTorch, for a CPU tensor.
+energy/force/virial rows (once per MD step) and the QEq hessian applied to
+hs and ht with the Est pair sum (once per CG iteration).
 
-Window rule.  The TPU kernel rounds each window start down to 128 lanes
-(a Mosaic alignment rule) and carries W = wslots slots.  Here a window is
-the exact reach of the target block, Wp = (block_zc + 2*zreach)*ccap
-slots from nb + (zb_lo - zreach + zb*block_zc)*ccap, clamped into its
-column; `sweep_plain` narrows it per target to the target's own z-cell
-+- zreach cells.  Every pair within rctap is a candidate under all three
-rules (the extra candidates lie beyond the reach), and no slot appears
-twice.
+The cell walk.  A target is one filled slot; the engine's targets are the
+primary atoms in slot order (`atom_walk`).  For each column of the pruned
+2-D stencil a target visits the cells of its own z-cell +- that column's
+reach (`_reach_table`), clamped into the column, and in each cell only its
+filled slots (`SlotMap.cell_count`): over the filled slots in slot order,
+a column's cells are one contiguous run (`Walk.cell_start`, `Walk.slots`).
+The reach is counted with the
+grid's rc = rctap + skin: positions have drifted by under skin/2 each
+since they were binned, so every pair within rctap is visited.
+
+The kernels of csrc/pairsweep.cu run over the walk, each beside its plain
+PyTorch version here:
+
+  nonbond    the 11 nonbond rows of each target          nonbond_plain
+  qeq_build  the QEq hessian of one solve as a CSR list  qeq_build_plain
+  qeq_apply  that list applied to hs, ht and q           qeq_apply_plain
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
+the plain version for a CPU tensor.  `sweep` keeps the TPU kernel's
+contract, (out_k, n_targets) rows over its target layout, on top of them;
+`sweep_plain` computes that independently of the walk, over each target's
+own z-cell +- zreach cells shifted to stay inside the column (`_pair_list`).
 """
 from __future__ import annotations
 
@@ -43,8 +53,8 @@ from .. import units
 FAR = 1.0e4          # padded-slot coordinate sentinel: dr2 ~ 1e8 fails every
                      # cutoff and stays finite through every kernel
 
-# launches of each CUDA kernel, counted by `sweep` where it launches one
-launches = {"nonbond": 0, "qeq": 0}
+# launches of each CUDA kernel, counted by its wrapper where it launches it
+launches = {"nonbond": 0, "qeq_build": 0, "qeq_apply": 0}
 
 
 class PairGrid(NamedTuple):
@@ -73,11 +83,6 @@ class PairGrid(NamedTuple):
     @property
     def C(self) -> int:
         return self.block_zc * self.ccap
-
-    @property
-    def Wp(self) -> int:
-        """Exact window of a target block: its z-cells plus the reach."""
-        return (self.block_zc + 2 * self.zreach) * self.ccap
 
     @property
     def n_targets(self) -> int:
@@ -147,6 +152,9 @@ class SlotMap(NamedTuple):
     slot_src: torch.Tensor      # (nslots,) ext row filling the slot, -1 pad
     slot_of_atom: torch.Tensor  # (n,) slot of each primary atom
     overflow: torch.Tensor      # () max per-cell occupancy (host-checked)
+    cell_count: torch.Tensor    # (ncells,) int32 filled slots per cell
+    order: torch.Tensor         # (n,) primary atoms in slot order
+    filled: torch.Tensor        # (M,) int32 the filled slots, ascending
 
 
 def bin_slots(pose, valid, grid: PairGrid, n: int) -> SlotMap:
@@ -183,8 +191,14 @@ def bin_slots(pose, valid, grid: PairGrid, n: int) -> SlotMap:
     slot_of_atom = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
     slot_of_atom.index_copy_(0, torch.where(take, src, n),
                              torch.where(take, dst, -1))
-    return SlotMap(slot_src=slot_src[:-1], slot_of_atom=slot_of_atom[:-1],
-                   overflow=overflow)
+    slot_of_atom = slot_of_atom[:-1]
+    slot_src = slot_src[:-1]
+    cell_count = torch.clamp(start[1:] - start[:-1], max=ccap)
+    return SlotMap(slot_src=slot_src, slot_of_atom=slot_of_atom,
+                   overflow=overflow, cell_count=cell_count.to(torch.int32),
+                   order=torch.argsort(slot_of_atom),
+                   filled=torch.nonzero(slot_src >= 0).squeeze(1).to(
+                       torch.int32))
 
 
 def pack_slots(slot_src, cols, far_cols: int = 3):
@@ -211,6 +225,22 @@ def _target_tables(grid: PairGrid):
     coloffs = np.asarray([(dx * ny + dy) * nz * ccap
                           for dx, dy in grid.cols], np.int32)
     return col_base, coloffs
+
+
+def _reach_table(grid: PairGrid):
+    """Per stencil column (dx, dy), the z-cells of a target's walk on each
+    side of its own z-cell: the z-extent of the rc sphere beyond the
+    column's nearest x-y distance (ex, ey as in make_pair_grid), in cells,
+    plus one for the target's place inside its cell (numpy int32, at most
+    zreach)."""
+    cs = grid.cellsize
+    reach = []
+    for dx, dy in grid.cols:
+        ex = max(abs(dx) - 1, 0) * cs[0]
+        ey = max(abs(dy) - 1, 0) * cs[1]
+        h = np.sqrt(max(grid.rc2 - ex * ex - ey * ey, 0.0))
+        reach.append(min(int(np.ceil(h / cs[2])) + 1, grid.zreach))
+    return np.asarray(reach, np.int32)
 
 
 def _target_slots(grid: PairGrid):
@@ -240,15 +270,58 @@ def gather_rows(grid: PairGrid, out, slot_of_atom):
     return out[:, target_index(grid, slot_of_atom)]
 
 
+class Walk(NamedTuple):
+    """The targets of a sweep and the filled slots their walk reads: cell c
+    holds slots[cell_start[c]:cell_start[c + 1]]."""
+    tslot: torch.Tensor       # (T,) int32 target slots, ascending
+    trow: torch.Tensor        # (T,) int32 output row of each target
+    nrows: int                # rows of the output
+    cell_start: torch.Tensor  # (ncells + 1,) int32 prefix sums of counts
+    slots: torch.Tensor       # (M,) int32 the filled slots, ascending
+
+
+def _cell_start(cell_count):
+    start = torch.zeros(cell_count.shape[0] + 1, dtype=torch.int32,
+                        device=cell_count.device)
+    start[1:] = torch.cumsum(cell_count, 0, dtype=torch.int32)
+    return start
+
+
+def atom_walk(sm: SlotMap) -> Walk:
+    """The engine's walk: the primary atoms in slot order, each writing
+    its own row of an (out_k, n) output."""
+    return Walk(tslot=sm.slot_of_atom[sm.order].to(torch.int32),
+                trow=sm.order.to(torch.int32), nrows=sm.order.shape[0],
+                cell_start=_cell_start(sm.cell_count), slots=sm.filled)
+
+
+def slot_walk(grid: PairGrid, packed, rows=None) -> Walk:
+    """The walk of the sweep's target layout: the filled targets among
+    `rows` (target indices; every target if None), each writing its row of
+    an (out_k, n_targets) output.  Cell counts come from the position
+    plane: a cell's atoms fill its first slots."""
+    dev = packed.device
+    filled = packed[0] != FAR
+    tslot = torch.as_tensor(_target_slots(grid), device=dev)
+    if rows is None:
+        rows = torch.arange(grid.n_targets, device=dev)
+    rows = rows[filled[tslot[rows]]]
+    return Walk(tslot=tslot[rows].to(torch.int32),
+                trow=rows.to(torch.int32), nrows=grid.n_targets,
+                cell_start=_cell_start(filled.view(-1, grid.ccap).sum(
+                    dim=1, dtype=torch.int32)),
+                slots=torch.nonzero(filled).squeeze(1).to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # pair functions
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PairFn:
-    """One pair body of the sweep: its name (the CUDA entry), the packed
-    planes K it reads, its output rows, its type-pair table (nso, nso, P)
-    and taper coefficients, and its scalar constants."""
+    """One pair body of the sweep: its name, the packed planes K it reads,
+    its output rows, its type-pair table (nso, nso, P) and taper
+    coefficients, and its scalar constants."""
     name: str
     K: int
     out_k: int
@@ -291,6 +364,13 @@ def make_qeq_pair_fn(ffd, nso: int, rc2_true: float) -> PairFn:
                   ctap=ffd.ctap.clone(), rc2=float(rc2_true))
 
 
+def _dist2(d):
+    """Squared length of displacement planes d (3, ...), summed as the
+    kernels sum it, (dx*dx + dy*dy) + dz*dz with every step rounded, so
+    that both apply each cutoff to the same pairs."""
+    return (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+
+
 def _taper(dr2, dr1, ctap):
     """Taper polynomial and its r-derivative/r (ref: init.F90:437-439)."""
     dr3 = dr1 * dr2
@@ -309,7 +389,7 @@ def _pair_geometry(fn: PairFn, r, s):
     """Displacement, gate, distance, taper and type parameters of the
     pairs of target planes r (K, P) and source planes s (K, P)."""
     d = r[:3] - s[:3]
-    dr2 = torch.sum(d * d, dim=0)
+    dr2 = _dist2(d)
     nso = fn.table.shape[0]
     ti = r[3].to(torch.int64).clamp(0, nso - 1)
     tj = s[3].to(torch.int64).clamp(0, nso - 1)
@@ -321,24 +401,22 @@ def _pair_geometry(fn: PairFn, r, s):
     return d, ok, dr2s, dr1, tap, dtap, prm
 
 
-def _qeq_weights_of(fn: PairFn, r, s):
-    """The QEq body's pair weights (2, P): the hessian element and the
-    hessian times the Est weight; its rows are these times the source's
-    hs, ht and q."""
+def _qeq_hessian(fn: PairFn, r, s):
+    """The QEq body's gate and hessian element of each pair (0 where the
+    gate fails)."""
     _, ok, dr2s, dr1, tap, _, prm = _pair_geometry(fn, r, s)
     gamij = torch.where(ok, prm[:, 1], 1.0)
     hess = units.CCLMB0_QEQ * tap * (dr1 * dr2s + gamij) ** (-1.0 / 3.0)
-    hess = torch.where(ok, hess, 0.0)
-    estw = torch.where(s[4] > 0.5, 1.0, 0.5)
-    return torch.stack([hess, hess * estw])
+    return ok, torch.where(ok, hess, 0.0)
 
 
 def _pair_terms(fn: PairFn, r, s):
     """Per-pair output rows (out_k, P) of `fn` for target planes r (K, P)
     and source planes s (K, P); pairs that fail a gate contribute 0."""
     if fn.name == "qeq":
-        w = _qeq_weights_of(fn, r, s)
-        return w[[0, 0, 1]] * s[5:8]
+        _, hess = _qeq_hessian(fn, r, s)
+        return hess * torch.stack(
+            [s[5], s[6], torch.where(s[4] > 0.5, s[7], 0.5 * s[7])])
     d, ok, dr2s, dr1, tap, dtap, prm = _pair_geometry(fn, r, s)
     ok = ok & (r[4] != s[4])                      # ref: pot.F90:715
     gamw = torch.where(ok, prm[:, 1], 1.0)
@@ -367,32 +445,31 @@ def _pair_terms(fn: PairFn, r, s):
         -0.5 * ffac * dy * dz, -0.5 * ffac * dz * dx, -0.5 * ffac * dx * dy])
 
 
-# the plain sweep's last pair list per (grid, rc2, device), with the
-# position and type planes and the target rows it came from (see
-# _pair_list); clear it to time the whole plain sweep
-plain_pairs = {}
+def _chunk(dev):
+    """Candidates per chunk of the plain versions' pair searches."""
+    return 1 << (25 if dev.type == "cuda" else 22)
 
 
-def _same_rows(a, b):
-    if a is None or b is None:
-        return a is b
-    return a.shape == b.shape and torch.equal(a, b)
+def _rows_of(fn: PairFn, planes, tgt, tsl, src, nrows, chunk):
+    """(out_k, nrows): the pair terms of (target slot tsl, source slot src)
+    summed into output row tgt, in chunks."""
+    out = torch.zeros((fn.out_k, nrows), dtype=planes.dtype,
+                      device=planes.device)
+    per = max(1, chunk // 16)
+    for p0 in range(0, tgt.shape[0], per):
+        sl = slice(p0, p0 + per)
+        out.index_add_(1, tgt[sl], _pair_terms(fn, planes[:, tsl[sl]],
+                                               planes[:, src[sl]]))
+    return out
 
 
 def _pair_list(grid: PairGrid, packed, rc2: float, chunk: int, rows=None):
     """(target index, target slot, source slot) of every pair of filled
     slots within rc2, for the filled targets among `rows` (all targets if
     None).  Each filled target slot takes, per stencil column, the filled
-    slots of its own z-cell +- zreach cells, where every partner within the
-    cutoff lies.  The last list per (grid, rc2, device) is kept with the
-    position and type planes and the rows it came from: a CG solve sweeps
-    the same positions once per iteration."""
+    slots of its own z-cell +- zreach cells (shifted to stay inside the
+    column), where every partner within the cutoff lies."""
     dev = packed.device
-    key = (grid, rc2, dev)
-    hit = plain_pairs.get(key)
-    if (hit is not None and _same_rows(hit[1], rows)
-            and torch.equal(hit[0], packed[:4])):
-        return hit[2]
     ccap, nzc = grid.ccap, grid.nc[2] * grid.ccap
     w = (2 * grid.zreach + 1) * ccap
     tslot = torch.as_tensor(_target_slots(grid), device=dev)
@@ -419,71 +496,128 @@ def _pair_list(grid: PairGrid, packed, rc2: float, chunk: int, rows=None):
                                   max=filled.shape[0] - 1)]
         cand = torch.where(k < cnt[sl, :, None], cand, -1)
         cand = cand.reshape(cand.shape[0], -1)                # (B, cols*w)
-        d = packed[:3, ts[sl], None] - packed[:3][:, cand.clamp(min=0)]
-        dr2 = torch.sum(d * d, dim=0)
+        dr2 = _dist2(packed[:3, ts[sl], None]
+                     - packed[:3][:, cand.clamp(min=0)])
         bi, ci = torch.nonzero((cand >= 0) & (dr2 <= rc2) & (dr2 > 1e-6),
                                as_tuple=True)
         parts.append((real[sl][bi], ts[sl][bi], cand[bi, ci]))
-    pairs = tuple(torch.cat(x) for x in zip(*parts)) if parts else (
-        torch.zeros(0, dtype=torch.int64, device=dev),) * 3
-    plain_pairs[key] = (packed[:4].clone(), rows, pairs)
-    return pairs
-
-
-# the QEq pair weights (hessian, hessian x Est weight) of the last pair list
-# per (grid, rc2, device), with the list and constants they came from
-plain_qeq_weights = {}
-
-
-def _qeq_weights(grid: PairGrid, packed, fn: PairFn, pairs, per: int):
-    """`_qeq_weights_of` on `pairs`.  They depend on nothing but the
-    position and type planes that key the pair list, so a CG solve
-    computes them once and reuses them every iteration."""
-    key = (grid, fn.rc2, packed.device)
-    hit = plain_qeq_weights.get(key)
-    if (hit is not None and hit[0] is pairs and hit[1] is fn.table
-            and hit[2] is fn.ctap):
-        return hit[3]
-    _, tsl, src = pairs
-    w = torch.cat([_qeq_weights_of(fn, packed[:5, tsl[p0:p0 + per]],
-                                   packed[:5, src[p0:p0 + per]])
-                   for p0 in range(0, tsl.shape[0], per)]
-                  or [packed.new_zeros((2, 0))], dim=1)
-    plain_qeq_weights[key] = (pairs, fn.table, fn.ctap, w)
-    return w
+    if not parts:
+        return (torch.zeros(0, dtype=torch.int64, device=dev),) * 3
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def sweep_plain(grid: PairGrid, packed, fn: PairFn, rows=None,
                 chunk: int = None):
-    """The sweep in plain PyTorch: the kernel's function on the same slot
-    layout, output (out_k, n_targets), any float dtype.  With `rows` (a
-    tensor of target indices) only those targets' rows are computed, each
-    exactly as without it, and the other rows are 0.
+    """The sweep in plain PyTorch, independent of the cell walk: output
+    (out_k, n_targets), any float dtype.  With `rows` (a tensor of target
+    indices) only those targets' rows are computed, each exactly as
+    without it, and the other rows are 0.  Only the pairs of filled slots
+    within the cutoff (`_pair_list`) reach the pair function."""
+    chunk = chunk or _chunk(packed.device)
+    tgt, tsl, src = _pair_list(grid, packed, fn.rc2, chunk, rows)
+    return _rows_of(fn, packed, tgt, tsl, src, grid.n_targets, chunk)
 
-    Padded slots contribute exactly zero in the kernel (FAR coordinates
-    fail the cutoff), so only the pairs of filled slots within the cutoff
-    (`_pair_list`) reach the pair function, in chunks; the QEq body's
-    pair weights are kept per pair list (`_qeq_weights`)."""
-    dev = packed.device
-    if chunk is None:
-        chunk = 1 << (25 if dev.type == "cuda" else 22)
-    pairs = _pair_list(grid, packed, fn.rc2, chunk, rows)
-    tgt, tsl, src = pairs
-    out = torch.zeros((fn.out_k, grid.n_targets), dtype=packed.dtype,
-                      device=dev)
+
+def walk_pairs_plain(grid: PairGrid, walk: Walk, pos3, rc2: float,
+                     chunk: int = None):
+    """(walk index, target slot, source slot) of every pair that the
+    kernels' cell walk finds, in the kernels' order (per target, stencil
+    column by column, slots ascending): the filled slots of each column's
+    reach (`_reach_table`) around the target's z-cell, clamped into the
+    column, whose squared distance lies in (1e-6, rc2].  pos3: (3, nslots)
+    positions."""
+    dev = pos3.device
+    chunk = chunk or _chunk(dev)
+    ccap, nz = grid.ccap, grid.nc[2]
+    nzc = nz * ccap
+    coloffs = torch.as_tensor(_target_tables(grid)[1], dtype=torch.int64,
+                              device=dev)
+    zr = torch.as_tensor(_reach_table(grid), dtype=torch.int64, device=dev)
+    ts = walk.tslot.to(torch.int64)
+    tz = (ts % nzc) // ccap
+    cb = ((ts - ts % nzc)[:, None] + coloffs) // ccap        # (T, cols)
+    start = walk.cell_start.to(torch.int64)
+    lo = start[cb + torch.clamp(tz[:, None] - zr, min=0)]
+    span = start[cb + torch.clamp(tz[:, None] + zr, max=nz - 1) + 1] - lo
+    width = max(int(span.max()), 1) if span.numel() else 1
+    k = torch.arange(width, device=dev)
+    per = max(1, chunk // (coloffs.shape[0] * width))
+    parts = []
+    for t0 in range(0, ts.shape[0], per):
+        sl = slice(t0, t0 + per)
+        ok = k < span[sl, :, None]                            # (B, cols, w)
+        slot = walk.slots[torch.where(ok, lo[sl, :, None] + k, 0)].to(
+            torch.int64)
+        slot, ok = slot.flatten(1), ok.flatten(1)
+        dr2 = _dist2(pos3[:, ts[sl], None] - pos3[:, slot])
+        bi, ci = torch.nonzero(ok & (dr2 <= rc2) & (dr2 > 1e-6),
+                               as_tuple=True)
+        parts.append((bi + t0, ts[sl][bi], slot[bi, ci]))
+    if not parts:
+        return (torch.zeros(0, dtype=torch.int64, device=dev),) * 3
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def nonbond_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn,
+                  chunk: int = None):
+    """The nonbond kernel's function in plain PyTorch: (11, walk.nrows)
+    rows of the walk's targets over the walk's pairs, any float dtype;
+    rows no target writes are 0.  planes: (6, nslots) x, y, z, type, gid,
+    q."""
+    chunk = chunk or _chunk(planes.device)
+    i, tsl, src = walk_pairs_plain(grid, walk, planes[:3], fn.rc2, chunk)
+    return _rows_of(fn, planes, walk.trow[i], tsl, src, walk.nrows, chunk)
+
+
+class QeqList(NamedTuple):
+    """The QEq hessian of one solve: a CSR list over a walk's targets."""
+    rowptr: torch.Tensor   # (T+1,) int32: entries rowptr[i]:rowptr[i+1]
+    src: torch.Tensor      # (E,) int32 source's owner; ~owner for an image
+    h: torch.Tensor        # (E,) hessian element
+    nown: int              # length of the vectors the list is applied to
+
+
+def qeq_build_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
+                    nown: int, chunk: int = None) -> QeqList:
+    """The QEq build kernel's function in plain PyTorch: per target, the
+    walk's pairs that pass every gate, in the walk's order, each with its
+    hessian element cclmb_qeq * tap(r) * (r^3 + gamma^-3)^(-1/3) and its
+    source's owner, flagged (~owner) when the source is an image.
+    planes: (5, nslots) x, y, z, type, is_primary; own: (nslots,) integer
+    owner of each slot, the index into the (nown,) vectors the list is
+    applied to."""
+    chunk = chunk or _chunk(planes.device)
+    i, tsl, src = walk_pairs_plain(grid, walk, planes[:3], fn.rc2, chunk)
     per = max(1, chunk // 16)
-    if fn.name == "qeq":
-        w = _qeq_weights(grid, packed, fn, pairs, per)
-        for p0 in range(0, tgt.shape[0], per):
-            sl = slice(p0, p0 + per)
-            vals = w[[0, 0, 1], sl] * packed[5:8, src[sl]]
-            out.index_add_(1, tgt[sl], vals)
-        return out
-    for p0 in range(0, tgt.shape[0], per):
-        sl = slice(p0, p0 + per)
-        vals = _pair_terms(fn, packed[:, tsl[sl]], packed[:, src[sl]])
-        out.index_add_(1, tgt[sl], vals)
-    return out
+    ok, h = (torch.cat(x) for x in zip(*[
+        _qeq_hessian(fn, planes[:, tsl[p0:p0 + per]],
+                     planes[:, src[p0:p0 + per]])
+        for p0 in range(0, src.shape[0], per)] or [
+        (torch.zeros(0, dtype=torch.bool, device=planes.device),
+         planes.new_zeros(0))]))
+    o = own[src].to(torch.int32)
+    code = torch.where(planes[4, src] > 0.5, o, ~o)
+    rowptr = torch.zeros(walk.tslot.shape[0] + 1, dtype=torch.int32,
+                         device=planes.device)
+    rowptr[1:] = torch.cumsum(torch.bincount(
+        i[ok], minlength=walk.tslot.shape[0]), 0)
+    return QeqList(rowptr=rowptr, src=code[ok], h=h[ok], nown=nown)
+
+
+def qeq_apply_plain(lst: QeqList, walk: Walk, hs, ht, q):
+    """The QEq apply kernel's function in plain PyTorch: (3, walk.nrows)
+    rows sum h*hs[o], sum h*ht[o] and sum h*w*q[o] over each target's
+    entries (o the source's owner, w 1 for a primary source and 0.5 for an
+    image); rows no target writes are 0."""
+    code = lst.src.to(torch.int64)
+    prim = code >= 0
+    o = torch.where(prim, code, ~code)
+    qo = q[o]
+    vals = lst.h * torch.stack([hs[o], ht[o], torch.where(prim, qo, 0.5 * qo)])
+    tgt = torch.repeat_interleave(walk.trow.to(torch.int64),
+                                  torch.diff(lst.rowptr).to(torch.int64))
+    out = torch.zeros((3, walk.nrows), dtype=vals.dtype, device=vals.device)
+    return out.index_add_(1, tgt, vals)
 
 
 # ---------------------------------------------------------------------------
@@ -510,38 +644,44 @@ def _nvcc():
     return path
 
 
-def build(force: bool = False):
+def build(force: bool = False, verbose: bool = False):
     """Compile csrc/pairsweep.cu into build/rxmd_tpu_torch (keyed by a hash
     of the source and flags) unless that library exists or `force`; returns
-    its path and the seconds spent compiling (0.0 when it was already
-    built)."""
+    its path, the seconds spent compiling (0.0 when it was already built)
+    and nvcc's messages (with `verbose`, ptxas's registers, shared memory
+    and spills of each kernel: -Xptxas -v, which leaves the binary as it
+    is)."""
     with open(_SRC, "rb") as fh:
         key = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode())
     so = os.path.join(_BUILD_DIR, f"libpairsweep_{key.hexdigest()[:16]}.so")
     if os.path.exists(so) and not force:
-        return so, 0.0
+        return so, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    flags = _NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+    res = subprocess.run([_nvcc(), *flags, "-o", tmp, _SRC],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
     os.replace(tmp, so)
-    return so, time.perf_counter() - t0
+    return so, time.perf_counter() - t0, res.stderr
 
 
 def _library():
     global _lib
     if _lib is None:
-        so, _ = build()
+        so = build()[0]
         lib = ctypes.CDLL(so)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        geom = [ci] * 10
-        lib.pairsweep_nonbond.argtypes = [vp] * 6 + geom + [cf] * 4 + [vp]
-        lib.pairsweep_nonbond.restype = ci
-        lib.pairsweep_qeq.argtypes = [vp] * 6 + geom + [cf] * 2 + [vp]
-        lib.pairsweep_qeq.restype = ci
+        walk = [vp] * 8 + [ci] * 6 + [cf]
+        lib.pairsweep_nonbond.argtypes = walk + [vp, vp, ci] + [cf] * 3 + [vp]
+        lib.pairsweep_qeq_count.argtypes = walk + [vp, vp]
+        lib.pairsweep_qeq_fill.argtypes = walk + [vp, vp, vp, vp, cf, vp]
+        lib.pairsweep_qeq_apply.argtypes = (
+            [vp] * 7 + [ctypes.c_longlong] * 3 + [vp, ci, ci, vp])
+        for f in ("nonbond", "qeq_count", "qeq_fill", "qeq_apply"):
+            getattr(lib, f"pairsweep_{f}").restype = ci
         lib.pairsweep_error_string.argtypes = [ci]
         lib.pairsweep_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -552,64 +692,165 @@ _tables = {}
 
 
 def _device_tables(grid: PairGrid, device):
+    """Per stencil column its slot offset and z-reach (int32 on device)."""
     key = (grid, device)
     if key not in _tables:
-        col_base, coloffs = _target_tables(grid)
-        _tables[key] = (torch.as_tensor(col_base, device=device),
-                        torch.as_tensor(coloffs, device=device))
+        _tables[key] = (
+            torch.as_tensor(_target_tables(grid)[1], device=device),
+            torch.as_tensor(_reach_table(grid), device=device))
     return _tables[key]
 
 
-def _launch(grid: PairGrid, packed, fn: PairFn):
-    K, nslots = packed.shape
-    if (packed.dtype != torch.float32 or not packed.is_contiguous()
-            or K != fn.K or nslots != grid.nslots):
-        raise ValueError(
-            f"{fn.name} sweep takes a contiguous float32 ({fn.K}, "
-            f"{grid.nslots}) tensor, got {packed.dtype} {tuple(packed.shape)}")
+def _check(what, t, dtype, shape, device, strided=False):
+    """Raise unless t is a `dtype` tensor of `shape` on `device`, and
+    contiguous unless `strided` (a vector read with its stride)."""
+    if (t.device != device or t.dtype != dtype
+            or not (strided or t.is_contiguous())
+            or tuple(t.shape) != tuple(shape)):
+        kind = "" if strided else "contiguous "
+        got = "" if t.is_contiguous() else ", strided"
+        raise ValueError(f"{what}: takes a {kind}{str(dtype)[6:]} "
+                         f"{tuple(shape)} tensor on {device}, got "
+                         f"{str(t.dtype)[6:]} {tuple(t.shape)} on {t.device}"
+                         f"{got}")
+
+
+def _walk_args(grid: PairGrid, walk: Walk, planes, fn: PairFn, K: int):
+    """Check a walk kernel's inputs; its leading ctypes arguments."""
+    dev = planes.device
+    T = walk.tslot.shape[0]
     nso = fn.table.shape[0]
-    for t, shape in ((fn.table, (nso, nso, fn.table.shape[2])),
-                     (fn.ctap, (8,))):
-        if (t.device != packed.device or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"{fn.name} sweep constants must be contiguous "
-                             f"float32 {shape} on {packed.device}")
-    if grid.C != 128:
-        raise ValueError(f"the sweep kernel runs 128-slot blocks, not "
-                         f"{grid.C}")
-    lib = _library()
-    col_base, coloffs = _device_tables(grid, packed.device)
-    out = torch.empty((fn.out_k, grid.n_targets), dtype=torch.float32,
-                      device=packed.device)
-    npc = grid.tc_n[0] * grid.tc_n[1]
-    nzc = grid.nc[2] * grid.ccap
-    geom = (npc, grid.n_zb, len(grid.cols), grid.C, grid.Wp, nzc,
-            (grid.zb_lo - grid.zreach) * grid.ccap, grid.zb_lo * grid.ccap,
-            nso, grid.nslots)
-    ptrs = (packed.data_ptr(), col_base.data_ptr(), coloffs.data_ptr(),
-            fn.table.data_ptr(), fn.ctap.data_ptr(), out.data_ptr())
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    if fn.name == "nonbond":
-        err = lib.pairsweep_nonbond(*ptrs, *geom, fn.rc2, fn.pvdW1h,
-                                    fn.pvdW1inv, units.CCLMB0, stream)
-    else:
-        err = lib.pairsweep_qeq(*ptrs, *geom, fn.rc2, units.CCLMB0_QEQ,
-                                stream)
+    _check(f"{fn.name} planes", planes, torch.float32, (K, grid.nslots), dev)
+    for what, t, shape in (("walk.tslot", walk.tslot, (T,)),
+                           ("walk.trow", walk.trow, (T,)),
+                           ("walk.cell_start", walk.cell_start,
+                            (grid.nslots // grid.ccap + 1,)),
+                           ("walk.slots", walk.slots,
+                            (walk.slots.shape[0],))):
+        _check(what, t, torch.int32, shape, dev)
+    _check(f"{fn.name} table", fn.table, torch.float32,
+           (nso, nso, fn.table.shape[2]), dev)
+    _check(f"{fn.name} ctap", fn.ctap, torch.float32, (8,), dev)
+    coloffs, zr = _device_tables(grid, dev)
+    return (planes.data_ptr(), walk.tslot.data_ptr(), coloffs.data_ptr(),
+            zr.data_ptr(), walk.cell_start.data_ptr(), walk.slots.data_ptr(),
+            fn.table.data_ptr(), fn.ctap.data_ptr(), T, len(grid.cols),
+            grid.nc[2] * grid.ccap,
+            grid.ccap.bit_length() - 1, nso, grid.nslots, fn.rc2)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err, what):
     if err != 0:
-        raise RuntimeError(f"{fn.name} sweep launch failed: "
-                           f"{lib.pairsweep_error_string(err).decode()}")
-    launches[fn.name] += 1
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_library().pairsweep_error_string(err).decode()}")
+
+
+def _device_kind(t, what):
+    """'cuda' or 'cpu' for the wrapper's branch; any other device raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    return t.device.type
+
+
+def nonbond(grid: PairGrid, walk: Walk, planes, fn: PairFn):
+    """(11, walk.nrows) nonbond rows of the walk's targets: the CUDA kernel
+    for a CUDA tensor (or raises), `nonbond_plain` for a CPU tensor."""
+    if _device_kind(planes, "nonbond") == "cpu":
+        return nonbond_plain(grid, walk, planes, fn)
+    args = _walk_args(grid, walk, planes, fn, 6)
+    T = walk.tslot.shape[0]
+    new = torch.zeros if T < walk.nrows else torch.empty
+    out = new((11, walk.nrows), dtype=torch.float32, device=planes.device)
+    if T:
+        _raise_on(_library().pairsweep_nonbond(
+            *args, walk.trow.data_ptr(), out.data_ptr(), walk.nrows,
+            fn.pvdW1h, fn.pvdW1inv, units.CCLMB0,
+            _stream(planes.device)), "nonbond")
+        launches["nonbond"] += 1
+    return out
+
+
+def qeq_build(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
+              nown: int) -> QeqList:
+    """The QEq hessian list of the walk (once per QEq solve): the CUDA
+    kernel's two passes for a CUDA tensor (or raises), `qeq_build_plain`
+    for a CPU tensor.  The first pass counts each target's entries, the
+    host reads their total, and the second writes them in place."""
+    if _device_kind(planes, "qeq_build") == "cpu":
+        return qeq_build_plain(grid, walk, planes, fn, own, nown)
+    dev = planes.device
+    args = _walk_args(grid, walk, planes, fn, 5)
+    _check("own", own, torch.int32, (grid.nslots,), dev)
+    T = walk.tslot.shape[0]
+    lib, stream = _library(), _stream(dev)
+    cnt = torch.zeros(T, dtype=torch.int32, device=dev)
+    if T:
+        _raise_on(lib.pairsweep_qeq_count(*args, cnt.data_ptr(), stream),
+                  "qeq_build (count)")
+    rowptr = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    rowptr[1:] = torch.cumsum(cnt, 0, dtype=torch.int32)
+    total = int(rowptr[-1])
+    src = torch.empty(total, dtype=torch.int32, device=dev)
+    h = torch.empty(total, dtype=torch.float32, device=dev)
+    if T:
+        _raise_on(lib.pairsweep_qeq_fill(
+            *args, own.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
+            h.data_ptr(), units.CCLMB0_QEQ, stream), "qeq_build (fill)")
+        launches["qeq_build"] += 1
+    return QeqList(rowptr=rowptr, src=src, h=h, nown=nown)
+
+
+def qeq_apply(lst: QeqList, walk: Walk, hs, ht, q):
+    """(3, walk.nrows) rows H·hs, H·ht and the Est pair sum from the list
+    (once per CG iteration): the CUDA kernel for a CUDA tensor (or
+    raises), `qeq_apply_plain` for a CPU tensor.  hs, ht and q may be
+    strided views, such as the columns of the CG's (n, 2) state."""
+    if _device_kind(hs, "qeq_apply") == "cpu":
+        return qeq_apply_plain(lst, walk, hs, ht, q)
+    dev = hs.device
+    T = walk.tslot.shape[0]
+    E = lst.h.shape[0]
+    for what, t, dtype, shape, strided in (
+            ("hs", hs, torch.float32, (lst.nown,), True),
+            ("ht", ht, torch.float32, (lst.nown,), True),
+            ("q", q, torch.float32, (lst.nown,), True),
+            ("list rowptr", lst.rowptr, torch.int32, (T + 1,), False),
+            ("list src", lst.src, torch.int32, (E,), False),
+            ("list h", lst.h, torch.float32, (E,), False),
+            ("walk.trow", walk.trow, torch.int32, (T,), False)):
+        _check(what, t, dtype, shape, dev, strided)
+    new = torch.zeros if T < walk.nrows else torch.empty
+    out = new((3, walk.nrows), dtype=torch.float32, device=dev)
+    if T:
+        _raise_on(_library().pairsweep_qeq_apply(
+            lst.rowptr.data_ptr(), lst.src.data_ptr(), lst.h.data_ptr(),
+            walk.trow.data_ptr(), hs.data_ptr(), ht.data_ptr(), q.data_ptr(),
+            hs.stride(0), ht.stride(0), q.stride(0), out.data_ptr(), T,
+            walk.nrows, _stream(dev)), "qeq_apply")
+        launches["qeq_apply"] += 1
     return out
 
 
 def sweep(grid: PairGrid, packed, fn: PairFn, rows=None):
-    """Run one sweep: (out_k, n_targets) where target t = (column p,
-    z-block zb, slot c) maps to slot col_base[p] + (zb_lo + zb*block_zc)*
-    ccap + c.  A CUDA tensor goes through the CUDA kernel (or raises),
-    which computes every target; a CPU tensor through `sweep_plain`, which
-    computes only `rows` when given (the targets the caller reads)."""
-    if packed.device.type == "cuda":
-        return _launch(grid, packed, fn)
-    if packed.device.type == "cpu":
+    """One sweep over the TPU kernel's target layout: (out_k, n_targets)
+    where target t = (column p, z-block zb, slot c) maps to slot
+    col_base[p] + (zb_lo + zb*block_zc)*ccap + c; with `rows` (target
+    indices) only those rows are computed and the others are 0.  A CUDA
+    tensor goes through the kernels over `slot_walk` (nonbond, or
+    qeq_build then qeq_apply with each slot its own source index), or
+    raises; a CPU tensor through `sweep_plain`."""
+    dev = packed.device
+    if _device_kind(packed, "pair sweep") == "cpu":
         return sweep_plain(grid, packed, fn, rows)
-    raise ValueError(f"no pair sweep for device {packed.device}")
+    _check(f"{fn.name} sweep", packed, torch.float32, (fn.K, grid.nslots),
+           dev)
+    walk = slot_walk(grid, packed, rows)
+    if fn.name == "nonbond":
+        return nonbond(grid, walk, packed, fn)
+    own = torch.arange(grid.nslots, dtype=torch.int32, device=dev)
+    lst = qeq_build(grid, walk, packed[:5], fn, own, grid.nslots)
+    return qeq_apply(lst, walk, packed[5], packed[6], packed[7])

@@ -3,8 +3,10 @@ sweep (counterpart of the `pair_ops` branch of rxmd_tpu.qeq.solve).
 
 The (s, t) vectors are solved jointly as one (N, 2) state; each CG
 iteration applies the shielded-Coulomb hessian to both and sums the
-electrostatic energy Est in one sweep (ref: get_hsh, qeq.F90:271-318).
-The hessian is never materialized.  Termination follows the reference's
+electrostatic energy Est in one pass (ref: get_hsh, qeq.F90:271-318).
+`pair_ops` keeps the hessian as a pair list, built at the solve's first
+matvec and applied at every one (ref: qeq_initialize's hessian rows,
+qeq.F90:183).  Termination follows the reference's
 two tests on Est (ref: qeq.F90:114-115); the loop reads the stop flag on
 the host once per iteration.
 """

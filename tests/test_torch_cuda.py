@@ -1,4 +1,4 @@
-"""rxmd_tpu_torch's CUDA sweep kernels against their plain PyTorch
+"""rxmd_tpu_torch's CUDA pair kernels against their plain PyTorch
 versions, on a card (every case skips without one).
 
 This file imports no jax, so it also runs where jax is not installed;
@@ -6,10 +6,11 @@ tests/conftest.py imports jax, so there run it as
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
-168-atom deck, float32, the engine's own slot layout and packed planes.
+168-atom deck, float32, the engine's own slot layout, walk and planes.
 Bar: each output row within 1e-4 of its largest magnitude (at least 1):
-the kernel and the plain sweep add the same float32 pair terms in
-another order.
+the kernel and the plain version add the same float32 pair terms in
+another order.  The QEq list: the same entries per row and the same
+sources (both gate on the same float32 distance), h within 1e-5 of max|h|.
 """
 import os
 
@@ -40,34 +41,119 @@ def planes():
     q -= q.mean()
     hs, ht = rng.normal(size=(2, s.n))
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
-    return e.pairk, {"nonbond": (ops.nonbond_planes(t(q)), e._nb_fn),
-                     "qeq": (ops.qeq_planes(t(hs), t(ht), t(q)), e._qeq_fn)}
+    q, hs, ht = t(q), t(hs), t(ht)
+    okf = (e._slotmap.slot_src >= 0).float()
+    qeq8 = torch.cat([ops.qeq_planes(),
+                      torch.stack([hs, ht, q])[:, ops.own.long()] * okf])
+    return dict(grid=e.pairk, n=s.n, ops=ops, nb_fn=e._nb_fn,
+                qeq_fn=e._qeq_fn, nb=ops.nonbond_planes(q), qeq8=qeq8,
+                hs=hs, ht=ht, q=q)
+
+
+def _within(got, ref, bar=1e-4):
+    assert got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    err = (got - ref).abs().amax(dim=1)
+    scale = ref.abs().amax(dim=1).clamp(min=1.0)
+    assert bool((err <= bar * scale).all()), (err, scale)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["nonbond", "qeq"])
 def test_kernel_matches_plain(planes, name):
-    grid, cases = planes
-    packed, fn = cases[name]
-    n0 = ps.launches[name]
+    """`sweep` over the TPU kernel's target layout (the nonbond kernel, or
+    qeq_build then qeq_apply) against `sweep_plain`."""
+    d = planes
+    grid = d["grid"]
+    packed, fn = ((d["nb"], d["nb_fn"]) if name == "nonbond"
+                  else (d["qeq8"], d["qeq_fn"]))
+    n0 = dict(ps.launches)
     got = ps.sweep(grid, packed, fn)
-    assert ps.launches[name] == n0 + 1
+    want = ({"nonbond": 1} if name == "nonbond"
+            else {"qeq_build": 1, "qeq_apply": 1})
+    assert {k: ps.launches[k] - n0[k] for k in n0} == {
+        k: want.get(k, 0) for k in n0}
     ref = ps.sweep_plain(grid, packed, fn)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (fn.out_k, grid.n_targets)
-    assert bool(torch.isfinite(got).all())
-    err = (got - ref).abs().amax(dim=1)
-    scale = ref.abs().amax(dim=1).clamp(min=1.0)
-    assert bool((err <= 1e-4 * scale).all()), (err, scale)
+    assert got.shape == (fn.out_k, grid.n_targets)
+    _within(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nonbond", "qeq_build", "qeq_apply"])
+def test_walk_kernel_matches_plain(planes, name):
+    """Each kernel on the engine's walk against its plain version."""
+    d = planes
+    grid, ops, n = d["grid"], d["ops"], d["n"]
+    walk = ops.walk
+    n0 = ps.launches[name]
+    if name == "nonbond":
+        got = ps.nonbond(grid, walk, d["nb"], d["nb_fn"])
+        ref = ps.nonbond_plain(grid, walk, d["nb"], d["nb_fn"])
+        _within(got, ref)
+    elif name == "qeq_build":
+        args = (grid, walk, ops.qeq_planes(), d["qeq_fn"], ops.own, n)
+        lst = ps.qeq_build(*args)
+        ref = ps.qeq_build_plain(*args)
+        assert torch.equal(lst.rowptr, ref.rowptr)
+        assert torch.equal(lst.src, ref.src)
+        assert float((lst.h - ref.h).abs().max()) <= 1e-5 * float(
+            ref.h.abs().max())
+    else:
+        lst = ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"],
+                           ops.own, n)
+        n0 = ps.launches[name]
+        got = ps.qeq_apply(lst, walk, d["hs"], d["ht"], d["q"])
+        _within(got, ps.qeq_apply_plain(lst, walk, d["hs"], d["ht"], d["q"]))
+    torch.cuda.synchronize()
+    assert ps.launches[name] == n0 + 1
+
+
+@pytest.mark.gpu
+def test_qeq_apply_takes_strided_columns(planes):
+    """qeq_apply on the columns of an (n, 2) state, as the CG passes them,
+    gives the rows it gives on contiguous copies, with one launch each."""
+    d = planes
+    grid, ops, n = d["grid"], d["ops"], d["n"]
+    walk = ops.walk
+    lst = ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"], ops.own, n)
+    X = torch.stack([d["hs"], d["ht"]], dim=1)
+    q2 = torch.stack([d["q"], d["q"]], dim=1)[:, 1]
+    assert X[:, 0].stride(0) == 2 and q2.stride(0) == 2
+    n0 = ps.launches["qeq_apply"]
+    got = ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q2)
+    ref = ps.qeq_apply(lst, walk, d["hs"], d["ht"], d["q"])
+    torch.cuda.synchronize()
+    assert ps.launches["qeq_apply"] == n0 + 2
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(planes):
-    grid, cases = planes
-    packed, fn = cases["qeq"]
-    n0 = ps.launches["qeq"]
-    with pytest.raises(ValueError, match="float32"):
-        ps.sweep(grid, packed.double(), fn)
-    with pytest.raises(ValueError, match="float32"):
-        ps.sweep(grid, packed[:6].contiguous(), fn)
-    assert ps.launches["qeq"] == n0
+    """A wrong dtype, shape or device, or strided planes, raise before any
+    launch."""
+    d = planes
+    grid, ops, n = d["grid"], d["ops"], d["n"]
+    walk = ops.walk
+    lst = ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"], ops.own, n)
+    n0 = dict(ps.launches)
+    bad_walk = walk._replace(tslot=walk.tslot.cpu())
+    calls = [
+        lambda: ps.sweep(grid, d["qeq8"].double(), d["qeq_fn"]),
+        lambda: ps.sweep(grid, d["qeq8"][:6].contiguous(), d["qeq_fn"]),
+        lambda: ps.nonbond(grid, walk, d["nb"].double(), d["nb_fn"]),
+        lambda: ps.nonbond(grid, walk, d["nb"].t().contiguous().t(),
+                           d["nb_fn"]),
+        lambda: ps.nonbond(grid, bad_walk, d["nb"], d["nb_fn"]),
+        lambda: ps.qeq_build(grid, walk, d["qeq8"], d["qeq_fn"], ops.own, n),
+        lambda: ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"],
+                             ops.own.long(), n),
+        lambda: ps.qeq_apply(lst, walk, d["hs"].double(), d["ht"], d["q"]),
+        lambda: ps.qeq_apply(lst, walk, d["hs"][:-1], d["ht"], d["q"]),
+        lambda: ps.qeq_apply(lst._replace(h=lst.h.cpu()), walk, d["hs"],
+                             d["ht"], d["q"]),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="takes a "):
+            call()
+    assert dict(ps.launches) == n0

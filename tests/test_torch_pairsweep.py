@@ -7,7 +7,13 @@
   and the TPU's wider candidate windows;
 * the plain sweeps in float64 against rxmd_tpu's independent ELL forms
   (`nonbond_cf_energy_forces`, the `cf_qeq_kernel` matvecs) within 1e-9:
-  same pairs, same closed-form kernels, another summation order.
+  same pairs, same closed-form kernels, another summation order;
+* the kernels' cell walk (the plain versions `walk_pairs_plain`,
+  `nonbond_plain`, `qeq_build_plain` + `qeq_apply_plain`), on the 168-atom
+  cell and its (2, 2, 1) replica: its pair set equals `_pair_list`'s
+  exactly, and its rows equal `sweep_plain`'s within 1e-12 in float64
+  (same pairs, another summation order); the QEq list's rows match
+  rxmd_tpu's Pallas `_sweep` at the 3e-4 bar above.
 
 The CUDA kernels are held against the plain sweeps in test_torch_cuda.py.
 """
@@ -21,7 +27,8 @@ import torch
 from rxmd_tpu import ffield as jff, system as jsys, neighbors as jnb, \
     reax as jrx, units
 from rxmd_tpu.ops import pairsweep as jps
-from rxmd_tpu_torch import reax as trx
+from rxmd_tpu_torch import ffield as tff, neighbors as tnb, reax as trx, \
+    system as tsys
 from rxmd_tpu_torch.ops import pairsweep as tps
 
 # the suite runs in several worker processes at once; one torch thread
@@ -205,3 +212,147 @@ def test_qeq_plain_matches_ell_f64(f64, ell64):
     for k in range(3):
         w = np.asarray(want[k])
         assert np.abs(got[k] - w).max() <= 1e-9 * np.abs(w).max(), k
+
+
+# ---------------------------------------------------------------------------
+# the kernels' cell walk
+# ---------------------------------------------------------------------------
+
+def _walk_setup(mc, dtype=torch.float64):
+    """The port's slot layout of the deck replicated `mc`, its planes with
+    numpy-seeded charges and CG vectors, and both pair functions."""
+    tf = tff.parse_ffield(FF)
+    st = tsys.from_cellfile(CELL, tf.name_to_type, mc=mc, dtype=dtype)
+    H = st.H.numpy()
+    img = tnb.make_image_table(st.n, tnb.nimg_for_cutoff(H, 10.0 + SKIN),
+                               dtype, "cpu")
+    pose = tnb.ext_positions(st.pos, st.H, img)
+    grid = tps.make_pair_grid(H, units.RCTAP0, skin=SKIN, ccap=8)
+    sm = tps.bin_slots(pose, torch.ones(pose.shape[0], dtype=torch.bool),
+                       grid, st.n)
+    rng = np.random.default_rng(17)
+    q = rng.normal(scale=0.1, size=st.n)
+    q -= q.mean()
+    hs, ht = (torch.tensor(v, dtype=dtype) for v in rng.normal(size=(2, st.n)))
+    q = torch.tensor(q, dtype=dtype)
+    own = img.owner.to(torch.int64)
+    prim = (torch.arange(pose.shape[0]) < st.n).to(dtype)
+    cols = {"x": pose[:, 0], "y": pose[:, 1], "z": pose[:, 2],
+            "type": st.types[own].to(dtype), "gid": st.gid[own].to(dtype),
+            "prim": prim, "q": q[own], "hs": hs[own], "ht": ht[own]}
+    packed = {name: tps.pack_slots(sm.slot_src, [cols[p] for p in planes])
+              for name, planes in (("nonbond", NB_PLANES),
+                                   ("qeq", QEQ_PLANES))}
+    ffd = trx.ffdev_from(tf, dtype=dtype)
+    fns = {"nonbond": tps.make_nonbond_pair_fn(ffd, tf.nso,
+                                               float(ffd.rctap2)),
+           "qeq": tps.make_qeq_pair_fn(ffd, tf.nso, float(ffd.rctap2))}
+    slot_owner = torch.where(sm.slot_src >= 0, sm.slot_src % st.n, 0)
+    return dict(n=st.n, grid=grid, sm=sm, packed=packed, fns=fns, hs=hs,
+                ht=ht, q=q, slot_owner=slot_owner)
+
+
+@pytest.fixture(scope="module", params=[(1, 1, 1), (2, 2, 1)],
+                ids=["cell", "replica221"])
+def walk64(request):
+    return _walk_setup(request.param)
+
+
+def test_walk_pairs_equal_pair_list(walk64):
+    """The kernels' culling rule (per-column reach counted with rctap +
+    skin, filled slots from the cell counts) finds exactly the pairs
+    within rctap that `_pair_list`'s wider windows find."""
+    d = walk64
+    grid, packed, fn = d["grid"], d["packed"]["qeq"], d["fns"]["qeq"]
+    walk = tps.slot_walk(grid, packed)
+    # the filled slots and cell counts the engine's walk reads are the
+    # planes' own
+    awalk = tps.atom_walk(d["sm"])
+    assert torch.equal(walk.cell_start, awalk.cell_start)
+    assert torch.equal(walk.slots, awalk.slots)
+    assert torch.equal(torch.diff(walk.cell_start), d["sm"].cell_count)
+    i, tsl, src = tps.walk_pairs_plain(grid, walk, packed[:3], fn.rc2)
+    got = set(zip(walk.trow[i].tolist(), tsl.tolist(), src.tolist()))
+    tgt, tsl2, src2 = tps._pair_list(grid, packed, fn.rc2, 1 << 22)
+    want = set(zip(tgt.tolist(), tsl2.tolist(), src2.tolist()))
+    assert len(got) == i.shape[0] > 0     # no pair twice
+    assert got == want
+    # per target, the pairs come in the kernels' order: column by column,
+    # slots ascending within a column, targets in walk order
+    assert bool((torch.diff(i) >= 0).all())
+    reach = tps._reach_table(grid)
+    assert reach.max() <= grid.zreach and reach.min() >= 1
+
+
+def test_qeq_list_rows_equal_sweep_plain_f64(walk64):
+    """qeq_build_plain + qeq_apply_plain over the sweep's target layout
+    (each slot its own source index) and over the engine's walk (owner
+    indices with the image flag) give sweep_plain's QEq rows."""
+    d = walk64
+    grid, packed, fn = d["grid"], d["packed"]["qeq"], d["fns"]["qeq"]
+    ref = tps.sweep_plain(grid, packed, fn)
+    walk = tps.slot_walk(grid, packed)
+    own = torch.arange(grid.nslots, dtype=torch.int32)
+    lst = tps.qeq_build_plain(grid, walk, packed[:5], fn, own, grid.nslots)
+    got = tps.qeq_apply_plain(lst, walk, packed[5], packed[6], packed[7])
+    assert got.shape == ref.shape == (3, grid.n_targets)
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    assert bool(((got - ref).abs() <= 1e-12 * scale).all())
+    assert int(lst.rowptr[-1]) == lst.src.shape[0] == lst.h.shape[0] > 0
+
+    awalk = tps.atom_walk(d["sm"])
+    alst = tps.qeq_build_plain(grid, awalk, packed[:5], fn,
+                               d["slot_owner"], d["n"])
+    rows = tps.qeq_apply_plain(alst, awalk, d["hs"], d["ht"], d["q"])
+    want = tps.gather_rows(grid, ref, d["sm"].slot_of_atom)
+    assert rows.shape == (3, d["n"])
+    assert bool(((rows - want).abs() <= 1e-12 * scale).all())
+    # the image flag: primary sources keep their owner, images get ~owner
+    src = alst.src.to(torch.int64)
+    assert bool((src >= 0).any()) and bool((src < 0).any())
+    assert bool((torch.where(src >= 0, src, ~src) < d["n"]).all())
+
+
+def test_nonbond_walk_equals_sweep_plain_f64(walk64):
+    d = walk64
+    grid, packed, fn = d["grid"], d["packed"]["nonbond"], d["fns"]["nonbond"]
+    ref = tps.sweep_plain(grid, packed, fn)
+    got = tps.nonbond_plain(grid, tps.slot_walk(grid, packed), packed, fn)
+    assert got.shape == ref.shape == (11, grid.n_targets)
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    assert bool(((got - ref).abs() <= 1e-12 * scale).all())
+    rows = tps.nonbond_plain(grid, tps.atom_walk(d["sm"]), packed, fn)
+    want = tps.gather_rows(grid, ref, d["sm"].slot_of_atom)
+    assert bool(((rows - want).abs() <= 1e-12 * scale).all())
+    # rows=: only those targets, each exactly as without it
+    rows_t = tps.target_index(grid, d["sm"].slot_of_atom[:5])
+    part = tps.nonbond_plain(grid, tps.slot_walk(grid, packed, rows_t),
+                             packed, fn)
+    assert torch.equal(part[:, rows_t], got[:, rows_t])
+    keep = torch.ones(grid.n_targets, dtype=torch.bool)
+    keep[rows_t] = False
+    assert not bool(part[:, keep].any())
+
+
+def test_qeq_list_matches_pallas(f32):
+    """The QEq build + apply rows, float32, against rxmd_tpu's Pallas
+    `_sweep` with the QEq body in interpret mode (bar as above)."""
+    d = f32
+    jp, tp = _packed(d, QEQ_PLANES)
+    pair_fn, out_k, consts = jps.make_qeq_pair_fn(
+        d["jffd"], d["ff"].nso, float(d["jffd"].rctap2))
+    out = jps._sweep(d["grid"], jp, pair_fn, out_k, consts=consts,
+                     interpret=True)
+    ref = np.asarray(jps.gather_rows(d["grid"], out, d["sm"].slot_of_atom))
+    fn = tps.make_qeq_pair_fn(d["tffd"], d["ff"].nso, float(d["tffd"].rctap2))
+    grid = d["tgrid"]
+    walk = tps.atom_walk(d["tsm"])
+    own = d["tsm"].slot_src.clamp(min=0) % d["st"].n
+    lst = tps.qeq_build(grid, walk, tp[:5].contiguous(), fn, own.int(),
+                        d["st"].n)          # CPU tensors: the plain build
+    f = lambda v: torch.tensor(v, dtype=torch.float32)
+    got = tps.qeq_apply(lst, walk, f(d["hs"]), f(d["ht"]),
+                        f(d["q"])).numpy()
+    for k in range(3):
+        assert np.abs(got[k] - ref[k]).max() < 3e-4 * max(
+            1.0, np.abs(ref[k]).max()), k
