@@ -31,7 +31,16 @@ first failure ends the run with a non-zero exit code and no result line.
      rxff.npz (NVE), runs mdmode 7 with an electric field and springs, and
      opt.conjugate_gradient takes two iterations; each run's launch counts
      (as in phase 4), its PRINTE lines and files are checked, and its
-     atom-steps/s, summary() table and optimizer seconds printed.
+     atom-steps/s, summary() table and optimizer seconds printed;
+  7. pair paths: the engines besides the sweep at --mc, each asserting
+     `Engine.pair_engine` and that no sweep kernel ran, prepare + 5 steps
+     timed by phase beside the sweep's own: (a) the dense forms and (b)
+     the pair list (with and without the dense QEq fold), at isQEq=1 and
+     2, each step's PE components against the sweep run's; (c) the deck
+     in a triclinic cell: 168 atoms in float32 on the card against float64
+     on the CPU, then --mc for 20 steps at isQEq=1 and 2 (chunked brute
+     neighbor build, 27 images); (d) float64, the default config (the
+     table pair list): 168 atoms on the card against the CPU, then --mc.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -82,6 +91,22 @@ TOL_TE = 1e-4
 # charges differ by ~1e-4 e and PE components by ~1e-5 of |PE|
 TOL_SMALL_PE = 1e-4
 TOL_SMALL_POS = 1e-4     # [A]
+# the dense and ELL engines against the sweep at --mc, float32, the same
+# start and 5 steps: the same closed-form physics summed in other orders.
+# Each PE component within TOL_PATH_PE of |PE|, except Eclmb and Echarge:
+# full CG stops at the float32 floor (relative Est change 2.4e-6) at other
+# iterates in other summation orders, which moves ~2e-4 of |PE| between
+# the two and leaves their sum, the energy QEq minimizes, in place (CPU
+# rehearsal, 1,344 atoms); so their sum is held to TOL_PATH_PE and each
+# alone to TOL_QEQ_SPLIT
+TOL_PATH_PE = 1e-4
+TOL_QEQ_SPLIT = 1e-3
+# float64 on the card against float64 on the CPU, per PE component
+# relative, with the CG capped so both take the same iterations
+TOL_F64_CARD = 1e-8
+# lattice angles (alpha, beta, gamma) of the triclinic deck: the CHON
+# cell's fractional coordinates in a sheared cell
+TRICLINIC = (95.0, 100.0, 105.0)
 DEVICE = "cuda"          # the slice's device; main() requires a card
 
 
@@ -102,17 +127,23 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def load_deck(mc, dtype, device):
+def load_deck(mc, dtype, device, angles=None):
+    """The CHON deck replicated mc; with `angles` (alpha, beta, gamma) its
+    fractional coordinates in a triclinic cell of those lattice angles."""
     from rxmd_tpu_torch import ffield, system
     ff = ffield.parse_ffield(FFIELD)
-    st = system.from_cellfile(CELL, ff.name_to_type, mc=mc, dtype=dtype,
-                              device=device)
+    frac, types, cell = system.read_geninit_xyz(CELL, ff.name_to_type)
+    if angles is not None:
+        cell = cell[:3] + tuple(angles)
+    frac, types, cell = system.replicate(frac, types, cell, mc)
+    H = system.box_matrix(*cell)
+    st = system.make_state(frac @ H.T, types, H, dtype=dtype, device=device)
     return ff, st
 
 
-def make_engine(mc, device, dtype="float32", **cfg):
+def make_engine(mc, device, dtype="float32", angles=None, **cfg):
     from rxmd_tpu_torch import config, md
-    ff, st = load_deck(mc, torch.float64, "cpu")
+    ff, st = load_deck(mc, torch.float64, "cpu", angles)
     kw = dict(dtype=dtype, isQEq=1, pstep=5)
     kw.update(cfg)
     return md.Engine(ff, st, config.RunConfig(**kw), device=device)
@@ -398,10 +429,12 @@ def phase_slice(mc, steps, seed):
 
 def phase_small_reference(seed, nsteps=5):
     """168-atom cell: float32 kernels on the card against the float64 plain
-    sweeps on the CPU (the configuration the CPU tests hold to rxmd_tpu)."""
+    sweeps on the CPU (the configuration the CPU tests hold to rxmd_tpu;
+    float64 asks for the closed form, its default being the tables)."""
     runs = []
     for dev, dt in ((DEVICE, "float32"), ("cpu", "float64")):
-        e = make_engine((1, 1, 1), dev, dtype=dt, rebuild_every=4)
+        e = make_engine((1, 1, 1), dev, dtype=dt, rebuild_every=4,
+                        nonbond_closed_form=True)
         e.init_velocity(seed=seed)
         e.prepare()
         e.run(nsteps, log=None)
@@ -445,6 +478,166 @@ def phase_timing(e, mc, steps, seed):
         log(f"isQEq={isq} ms/step by phase (rebuild: ms per rebuild, every "
             f"{eng.rebuild_every} steps or on drift): {parts}; wall "
             f"{wall / steps * 1e3:.2f} ms/step")
+
+
+def path_run(mc, device, steps, seed, dtype="float32", angles=None,
+             timed=True, **cfg):
+    """An engine on the deck: init_velocity(seed), prepare, `steps` steps,
+    with the launch counts zeroed first.  Returns a dict: the engine, the
+    per-step PE components (steps + 1, 14) and final positions as float64
+    numpy, and with `timed` the wall ms per step, the device ms per step
+    by phase (CUDA events), one more rebuild's ms and the prepare s."""
+    from rxmd_tpu_torch import md
+    e = make_engine(mc, device, dtype=dtype, angles=angles, **cfg)
+    zero_launches()
+    e.init_velocity(seed=seed)
+    sync = (torch.cuda.synchronize if e.device.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    comps = [e.prepare().double().cpu().numpy()]
+    prep_s = time.perf_counter() - t0
+    it0 = e.cg_iters
+    if timed:
+        e.phases = md.PhaseTimer()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        e.run(1, log=None)
+        comps.append(e.comps.double().cpu().numpy())
+    sync()
+    wall = time.perf_counter() - t0
+    res = dict(engine=e, comps=np.array(comps), n=e.state.n,
+               pos=e.state.pos.double().cpu().numpy(), prep_s=prep_s,
+               cg=(e.cg_iters - it0) / steps)
+    if timed:
+        ph = e.phases.ms()
+        e.phases = md.PhaseTimer()
+        e._rebuild(e.state)
+        res.update(ms=wall / steps * 1e3, rebuild_ms=e.phases.ms()[
+            "rebuild"][0], phases={k: v / steps for k, (v, _) in ph.items()
+                                   if k != "rebuild"})
+        e.phases = None
+    check(all(np.isfinite(c).all() for c in comps)
+          and np.isfinite(res["pos"]).all(), "finite PE and positions")
+    return res
+
+
+def report(label, r, smi):
+    """One timing line; every time printed beside the card's nvidia-smi
+    name and power limit."""
+    e = r["engine"]
+    phases = ", ".join(f"{k} {v:.2f}" for k, v in sorted(r["phases"].items()))
+    log(f"pair paths | {label} | engine {e.pair_engine}, {r['n']} atoms, "
+        f"{str(e.dtype)[6:]}, isQEq={e.cfg.isQEq}: {r['ms']:.2f} ms/step "
+        f"wall, {r['n'] * 1e3 / r['ms']:.4e} atom-steps/s, by phase (ms/step)"
+        f" {phases}; rebuild {r['rebuild_ms']:.2f} ms; prepare "
+        f"{r['prep_s']:.2f} s; {r['cg']:.1f} CG iterations/step | {smi}")
+
+
+def pe_diff(comps, ref):
+    """Largest per-step PE component difference, over |PE| of `ref`."""
+    return float((np.abs(comps - ref) / np.abs(ref[:, :1])).max())
+
+
+def check_path_pe(label, comps, ref):
+    """`comps` against `ref` per step: slots 0-11 and Eclmb + Echarge
+    within TOL_PATH_PE of |PE|, Eclmb and Echarge each within
+    TOL_QEQ_SPLIT (see TOL_QEQ_SPLIT)."""
+    def terms(c):
+        return np.concatenate([c[:, :12], c[:, 12:].sum(1, keepdims=True)],
+                              axis=1)
+    err = pe_diff(terms(comps), terms(ref))
+    split = float((np.abs(comps[:, 12:] - ref[:, 12:])
+                   / np.abs(ref[:, :1])).max())
+    log(f"{label}: PE components against the reference run, max {err:.3e} "
+        f"of |PE| per step (bound {TOL_PATH_PE}), Eclmb and Echarge each "
+        f"{split:.3e} (bound {TOL_QEQ_SPLIT})")
+    check(err <= TOL_PATH_PE and split <= TOL_QEQ_SPLIT,
+          f"{label}: PE components against the reference run")
+
+
+def phase_pair_paths(mc, seed, steps=5, tric_steps=20):
+    """The pair engines besides the sweep, at --mc: (a) the dense forms and
+    (b) the pair-list (ELL) form on the orthogonal deck, each step's PE
+    components within TOL_PATH_PE of |PE| of the sweep run from the same
+    start; (c) a triclinic deck (lattice angles TRICLINIC): 168 atoms in
+    float32 on the card against float64 on the CPU, then --mc timed; (d)
+    float64 (the default config: the table pair list): 168 atoms on the
+    card against the CPU within TOL_F64_CARD per component, then --mc
+    timed.  Every run asserts its pair engine, and the dense and ELL runs
+    launch no sweep kernel."""
+    smi = nvidia_smi()
+
+    def no_sweep(what):
+        from rxmd_tpu_torch.ops import pairsweep as ps
+        check(not any(ps.launches.values()),
+              f"{what}: no sweep kernel launched ({dict(ps.launches)})")
+
+    ref = {}
+    for isq in (1, 2):
+        r = path_run(mc, DEVICE, steps, seed, isQEq=isq)
+        check(r["engine"].pair_engine == "sweep", "sweep engine")
+        report("sweep", r, smi)
+        ref[isq] = r["comps"]
+        del r
+    runs = [("(a) dense", 1, dict(pair_kernel=False), "dense"),
+            ("(a) dense", 2, dict(pair_kernel=False), "dense"),
+            ("(b) ELL, dense QEq fold", 1,
+             dict(pair_kernel=False, dense_direct_max=0), "ell"),
+            ("(b) ELL", 2, dict(pair_kernel=False, dense_direct_max=0), "ell"),
+            ("(b) ELL, ELL CG", 1, dict(pair_kernel=False, dense_direct_max=0,
+                                        qeq_dense_max=0), "ell")]
+    for label, isq, cfg, want in runs:
+        r = path_run(mc, DEVICE, steps, seed, isQEq=isq, **cfg)
+        check(r["engine"].pair_engine == want, f"{label}: engine {want}")
+        no_sweep(label)
+        report(label, r, smi)
+        check_path_pe(f"{label}, isQEq={isq}, against the sweep",
+                      r["comps"], ref[isq])
+        del r
+
+    # (c) triclinic: the small cell against float64 on the CPU, then --mc
+    small = [path_run((1, 1, 1), dev, 5, seed, dtype=dt, angles=TRICLINIC,
+                      timed=False, rebuild_every=4, nonbond_closed_form=True)
+             for dev, dt in ((DEVICE, "float32"), ("cpu", "float64"))]
+    for r in small:
+        check(r["engine"].pair_engine == "ell", "triclinic: ELL engine")
+    pe_err = pe_diff(small[0]["comps"], small[1]["comps"])
+    pos_err = float(np.abs(small[0]["pos"] - small[1]["pos"]).max())
+    log(f"(c) triclinic 168 atoms, 5 steps, float32 card vs float64 CPU: PE "
+        f"components {pe_err:.3e} of |PE| (bound {TOL_SMALL_PE}), positions "
+        f"{pos_err:.3e} A (bound {TOL_SMALL_POS})")
+    check(pe_err <= TOL_SMALL_PE and pos_err <= TOL_SMALL_POS,
+          "triclinic 168-atom cell against float64")
+    del small
+    for isq in (1, 2):
+        r = path_run(mc, DEVICE, tric_steps, seed, angles=TRICLINIC,
+                     isQEq=isq)
+        e = r["engine"]
+        check(e.pair_engine == "ell" and e.grid is None
+              and e.img.n_images == 27, "triclinic: ELL, brute build, "
+              f"27 images ({e.img.n_images})")
+        no_sweep("triclinic")
+        report(f"(c) triclinic {TRICLINIC}, {tric_steps} steps", r, smi)
+        del r, e
+
+    # (d) float64, the default config: the small cell against the CPU with
+    # the CG capped (NMAXQEq) so both stop at the same iterate, then --mc
+    small = [path_run((1, 1, 1), dev, 5, seed, dtype="float64", timed=False,
+                      rebuild_every=4, NMAXQEq=8) for dev in (DEVICE, "cpu")]
+    for r in small:
+        check(r["engine"].pair_engine == "ell" and not r["engine"].closed_form,
+              "float64 default: the table ELL engine")
+    a, b = small[0]["comps"], small[1]["comps"]
+    err = float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
+    log(f"(d) float64 default, 168 atoms, 5 steps, card vs CPU: PE "
+        f"components max rel diff {err:.3e} (bound {TOL_F64_CARD})")
+    check(err <= TOL_F64_CARD, "float64 on the card against the CPU")
+    del small
+    r = path_run(mc, DEVICE, steps, seed, dtype="float64")
+    check(r["engine"].pair_engine == "ell" and not r["engine"].closed_form,
+          "float64 default at --mc: the table ELL engine")
+    no_sweep("float64")
+    report("(d) float64 default (tables)", r, smi)
 
 
 def zero_launches():
@@ -687,6 +880,7 @@ def main():
     phase_timing(e, mc, args.steps, args.seed)
     del e
     phase_program(mc, args.steps)
+    phase_pair_paths(mc, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -11,8 +11,9 @@ Reads the rxmd.in deck, takes the input configuration from --run_from_xyz,
 else DAT/rxff.npz (native checkpoint), else DAT/rxff.bin (reference
 format), runs the MD loop (or the CG optimizer for mdmode 10) on a CUDA
 card with PRINTE-format output and trajectory frames, and writes the final
-rxff.npz and rxff.bin.  The CUDA sweep kernels are float32: on the card
-pass --dtype float32.
+rxff.npz and rxff.bin.  The default --dtype float64 runs the reference's
+interpolation tables over the pair list; --dtype float32 runs the
+closed-form pair sweep and its CUDA kernels (md.Engine.pair_engine).
 """
 import os
 import sys

@@ -40,11 +40,11 @@ class RunConfig:
     NMAXQEq: int = 500
     QEq_tol: float = 1e-7
     qstep: int = 1
-    qeq_dense_max: int = 8192    # fold the QEq hessian into a dense (N,N)
-                                 # MXU matvec when N <= this (single-device
-                                 # full-CG only); 0 forces the ELL path,
-                                 # matching the sharded engine's summation
-                                 # order exactly
+    qeq_dense_max: int = 8192    # pair-list engine, full CG only: fold the
+                                 # QEq hessian into a dense (N, N) matrix
+                                 # once per solve when N <= this, each CG
+                                 # matvec a matmul (4 N^2 bytes in float32);
+                                 # 0 keeps the per-iteration list gathers
     # extended Lagrangian
     Lex_fqs: float = 1.0
     Lex_k: float = 2.0
@@ -61,17 +61,16 @@ class RunConfig:
     ffield_path: str = "ffield"
     data_dir: str = "DAT"
     # engine knobs (new; no reference analog)
-    dtype: str = "float64"       # validation default; use float32 on TPU
+    dtype: str = "float64"       # float64 runs the table pair-list engine
+                                 # (any device); float32 the closed-form
+                                 # pair sweep, whose CUDA kernels are
+                                 # float32
     kb_cap: int = 0              # 0 = auto-size from first neighbor build
     knb_cap: int = 0
     nbr_skin: float = 0.4        # Verlet skin [A] added to list cutoffs.
                                  # The drift monitor rebuilds lists when
                                  # max displacement exceeds skin/2 (~32
-                                 # steps at 300K, dt 0.25 fs).  With the
-                                 # dense minimum-image fast path the pair
-                                 # kernels no longer scale with the skin,
-                                 # so a wider skin mainly buys fewer
-                                 # rebuilds (a rebuild costs ~6 steps)
+                                 # steps at 300K, dt 0.25 fs)
     rebuild_every: int = 40      # neighbor-list rebuild cadence CAP [steps];
                                  # the drift monitor usually triggers first
     term_slack: float = 0.1      # many-body list cache: BO-gate thresholds
@@ -90,55 +89,52 @@ class RunConfig:
                                  # candidate bonds geometrically — exact
                                  # under drift<margin/2 but inflates the
                                  # torsion capacity ~10-20x.
-    term_cache: bool = True      # cache angle/torsion lists on the rebuild
-                                 # cadence (False = reference per-step
-                                 # enumeration semantics, bit-exact)
-    pair_kernel: bool = None     # cell-column pair sweep (ops/pairsweep)
-                                 # as the nonbond + QEq engine.  The port
-                                 # has no other pair engine: None and True
-                                 # both select the sweep (its CUDA kernels
-                                 # on a CUDA device, its plain PyTorch
-                                 # version on the CPU); False raises
-                                 # NotImplementedError in md.Engine.
+    term_cache: bool = True      # cache angle/torsion/hbond lists on the
+                                 # rebuild cadence (False = enumerate them
+                                 # in every energy call with exact gates,
+                                 # the reference's per-step semantics)
+    pair_kernel: bool = None     # the cell-column pair sweep (ops/pairsweep,
+                                 # CUDA kernels on a card, their plain
+                                 # versions on the CPU) as the nonbond +
+                                 # QEq engine.  It takes the closed form,
+                                 # an orthogonal box, cached term lists and
+                                 # no tighten_lists.  None: the sweep where
+                                 # it can run, else the dense forms or the
+                                 # pair list (md.Engine.pair_engine says
+                                 # which); True: the sweep, raising where
+                                 # it cannot run; False: never the sweep.
     block_steps: int = 10        # rxmd_tpu: MD steps fused into one
                                  # dispatched XLA program (lax.scan).  The
                                  # port accepts it and steps one at a time;
                                  # K steps captured in one CUDA graph is
                                  # ROADMAP item 1.2.
     dense_direct_max: int = 12288
-                                 # dense minimum-image fast path for the
-                                 # QEq hessian + nonbond kernels (no
-                                 # neighbor gathers; one-hot MXU params,
-                                 # (n,n) MXU matvecs).  Used in f32
-                                 # closed-form production when the box is
-                                 # orthogonal with min(L) > 2*rctap and
-                                 # n <= this cap.  O(n^2) memory: the two
-                                 # (n,n) QEq matrices cost 2*4*n^2 bytes
-                                 # (1.2 GB at the 12288 default); measured
-                                 # on v5e the dense path still beats the
-                                 # gather-bound ELL path at 10.7k atoms
-                                 # (SCALING.md).  0 disables.
-    list_chunk: int = 4096       # row-chunk size for the torsion/hbond
-                                 # list builds (lax.map over center-row
-                                 # blocks; bit-identical output).  Bounds
-                                 # the builds' peak HBM/compile footprint
-                                 # so production N compiles on the TPU —
-                                 # the one-shot build crashes the compile
-                                 # service at N >= 16.8k (SCALING.md).
-                                 # Applied when n > this value; 0 never
-                                 # chunks.
+                                 # the dense minimum-image engine for the
+                                 # QEq hessian and nonbond ((n, n) pair
+                                 # matrices, no neighbor list), taken off
+                                 # the sweep with the closed form, an
+                                 # orthogonal box with min(L) > 2*rctap
+                                 # and n <= this cap.  O(n^2) memory: each
+                                 # (n, n) float32 matrix is 4 n^2 bytes
+                                 # (260 MB at 8,064 atoms), and the nonbond
+                                 # holds a few tens of them.  0 disables.
+    list_chunk: int = 4096       # rxmd_tpu: row-chunk size of its torsion/
+                                 # hbond list builds; the port accepts it
+                                 # and builds in one piece.
     nonbond_closed_form: bool = None
-                                 # None (auto): closed-form vdW/Coulomb/QEq
-                                 # kernels in float32 production (VPU math,
-                                 # no 58 MB table gathers per sweep), the
-                                 # reference's interpolation tables in
-                                 # float64 validation (bit-parity with the
-                                 # golden trace).  True/False forces.
-    tighten_lists: bool = False  # per-step compaction of skinned lists to
-                                 # the true cutoffs: saves ~1.4x in term
-                                 # shapes but costs two top_k sorts per step
-                                 # (energy kernels re-check cutoffs either
-                                 # way, so results are identical)
+                                 # None: the closed-form vdW/Coulomb/QEq
+                                 # kernels in float32, the reference's
+                                 # interpolation tables in float64 (which
+                                 # run on the pair list; they part from
+                                 # the closed form by the tables' own
+                                 # interpolation error, ~2e-3 kcal/mol
+                                 # per atom).  True/False forces.
+    tighten_lists: bool = False  # filter the skinned neighbor lists to the
+                                 # true cutoffs every step (capacities
+                                 # kb_t/knb_t; implies uncached term
+                                 # lists); the energy kernels re-check the
+                                 # cutoffs either way, so results are the
+                                 # same
     spring_const: float = 0.0
     spring_types: tuple = ()
     # run-profile file (ref: saveRunProfile/RunProfilePath module.F90:271-273)

@@ -1,5 +1,5 @@
-"""MD engine: velocity Verlet + QEq + the cell-column pair sweep
-(counterpart of rxmd_tpu.md.Engine for one device).
+"""MD engine: velocity Verlet + QEq + a pair engine for the nonbond and
+QEq pair terms (counterpart of rxmd_tpu.md.Engine for one device).
 
 One step follows the reference main loop (ref: main.F90:37-100):
 thermostat (every sstep) -> half kick -> extended-Lagrangian charge DOF
@@ -10,12 +10,21 @@ cached angle / torsion / hbond lists and the pair sweep's slot layout; the
 host loop rebuilds on a fixed cadence or when the drift monitor trips,
 prints PRINTE lines, writes frames and keeps the per-phase timers.
 
-Ported configuration: orthogonal box; mdmodes 0, 1, 4-8 (and 10 through
-`opt.conjugate_gradient`); closed-form nonbond; cached term lists; QEq off
-/ full CG (isQEq=1) / extended Lagrangian (isQEq=2); the electric field
-and spring restraints; the pair sweep as the only nonbond and QEq engine.
-Anything else raises NotImplementedError.  Steps run one per host
-iteration (`block_steps` is accepted and not used).
+The pair engine (`Engine.pair_engine`), chosen at construction:
+  * "sweep": the cell-column pair sweep (ops/pairsweep, CUDA kernels on a
+    card, float32 there): closed-form kernels, orthogonal box, cached term
+    lists, no tighten_lists; taken by default wherever it can run;
+  * "dense": the dense minimum-image (n, n) forms (closed form, orthogonal
+    box with min(L) > 2*rctap, n <= dense_direct_max), as rxmd_tpu;
+  * "ell": the pair context over the nonbonded list, closed-form or the
+    reference's interpolation tables (the float64 default), as rxmd_tpu.
+Boxes may be triclinic; the term lists may be cached or enumerated in
+every energy call (term_cache=False), and the neighbor lists tightened to
+the true cutoffs every step (tighten_lists).  mdmodes 0, 1, 4-8 (and 10
+through `opt.conjugate_gradient`); QEq off / full CG (isQEq=1) / extended
+Lagrangian (isQEq=2); the electric field and spring restraints.  PQEq and
+LG raise NotImplementedError.  Steps run one per host iteration
+(`block_steps` is accepted and not used).
 """
 from __future__ import annotations
 
@@ -129,6 +138,11 @@ def probe_capacities(ff: ForceField, state: State, ffd, rctap,
     kb = _round_up(int(mb * 1.5) + 2, 4)
     knb = min(_round_up(int(mnb * 1.3) + 8, 64), 4096)
     nbrs_skinned = _build(state, img, grid, rc2b_p, rctap2_p, kb, knb)
+    # tight (no-skin) occupancies for the per-step tightened lists
+    tight = neighbors.tighten(state.pos, state.H, state.types, img,
+                              nbrs_skinned, ffd.rc2b, ffd.rctap2, kb, knb)
+    kb_t = _round_up(int(tight.cntb.max() * 1.3) + 2, 4)
+    knb_t = min(_round_up(int(tight.cntnb.max() * 1.2) + 8, 64), 4096)
     tc = reax.term_counts(state.pos, state.H, state.types, state.gid, img,
                           nbrs_skinned, ffd, slack=term_slack,
                           margin=term_margin)
@@ -141,6 +155,7 @@ def probe_capacities(ff: ForceField, state: State, ffd, rctap,
             "hbf": max(_round_up(int(tc["hbf"] * 1.8) + 64, 256), 256),
             "ks": _round_up(tc["degmax"] + 2, 2),
             "kh": max(_round_up(tc.get("h_slots", 4) + 1, 2), 2),
+            "kb_t": kb_t, "knb_t": knb_t,
             "ang_row": _round_up(int(tc["ang_row"] * 2.2) + 8, 8),
             "tor_row": _round_up(int(tc["tor_row"] * 2.2) + 8, 8),
             "hb_row": max(_round_up(int(tc["hb"] * 2.2) + 16, 8), 16)}
@@ -169,6 +184,30 @@ class PhaseTimer:
                 for k, v in self.events.items()}
 
 
+def _pair_engine(cfg: RunConfig, closed_form, H, n, rctap):
+    """The nonbond and QEq pair engine of a configuration (see the module
+    docstring): where rxmd_tpu routes, except that pair_kernel=None takes
+    the sweep wherever it can run, and pair_kernel=True on a
+    configuration the sweep cannot take raises, naming why."""
+    ortho = bool(np.allclose(H, np.diag(np.diag(H))))
+    no_sweep = [name for cond, name in (
+        (not closed_form, "the interpolation tables (nonbond_closed_form="
+                          "False, the float64 default)"),
+        (not ortho, "a triclinic box"),
+        (not cfg.term_cache, "term_cache=False"),
+        (cfg.tighten_lists, "tighten_lists"),
+    ) if cond]
+    if cfg.pair_kernel is not False and not no_sweep:
+        return "sweep"
+    if cfg.pair_kernel:
+        raise ValueError("pair_kernel=True: the pair sweep cannot run "
+                         + ", ".join(no_sweep))
+    if (closed_form and ortho and float(np.diag(H).min()) > 2.0 * rctap
+            and n <= cfg.dense_direct_max):
+        return "dense"
+    return "ell"
+
+
 class Engine:
     """Single-device MD engine on `device` ("cuda" needs a card: without
     one the constructor raises; it never moves to the CPU by itself)."""
@@ -179,34 +218,40 @@ class Engine:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
         dtype = dtype or getattr(torch, cfg.dtype)
-        if device.type == "cuda" and dtype != torch.float32:
-            raise ValueError(
-                f"Engine(device='cuda', dtype={dtype}): the CUDA sweep "
-                "kernels are float32; pass --dtype float32 (dtype="
-                "torch.float32), or run float64 on the CPU")
-        H = state.H.cpu().numpy()
         missing = [name for cond, name in (
             (cfg.mdmode not in MDMODES, f"mdmode={cfg.mdmode}"),
             (cfg.isQEq not in (0, 1, 2), f"isQEq={cfg.isQEq}"),
             (cfg.isPQEq, "PQEq"),
             (ff.is_lg, "LG dispersion"),
-            (not cfg.term_cache, "uncached many-body terms (term_cache)"),
-            (cfg.tighten_lists, "tighten_lists"),
-            (cfg.nonbond_closed_form is False,
-             "the interpolation-table nonbond path"),
-            (cfg.pair_kernel is False, "the ELL and dense nonbond/QEq forms"),
-            (not np.allclose(H, np.diag(np.diag(H))), "a triclinic box"),
         ) if cond]
         if missing:
             raise NotImplementedError(
                 "rxmd_tpu_torch has no path for " + ", ".join(missing))
+        rctap = units.RCTAP0
+        H = state.H.cpu().numpy()
+        # closed-form kernels in float32, the reference's interpolation
+        # tables in float64, unless the config says
+        self.closed_form = (cfg.nonbond_closed_form
+                            if cfg.nonbond_closed_form is not None
+                            else dtype == torch.float32)
+        # cached term lists index the skinned neighbor slots, which the
+        # per-step tightening renumbers
+        self.term_cache = cfg.term_cache and not cfg.tighten_lists
+        self.pair_engine = _pair_engine(cfg, self.closed_form, H, state.n,
+                                        rctap)
+        if (self.pair_engine == "sweep" and device.type == "cuda"
+                and dtype != torch.float32):
+            raise ValueError(
+                f"Engine(device='cuda', dtype={dtype}): the CUDA sweep "
+                "kernels are float32; pass --dtype float32 (dtype="
+                "torch.float32), or nonbond_closed_form=False for the "
+                "pair-list engine, or run on the CPU")
         if cfg.mdmode == 0:
             cfg.isQEq = 1      # ref: init.F90:56-63
         self.ff = ff
         self.cfg = cfg
         self.device = device
         self.dtype = dtype
-        rctap = units.RCTAP0
         self.rctap = rctap
         self.ffd = reax.ffdev_from(ff, dtype=self.dtype, rctap=rctap,
                                    device=device)
@@ -228,21 +273,24 @@ class Engine:
         self.grid = _cell_grid(ff, self.state, self.img, self.skin, rctap)
         self.rc2b_ext, self.rctap2_ext = _skinned_cutoffs(self.ffd, rctap,
                                                           self.skin)
-        self.term_slack = cfg.term_slack
-        self.term_margin = cfg.term_margin
+        self.term_slack = cfg.term_slack if self.term_cache else 1.0
+        self.term_margin = cfg.term_margin if self.term_cache else 0.0
         kb, knb, self.caps = probe_capacities(
             ff, self.state, self.ffd, rctap, skin=self.skin,
             term_slack=self.term_slack, term_margin=self.term_margin)
         self.kb = cfg.kb_cap or kb
         self.knb = cfg.knb_cap or knb
 
-        # the cell-column pair sweep is the nonbond and QEq engine (no
+        # the cell-column pair sweep's slot grid and pair functions (no
         # slot-count cap: the slot table lives in device memory)
-        self.pairk = pairsweep.make_pair_grid(H, rctap, skin=self.skin,
-                                              ccap=8)
-        rc2 = float(self.ffd.rctap2)
-        self._nb_fn = pairsweep.make_nonbond_pair_fn(self.ffd, ff.nso, rc2)
-        self._qeq_fn = pairsweep.make_qeq_pair_fn(self.ffd, ff.nso, rc2)
+        self.pairk = None
+        if self.pair_engine == "sweep":
+            self.pairk = pairsweep.make_pair_grid(H, rctap, skin=self.skin,
+                                                  ccap=8)
+            rc2 = float(self.ffd.rctap2)
+            self._nb_fn = pairsweep.make_nonbond_pair_fn(self.ffd, ff.nso,
+                                                         rc2)
+            self._qeq_fn = pairsweep.make_qeq_pair_fn(self.ffd, ff.nso, rc2)
         # the pair ops run the CUDA kernels for CUDA tensors (the plain
         # versions for CPU tensors); a reference run may set this to run the
         # plain versions on any device
@@ -250,7 +298,7 @@ class Engine:
         self.cg_iters = 0          # CG iterations summed over every QEq solve
 
         # rebuild trigger: pair lists are valid while drift < skin/2, cached
-        # term lists while drift < term_margin/2
+        # term lists while drift < term_margin/2 (0 without a cache)
         lim = self.skin
         if self.term_margin > 0.0:
             lim = min(lim, self.term_margin)
@@ -285,6 +333,34 @@ class Engine:
         s = dataclasses.replace(self.state, pos=pos, H=H, types=types)
         return _build(s, self.img, self.grid, self.rc2b_ext, self.rctap2_ext,
                       self.kb, self.knb)
+
+    def _tight_nbrs(self, pos, H, types, nbrs):
+        """The skinned lists filtered to the true cutoffs (tighten_lists),
+        raising where a row overflows its tight capacity."""
+        if not self.cfg.tighten_lists:
+            return nbrs
+        tight = neighbors.tighten(pos, H, types, self.img, nbrs,
+                                  self.ffd.rc2b, self.ffd.rctap2,
+                                  self.caps["kb_t"], self.caps["knb_t"])
+        neighbors.check_overflow(tight)
+        return tight
+
+    def _pair_data(self, pos, s: State, nbrs, sm):
+        """This step's pair data, shared by QEq and the nonbond term: the
+        sweep's PairOps over the slot map `sm`; for the pair-list engine
+        the pair context and, with the tables, its table rows (as
+        reax.pair_rows gives them); nothing for the dense forms."""
+        with self._phase("pairs"):
+            if self.pair_engine == "sweep":
+                return self._make_pair_ops(pos, s.H, s.types, sm)
+            if self.pair_engine == "dense":
+                return None
+            amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
+            ctx = reax.nb_ctx(pos, None, s.H, s.types, self.img, nbrs, s.gid,
+                              amask, self.ffd)
+            rows = (None if self.closed_form
+                    else reax.pair_rows(ctx, s.types, self.ffd))
+            return ctx, rows
 
     def _bin_pair_slots(self, pos, H):
         """Cell-slot binning for the pair sweep (rebuild cadence)."""
@@ -350,20 +426,31 @@ class Engine:
         PairOps.walk, PairOps.own = walk, own32
         return PairOps
 
-    def _external_nonbond(self, pair_ops, q, types, with_virial):
-        """Assemble the external-nonbond tuple from the sweep rows."""
-        rows = pair_ops.nonbond(q)
+    def _external_nonbond(self, pos, q, s: State, pairs, with_virial):
+        """(evdw, eclmb, echarge, f_nb, w_nb or None) of the pair engine."""
+        types = s.types
+        amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
+        if self.pair_engine == "dense":
+            out = reax.nonbond_dense(pos, q, s.H, types, amask, self.ffd,
+                                     with_virial=with_virial)
+            return out if with_virial else (*out, None)
+        if self.pair_engine == "ell":
+            ctx, rows = pairs
+            out = reax.nonbond_ctx_energy_forces(
+                ctx, q, types, amask, self.ffd, self.closed_form,
+                with_virial=with_virial, pre=rows, img=self.img)
+            return out if with_virial else (*out, None)
+        rows = pairs.nonbond(q)
         evdw = torch.sum(rows[0])
         eclmb = torch.sum(rows[1])
-        echarge = torch.sum(units.CECHRGE * (
-            self.ffd.chi[types] * q + 0.5 * self.ffd.eta[types] * q * q))
+        echarge = reax.charge_energy(q, types, amask, self.ffd)
         f_nb = rows[2:5].T
         w_nb = None
         if with_virial:
-            s = torch.sum(rows[5:11], dim=1)   # xx,yy,zz,yz,zx,xy
-            w_nb = torch.stack([torch.stack([s[0], s[5], s[4]]),
-                                torch.stack([s[5], s[1], s[3]]),
-                                torch.stack([s[4], s[3], s[2]])])
+            v = torch.sum(rows[5:11], dim=1)   # xx,yy,zz,yz,zx,xy
+            w_nb = torch.stack([torch.stack([v[0], v[5], v[4]]),
+                                torch.stack([v[5], v[1], v[3]]),
+                                torch.stack([v[4], v[3], v[2]])])
         return evdw, eclmb, echarge, f_nb, w_nb
 
     def _wrap(self, pos, H):
@@ -371,31 +458,42 @@ class Engine:
         frac = torch.remainder(pos @ torch.linalg.inv(H).T, 1.0)
         return frac @ H.T
 
-    def _qeq_step(self, pos, q, qsfp, qsfv, types, pair_ops, isqeq=None):
+    def _qeq_step(self, pos, q, qsfp, qsfv, s: State, nbrs, pairs,
+                  isqeq=None):
         cfg = self.cfg
         isqeq = cfg.isQEq if isqeq is None else isqeq
         if isqeq == 0:
             return q, qsfp, qsfv, 0
+        sweep = self.pair_engine == "sweep"
+        pre = None
+        if self.pair_engine == "ell":
+            ctx, rows = pairs
+            pre = (ctx, None, None) if rows is None else (ctx, *rows)
         with self._phase("qeq"):
-            res = qeq.solve(pos, q, qsfp, types, self.ffd, pair_ops,
-                            isqeq=isqeq, nmax=cfg.NMAXQEq, tol=cfg.QEq_tol,
-                            lex_fqs=cfg.Lex_fqs)
+            res = qeq.solve(pos, q, qsfp, s.types, self.ffd,
+                            pairs if sweep else None, isqeq=isqeq,
+                            nmax=cfg.NMAXQEq, tol=cfg.QEq_tol,
+                            lex_fqs=cfg.Lex_fqs, H=s.H, img=self.img,
+                            nbrs=nbrs, pre=pre, dense_max=cfg.qeq_dense_max,
+                            direct=self.pair_engine == "dense")
         self.cg_iters += res.iters
         if isqeq == 1:
             # fictitious charges re-seeded from pre-QEq q (ref: qeq.F90:42-43)
             return res.q, q, torch.zeros_like(qsfv), res.iters
         return res.q, qsfp, qsfv, res.iters
 
-    def _potential(self, pos, q, s: State, nbrs, lists, pair_ops,
-                   with_virial):
-        """Potential energy components, forces [and virial]: the nonbond
-        sweep's rows spliced into the bonded terms' autograd pass."""
+    def _potential(self, pos, q, s: State, nbrs, lists, pairs, with_virial):
+        """Potential energy components, forces [and virial]: the pair
+        engine's nonbond spliced into the bonded terms' autograd pass (the
+        hydrogen bonds of uncached terms reuse the pair context)."""
         with self._phase("nonbond"):
-            ext_nb = self._external_nonbond(pair_ops, q, s.types, with_virial)
+            ext_nb = self._external_nonbond(pos, q, s, pairs, with_virial)
+        ctx = pairs[0] if self.pair_engine == "ell" else None
         with self._phase("bonded"):
             return reax.energy_and_forces(
                 pos, q, s.H, s.types, s.gid, self.img, nbrs, self.ffd,
-                lists, with_virial=with_virial, external_nonbond=ext_nb)
+                lists, with_virial=with_virial, external_nonbond=ext_nb,
+                caps=self.caps, ctx=ctx)
 
     def _external_forces(self, pos, q):
         """Electric-field and spring forces, or None without either."""
@@ -415,8 +513,8 @@ class Engine:
             f_extra = fs if f_extra is None else f_extra + fs
         return f_extra
 
-    def _forces(self, pos, q, s: State, nbrs, lists, pair_ops, with_virial):
-        out = self._potential(pos, q, s, nbrs, lists, pair_ops, with_virial)
+    def _forces(self, pos, q, s: State, nbrs, lists, pairs, with_virial):
+        out = self._potential(pos, q, s, nbrs, lists, pairs, with_virial)
         f_extra = self._external_forces(pos, q)
         if f_extra is None:
             return out
@@ -496,45 +594,55 @@ class Engine:
                                               dr, dim=-1))
 
     # ------------------------------------------------------------------
-    def _build_lists(self, pos, s: State, slack, margin):
-        """Skinned neighbor lists, the angle / torsion / hbond lists with
-        gates scaled by `slack` and `margin`, and the slot layout, for
-        wrapped positions `pos`.  Raises on any overflow; returns
-        (nbrs, (angle, torsion, hbond) cut to their counts, slot map)."""
+    def _build_lists(self, pos, s: State, slack, margin, term_lists=True):
+        """Skinned neighbor lists, with `term_lists` the angle / torsion /
+        hbond lists with gates scaled by `slack` and `margin`, and for the
+        sweep the slot layout, for wrapped positions `pos`.  Raises on any
+        overflow; returns (nbrs, (angle, torsion, hbond) cut to their
+        counts or None, slot map or None)."""
+        lists = sm = None
         with self._phase("rebuild"):
             nbrs = self._build_nbrs(pos, s.H, s.types)
-            bo = reax.bond_order(pos, s.H, s.types, self.img, nbrs, self.ffd)
-            amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
-            kw = dict(slack=slack, margin=margin)
-            caps = self.caps
-            al = reax.build_angle_list(s.types, self.img, nbrs, bo, amask,
-                                       self.ffd, cap=caps["ang"],
-                                       ks=caps["ks"], rowcap=caps["ang_row"],
-                                       **kw)
-            tl = reax.build_torsion_list(s.types, s.gid, self.img, nbrs, bo,
-                                         amask, self.ffd, cap=caps["tor"],
-                                         ks=caps["ks"],
-                                         rowcap=caps["tor_row"], **kw)
-            hl = reax.build_hbond_list(pos, s.H, s.types, self.img, nbrs, bo,
-                                       amask, self.ffd, cap=caps["hbf"],
-                                       kh=caps["kh"], rowcap=caps["hb_row"],
-                                       **kw)
-            sm = self._bin_pair_slots(pos, s.H)
+            if term_lists:
+                bo = reax.bond_order(pos, s.H, s.types, self.img, nbrs,
+                                     self.ffd)
+                amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
+                kw = dict(slack=slack, margin=margin)
+                caps = self.caps
+                lists = (
+                    reax.build_angle_list(
+                        s.types, self.img, nbrs, bo, amask, self.ffd,
+                        cap=caps["ang"], ks=caps["ks"],
+                        rowcap=caps["ang_row"], **kw),
+                    reax.build_torsion_list(
+                        s.types, s.gid, self.img, nbrs, bo, amask, self.ffd,
+                        cap=caps["tor"], ks=caps["ks"],
+                        rowcap=caps["tor_row"], **kw),
+                    reax.build_hbond_list(
+                        pos, s.H, s.types, self.img, nbrs, bo, amask,
+                        self.ffd, cap=caps["hbf"], kh=caps["kh"],
+                        rowcap=caps["hb_row"], **kw))
+            if self.pair_engine == "sweep":
+                sm = self._bin_pair_slots(pos, s.H)
         mb, mnb = neighbors.check_overflow(nbrs)
         self.timers.peak("bonded nbr list", mb, self.kb)
         self.timers.peak("nonbonded nbr list", mnb, self.knb)
-        lists = (al, tl, hl)
-        self._check_list_overflow(lists)
-        self._check_slot_overflow(sm)
-        return nbrs, tuple(_trim(lst) for lst in lists), sm
+        if lists is not None:
+            self._check_list_overflow(lists)
+            lists = tuple(_trim(lst) for lst in lists)
+        if sm is not None:
+            self._check_slot_overflow(sm)
+        return nbrs, lists, sm
 
     @torch.no_grad()
     def _rebuild(self, s: State):
         """Wrap positions into the box, rebuild the skinned neighbor lists,
-        the cached many-body lists (slackened gates) and the slot layout."""
+        the cached many-body lists (slackened gates; none for uncached
+        terms) and the sweep's slot layout."""
         pos = self._wrap(s.pos, s.H)
         self.nbrs, self.tlists, self._slotmap = self._build_lists(
-            pos, s, self.term_slack, self.term_margin)
+            pos, s, self.term_slack, self.term_margin,
+            term_lists=self.term_cache)
         self.state = dataclasses.replace(s, pos=pos)
         self._pos_ref = pos
         self._steps_since_rebuild = 0
@@ -577,16 +685,16 @@ class Engine:
         (ref: main.F90:27-32)."""
         self._rebuild(self.state)
         s = self.state
-        pair_ops = self._make_pair_ops(s.pos, s.H, s.types, self._slotmap)
+        nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
+        pairs = self._pair_data(s.pos, s, nbrs, self._slotmap)
         # cold-start extended Lagrangian: one full CG solve seeds the
         # fictitious charge DOF
         isq = 1 if self.cfg.isQEq == 2 else None
-        q, qsfp, qsfv, nq = self._qeq_step(s.pos, s.q, s.qsfp, s.qsfv,
-                                           s.types, pair_ops, isqeq=isq)
+        q, qsfp, qsfv, nq = self._qeq_step(s.pos, s.q, s.qsfp, s.qsfv, s,
+                                           nbrs, pairs, isqeq=isq)
         if self.cfg.isQEq == 2:
             qsfp, qsfv = q, torch.zeros_like(qsfv)
-        comps, f = self._forces(s.pos, q, s, self.nbrs, self.tlists, pair_ops,
-                                False)
+        comps, f = self._forces(s.pos, q, s, nbrs, self.tlists, pairs, False)
         self.state = dataclasses.replace(s, q=q, qsfp=qsfp, qsfv=qsfv)
         self.force = f
         self.comps = comps
@@ -615,14 +723,15 @@ class Engine:
         # drift (ref: main.F90:72); wrapping happens at list rebuilds
         pos = s.pos + dt * v
 
-        pair_ops = self._make_pair_ops(pos, s.H, s.types, self._slotmap)
+        nbrs = self._tight_nbrs(pos, s.H, s.types, self.nbrs)
+        pairs = self._pair_data(pos, s, nbrs, self._slotmap)
         if s.step % cfg.qstep == 0:
-            q, qsfp, qsfv, nq = self._qeq_step(pos, s.q, qsfp, qsfv, s.types,
-                                               pair_ops)
+            q, qsfp, qsfv, nq = self._qeq_step(pos, s.q, qsfp, qsfv, s, nbrs,
+                                               pairs)
         else:
             q, nq = s.q, 0
-        comps, f2, w = self._forces(pos, q, s, self.nbrs, self.tlists,
-                                    pair_ops, True)
+        comps, f2, w = self._forces(pos, q, s, nbrs, self.tlists, pairs,
+                                    True)
 
         # per-step stress accumulation: kinetic m v_a v_b with the
         # half-kicked velocity + potential virial (ref: main.F90:86-94)
@@ -736,17 +845,17 @@ class Engine:
     def stress(self):
         """Stress tensor [GPa] of the current state: kinetic term plus the
         potential virial (the bonded terms' autograd strain gradient plus
-        the nonbond sweep's pair virial rows) over the volume, on the
-        current lists and slot layout (ref: pot.F90:65-72 +
-        main.F90:86-94).  Field and spring forces are not in it, as in
+        the pair engine's pair virial) over the volume, on the current
+        lists and slot layout (ref: pot.F90:65-72 + main.F90:86-94).  Field and spring forces are not in it, as in
         rxmd_tpu's strain-derivative stress.  Symmetric 3x3 numpy array;
         pressure = trace/3."""
         if not hasattr(self, "nbrs"):
             self._rebuild(self.state)
         s = self.state
-        pair_ops = self._make_pair_ops(s.pos, s.H, s.types, self._slotmap)
-        _, _, w = self._potential(s.pos, s.q, s, self.nbrs, self.tlists,
-                                  pair_ops, True)
+        nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
+        pairs = self._pair_data(s.pos, s, nbrs, self._slotmap)
+        _, _, w = self._potential(s.pos, s.q, s, nbrs, self.tlists, pairs,
+                                  True)
         m = (2.0 * self.hmas)[s.types]
         kin = torch.einsum("i,ia,ib->ab", m, s.vel, s.vel)
         vol = torch.abs(torch.linalg.det(s.H))

@@ -109,22 +109,63 @@ def _select_k(mask, k):
     return idx
 
 
+# candidate pairs per row block of the brute-force build: bounds its
+# (rows, M, 3) difference tensor to 2^24 pairs (a triclinic 8,064-atom box
+# with 27 images has 1.76e9 candidates, 21 GB of float32 differences)
+BRUTE_BLOCK = 1 << 24
+
+
 def build_neighbors_brute(pos, H, types, img: ImageTable, rc2_by_type,
                           rctap2, kb: int, knb: int) -> Neighbors:
-    """O(N*M) all-pairs neighbor search over the extended set (used below
-    400 atoms).  rc2_by_type: (nso, nso) squared sigma-bond cutoffs."""
+    """O(N*M) all-pairs neighbor search over the extended set (below 400
+    atoms and for triclinic boxes).  rc2_by_type: (nso, nso) squared
+    sigma-bond cutoffs.  Rows go in blocks of as many as keep a block
+    under BRUTE_BLOCK candidates; the lists do not depend on it."""
     n = pos.shape[0]
+    dev = pos.device
     pose = ext_positions(pos, H, img)
-    d = pos[:, None, :] - pose[None, :, :]
-    dr2 = torch.sum(d * d, dim=-1)                       # (N, M)
-    not_self = (torch.arange(n, device=pos.device)[:, None]
-                != torch.arange(pose.shape[0], device=pos.device)[None, :])
+    m = pose.shape[0]
+    row_chunk = max(1, BRUTE_BLOCK // m)
     tj = types[img.owner]
-    rc2_pair = rc2_by_type[types[:, None], tj[None, :]]
-    maskb = (dr2 < rc2_pair) & not_self                  # strict <, main.F90:366
-    masknb = (dr2 <= rctap2) & not_self                  # <=, main.F90:458
-    return Neighbors(idxb=_select_k(maskb, kb), cntb=maskb.sum(dim=1),
-                     idxnb=_select_k(masknb, knb), cntnb=masknb.sum(dim=1))
+    cols = torch.arange(m, device=dev)
+    parts = []
+    for r0 in range(0, n, row_chunk):
+        rows = torch.arange(r0, min(n, r0 + row_chunk), device=dev)
+        d = pos[rows][:, None, :] - pose[None, :, :]
+        dr2 = torch.sum(d * d, dim=-1)                   # (B, M)
+        del d
+        not_self = rows[:, None] != cols[None, :]
+        rc2_pair = rc2_by_type[types[rows][:, None], tj[None, :]]
+        maskb = (dr2 < rc2_pair) & not_self              # strict <, main.F90:366
+        masknb = (dr2 <= rctap2) & not_self              # <=, main.F90:458
+        parts.append((_select_k(maskb, kb), maskb.sum(dim=1),
+                      _select_k(masknb, knb), masknb.sum(dim=1)))
+    return Neighbors(*(torch.cat(p) for p in zip(*parts)))
+
+
+def tighten(pos, H, types, img: ImageTable, nbrs: Neighbors, rc2_by_type,
+            rctap2, kb: int, knb: int) -> Neighbors:
+    """Filter Verlet-skinned lists down to the true cutoffs and compact
+    them to capacities kb, knb (lowest slot first); the counts say whether
+    a row overflowed."""
+    pose = ext_positions(pos, H, img)
+
+    def shrink(idx_full, cap, within):
+        mask = idx_full >= 0
+        idx = torch.where(mask, idx_full, 0)
+        d = pos[:, None, :] - pose[idx]
+        keep = mask & within(torch.sum(d * d, dim=-1), idx)
+        slot = _select_k(keep, cap)
+        out = torch.where(slot >= 0,
+                          torch.gather(idx, 1, slot.clamp(min=0)), -1)
+        return out, keep.sum(dim=1)
+
+    tj = types[img.owner]
+    idxb, cntb = shrink(
+        nbrs.idxb, kb,
+        lambda dr2, ix: dr2 < rc2_by_type[types[:, None], tj[ix]])
+    idxnb, cntnb = shrink(nbrs.idxnb, knb, lambda dr2, ix: dr2 <= rctap2)
+    return Neighbors(idxb=idxb, cntb=cntb, idxnb=idxnb, cntnb=cntnb)
 
 
 def sphere_stencil(cellsize, rcut):

@@ -10,8 +10,8 @@ EvaluateEnergyWithStep (ref: cg.F90:358-387).
 The line-search control flow runs on the host and reads one float per
 probe.  Each probe builds its lists fresh: the neighbor lists, the angle /
 torsion / hbond lists with exact gates (slack 1, margin 0: what rxmd_tpu's
-uncached terms evaluate) and the pair sweep's slot layout, then a full CG
-and the forces, through the same sweep kernels as an MD step.
+uncached terms evaluate) and, for the pair sweep, the slot layout; then a
+full CG and the forces, through the engine's pair engine as an MD step.
 """
 from __future__ import annotations
 
@@ -42,16 +42,17 @@ class _MDAdapter:
     @torch.no_grad()
     def evaluate(self, pos):
         """(PE, forces, charges) at `pos`, leaving `pos` untouched: a
-        wrapped copy, fresh exact-gate lists and slot layout (overflow
-        checked once), a full CG (isQEq=1), then the forces."""
+        wrapped copy, fresh exact-gate lists (and the sweep's slot layout;
+        overflow checked once), a full CG (isQEq=1), then the forces,
+        through the engine's pair engine."""
         e = self.engine
         s = e.state
         pw = e._wrap(pos, s.H)
         nbrs, lists, sm = e._build_lists(pw, s, slack=1.0, margin=0.0)
-        pair_ops = e._make_pair_ops(pw, s.H, s.types, sm)
-        q, _, _, _ = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s.types, pair_ops,
+        pairs = e._pair_data(pw, s, nbrs, sm)
+        q, _, _, _ = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs, pairs,
                                  isqeq=1)
-        comps, f = e._forces(pw, q, s, nbrs, lists, pair_ops, False)
+        comps, f = e._forces(pw, q, s, nbrs, lists, pairs, False)
         return comps[0], f, q
 
     def commit(self, pos, q):

@@ -1,20 +1,29 @@
-"""Charge equilibration (QEq): two-vector conjugate gradient over the pair
-sweep (counterpart of the `pair_ops` branch of rxmd_tpu.qeq.solve).
+"""Charge equilibration (QEq): two-vector conjugate gradient
+(counterpart of rxmd_tpu.qeq).
 
 The (s, t) vectors are solved jointly as one (N, 2) state; each CG
 iteration applies the shielded-Coulomb hessian to both and sums the
 electrostatic energy Est in one pass (ref: get_hsh, qeq.F90:271-318).
-`pair_ops` keeps the hessian as a pair list, built at the solve's first
-matvec and applied at every one (ref: qeq_initialize's hessian rows,
-qeq.F90:183).  Termination follows the reference's
-two tests on Est (ref: qeq.F90:114-115); the loop reads the stop flag on
-the host once per iteration.
+The hessian comes from one of three pair engines:
+  * the pair sweep (`pair_ops`): a pair list built at the solve's first
+    matvec and applied at every one by the CUDA kernels;
+  * the dense minimum-image form (`direct`): (n, n) matrices and matmuls;
+  * the pair context over the nonbonded list (ELL, from `pre` or built
+    here), closed-form or table column 4; a full CG (isQEq=1) at
+    n <= `dense_max` folds it into a dense (n, n) matrix once.
+Termination follows the reference's two tests on Est (ref:
+qeq.F90:114-115); the loop reads the stop flag on the host once per
+iteration.  `lmin_f32` stores the line-minimization step in float32 as
+the reference does (qeq.F90:23), so iteration counts match its.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from .reax import (_table_rows, cf_qeq_kernel, ctx_prm, nb_ctx,
+                   pair_bond_type, qeq_dense_direct)
 
 
 class QEqResult(NamedTuple):
@@ -25,13 +34,20 @@ class QEqResult(NamedTuple):
     est: torch.Tensor     # () final electrostatic energy [eV]
 
 
-def solve(pos, q, qsfp, types, ffd, pair_ops, amask=None, isqeq: int = 1,
-          nmax: int = 500, tol: float = 1e-7,
-          lex_fqs: float = 1.0) -> QEqResult:
+def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
+          isqeq: int = 1, nmax: int = 500, tol: float = 1e-7,
+          lex_fqs: float = 1.0, *, H=None, img=None, nbrs=None,
+          lmin_f32: bool = False, closed_form=None, pre=None,
+          dense_max: int = 8192, direct: bool = False) -> QEqResult:
     """Solve for charges.  isqeq=1: full CG (ref: qeq.F90:39-48); isqeq=2:
     extended-Lagrangian warm start, one iteration (ref: qeq.F90:51-57).
-    `pair_ops.sweep3(hs, ht, q)` returns the per-atom (H·hs, H·ht, Est pair
-    sum) rows of the QEq sweep."""
+
+    The engine, in order: `direct` (the dense minimum-image hessian, needs
+    H); `pair_ops`, whose `sweep3(hs, ht, q)` returns the per-atom (H·hs,
+    H·ht, Est pair sum) rows of the pair sweep; else the pair context:
+    `pre` = (ctx, table rows, ok) from reax.pair_rows, or (ctx, None, None)
+    for the closed form, or None to build it from (H, img, nbrs) with the
+    closed form if `closed_form` else the tables."""
     n = pos.shape[0]
     dtype = pos.dtype
     # the stop tests are RELATIVE energy changes; below ~20 ulp of the
@@ -44,27 +60,94 @@ def solve(pos, q, qsfp, types, ffd, pair_ops, amask=None, isqeq: int = 1,
     chi = torch.where(amask, ffd.chi[types], 0.0)
     w = amask.to(dtype)
 
+    def cg(matvec2, matvec2_and_est):
+        def gradient(X):
+            rhs = torch.stack([-chi, -w], dim=1)
+            return torch.where(amask[:, None], rhs - matvec2(X), 0.0)
+        return _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs,
+                   lmin_f32, matvec2_and_est, gradient)
+
+    def est_of(pair_sum, qcur):
+        per_atom = chi * qcur + 0.5 * eta * qcur * qcur + pair_sum * qcur
+        return torch.sum(torch.where(amask, per_atom, 0.0))
+
+    if direct:
+        Hd, Hw = qeq_dense_direct(pos, H, types, ffd)
+        return cg(lambda X: eta[:, None] * X + Hd @ X,
+                  lambda Hv, qc: (eta[:, None] * Hv + Hd @ Hv,
+                                  est_of(Hw @ qc, qc)))
+
+    if pair_ops is not None:
+        def matvec2(X):
+            mvs, mvt, _ = pair_ops.sweep3(X[:, 0], X[:, 1],
+                                          torch.zeros_like(X[:, 0]))
+            return eta[:, None] * X + torch.stack([mvs, mvt], dim=1)
+
+        def matvec2_and_est(Hv, qcur):
+            mvs, mvt, estp = pair_ops.sweep3(Hv[:, 0], Hv[:, 1], qcur)
+            mv = eta[:, None] * Hv + torch.stack([mvs, mvt], dim=1)
+            return mv, est_of(estp, qcur)
+        return cg(matvec2, matvec2_and_est)
+
+    # the pair context: QEq keeps periodic self-images (ref: qeq.F90:200-
+    # 256), so its notself mask is unused and gid may be a dummy
+    if pre is not None:
+        ctx, rows, ok = pre
+        if rows is None:
+            hess = cf_qeq_kernel(ctx.dr2, ctx_prm(ctx, types, ffd), ffd,
+                                 ctx.mask & (ctx.dr2 < ffd.rctap2))
+        else:
+            hess = torch.where(ok & (ctx.dr2 < ffd.rctap2), rows[..., 4], 0.0)
+    else:
+        ctx = nb_ctx(pos, None, H, types, img, nbrs, torch.zeros_like(types),
+                     amask, ffd)
+        in_range = nbrs.masknb & (ctx.dr2 < ffd.rctap2)
+        if closed_form:
+            hess = cf_qeq_kernel(ctx.dr2, ctx_prm(ctx, types, ffd), ffd,
+                                 in_range)
+        else:
+            bc = pair_bond_type(ctx, types, ffd)
+            ok = in_range & (bc >= 0)
+            rows = _table_rows(ffd, torch.where(ok, bc, 0), ctx.dr2, ok)
+            hess = torch.where(ok, rows[..., 4], 0.0)
+    mask = nbrs.masknb
+    oj = img.owner_of(ctx.idx)
+    hz = torch.where(mask, hess, 0.0)
+    # Est pair weight: 0.5 per directed entry plus another 0.5 when the
+    # neighbor is the atom itself, not an image (ref: qeq.F90:304-306)
+    est_w = torch.where(ctx.idx < n, 1.0, 0.5).to(dtype)
+
+    if n <= dense_max and isqeq != 2:
+        # a full CG: fold the list into a dense (n, n) matrix once, each
+        # matvec a matmul; index_put_ with accumulate sums repeated
+        # (row, owner) entries in a fixed order
+        row = torch.arange(n, device=pos.device)[:, None].expand_as(oj)
+        Hd = torch.zeros((n, n), dtype=dtype, device=pos.device)
+        Hd.index_put_((row.reshape(-1), oj.reshape(-1)), hz.reshape(-1),
+                      accumulate=True)
+
+        def matvec2_and_est(Hv, qcur):
+            qj = torch.where(mask, qcur[oj], 0.0)
+            return (eta[:, None] * Hv + Hd @ Hv,
+                    est_of(torch.sum(est_w * hz * qj, dim=1), qcur))
+        return cg(lambda X: eta[:, None] * X + Hd @ X, matvec2_and_est)
+
     def matvec2(X):
-        mvs, mvt, _ = pair_ops.sweep3(X[:, 0], X[:, 1],
-                                      torch.zeros_like(X[:, 0]))
-        return eta[:, None] * X + torch.stack([mvs, mvt], dim=1)
+        Xs = torch.where(mask[..., None], X[oj], 0.0)            # (n, knb, 2)
+        return eta[:, None] * X + torch.einsum("nk,nkc->nc", hz, Xs)
 
     def matvec2_and_est(Hv, qcur):
-        mvs, mvt, estp = pair_ops.sweep3(Hv[:, 0], Hv[:, 1], qcur)
-        mv = eta[:, None] * Hv + torch.stack([mvs, mvt], dim=1)
-        per_atom = chi * qcur + 0.5 * eta * qcur * qcur + estp * qcur
-        return mv, torch.sum(torch.where(amask, per_atom, 0.0))
-
-    def gradient(X):
-        rhs = torch.stack([-chi, -w], dim=1)
-        return torch.where(amask[:, None], rhs - matvec2(X), 0.0)
-
-    return _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs,
-               matvec2_and_est, gradient)
+        """One (n, knb, 3) gather feeds both H·(hs, ht) and the Est pair
+        sum (cf. the reference's single get_hsh pass)."""
+        Y = torch.cat([Hv, qcur[:, None]], dim=1)
+        Ys = torch.where(mask[..., None], Y[oj], 0.0)
+        mv = eta[:, None] * Hv + torch.einsum("nk,nkc->nc", hz, Ys[..., :2])
+        return mv, est_of(torch.sum(est_w * hz * Ys[..., 2], dim=1), qcur)
+    return cg(matvec2, matvec2_and_est)
 
 
-def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, matvec2_and_est,
-        gradient):
+def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
+        matvec2_and_est, gradient):
     """Two-vector CG with the reference's exact termination semantics
     (ref: qeq.F90:96-166): on a stop the previous iterate is kept."""
     if isqeq == 2:
@@ -92,6 +175,8 @@ def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, matvec2_and_est,
         if bool(ex1 | ex2):
             break
         lmin = g_h / torch.where(h_hsh != 0.0, h_hsh, 1.0)
+        if lmin_f32:
+            lmin = lmin.to(torch.float32).to(dtype)       # ref: qeq.F90:23
         X1 = X + lmin[None, :] * Hv
         st = torch.sum(X1, dim=0)                         # (2,): Σqs, Σqt
         mu = st[0] / st[1]

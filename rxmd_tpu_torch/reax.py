@@ -1,12 +1,16 @@
-"""ReaxFF potential: bond-order pipeline, bonded energy terms and the
-cached many-body lists (counterpart of rxmd_tpu.reax).
+"""ReaxFF potential: bond-order pipeline, bonded energy terms, the
+cached many-body lists, and the nonbonded pair forms over the neighbor
+list (the pair context) and over dense minimum-image matrices
+(counterpart of rxmd_tpu.reax).
 
-Everything works on fixed-shape padded tensors.  Energies reproduce the
-reference expressions (ref: src/bo.F90, src/pot.F90) as rxmd_tpu writes
-them; forces and the strain virial are the exact negative gradient of the
-energy, taken with torch.autograd.  The nonbonded terms come from the
-cell-column pair sweep (ops/pairsweep) and are spliced in by
-`energy_and_forces`.
+Everything works on padded tensors.  Energies reproduce the reference
+expressions (ref: src/bo.F90, src/pot.F90) as rxmd_tpu writes them;
+bonded forces and the strain virial are the exact negative gradient of
+the energy, taken with torch.autograd; the nonbond forces come from the
+analytic derivative columns (or, with fast_nonbond=False, the table
+energy's autograd).  `energy_and_forces` splices in the nonbond of
+whichever pair engine the caller runs (the cell-column sweep of
+ops/pairsweep, the dense forms, or the pair context).
 
 Out-of-range scatters (JAX's ``mode="drop"``) write into one extra dump
 slot that is sliced off; out-of-range gathers are masked or clamped
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from . import units
-from .ffield import ForceField
+from .ffield import ForceField, build_tables
 from .neighbors import ImageTable, Neighbors, ext_positions
 
 
@@ -78,6 +82,18 @@ class FFDev:
     inxn4: torch.Tensor           # (nso, nso, nso, nso) int64
     inxn3hb: torch.Tensor         # (nso, nso, nso) int64 (directional)
     h_type: int                   # type index of hydrogen
+    # nonbonded interpolation tables (nboty, NTABLE+1) on an r^2 grid
+    # (ref: POTENTIALTABLE init.F90:421-522)
+    tbl_evdw: torch.Tensor
+    tbl_eclmb: torch.Tensor
+    tbl_devdw: torch.Tensor       # (dE/dr)/r columns
+    tbl_declmb: torch.Tensor
+    tbl_eclmb_qeq: torch.Tensor
+    udr: torch.Tensor             # r^2 step of the grid
+    udri: torch.Tensor
+    # the five tables row-packed, (nboty*(NTABLE+1), 5): evdw, eclmb,
+    # devdw, declmb, eclmb_qeq
+    tblpack: torch.Tensor
     # closed-form nonbond constants
     rctap2: torch.Tensor
     pvdW1h: torch.Tensor
@@ -152,6 +168,9 @@ def ffdev_from(ff: ForceField, dtype=torch.float64, rctap: float = None,
         hbprm = np.stack([ff.r0hb, ff.phb1, ff.phb2, ff.phb3], axis=-1)
     else:
         hbprm = np.zeros((0, 4))
+    tables = build_tables(ff, rctap=rctap)
+    tbl = {k: tables[k] for k in ("evdw", "eclmb", "devdw", "declmb",
+                                  "eclmb_qeq")}
     d = {name: getattr(ff, name) for name in (
         "vpar1", "vpar2", "cutoff_vpar30", "Val", "Vale", "Valangle",
         "Valval", "mass", "plp1", "plp2", "nlpopt", "povun2", "povun3",
@@ -165,7 +184,10 @@ def ffdev_from(ff: ForceField, dtype=torch.float64, rctap: float = None,
              ctap=np.array(units.taper_coeffs(rctap)), cf_pair=cf,
              angprm=angprm, torprm=torprm, hbprm=hbprm,
              hbok=(ff.inxn3hb >= 0).astype(np.float64),
-             t4ok=(ff.inxn4 >= 0).astype(np.float64))
+             t4ok=(ff.inxn4 >= 0).astype(np.float64),
+             udr=tables["udr"], udri=tables["udri"],
+             tblpack=np.stack(list(tbl.values()), axis=-1).reshape(-1, 5),
+             **{"tbl_" + k: v for k, v in tbl.items()})
     return ffdev_from_numpy(d, dtype=dtype, device=device)
 
 
@@ -218,6 +240,284 @@ def _take(x, idx):
     of repeats serially on CUDA, and padded lanes all repeat one index
     (measured on an H100: 1.3 s of a 1.6 s step at 8,064 atoms)."""
     return x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
+
+
+def charge_energy(q, types, amask, ffd: FFDev):
+    """Charge self-energy, eV -> kcal (ref: pot.F90:708)."""
+    return torch.sum(torch.where(
+        amask,
+        units.CECHRGE * (ffd.chi[types] * q + 0.5 * ffd.eta[types] * q * q),
+        0.0))
+
+
+# ----------------------------------------------------------------------------
+# The nonbonded pair context: one (n, knb) pass over the nonbonded list whose
+# geometry the QEq hessian, the nonbond kernels and the hydrogen bonds share
+# (the ELL pair engine).  Per-pair type parameters are direct gathers of the
+# (nso, nso) tables, which give exactly the values of rxmd_tpu's one-hot
+# contractions.
+# ----------------------------------------------------------------------------
+
+class NbCtx(NamedTuple):
+    idx: torch.Tensor      # (n, knb) clamped ext indices
+    mask: torch.Tensor     # (n, knb) slot valid & within taper & live row
+    notself: torch.Tensor  # (n, knb) excludes periodic self-images (ref:
+                           # pot.F90:715): QEq keeps them, ENbond drops them
+    dr: torch.Tensor       # (n, knb, 3) r_i - r_j, no gradient
+    dr2: torch.Tensor      # (n, knb)
+    qj: torch.Tensor       # (n, knb) neighbor charges, or None
+    tj: torch.Tensor       # (n, knb) neighbor types, int64
+
+
+def nb_ctx(pos, q, H, types, img: ImageTable, nbrs: Neighbors, gid, amask,
+           ffd: FFDev) -> NbCtx:
+    """The shared pair data over the nonbonded list; q=None leaves the
+    charges out (gather them later with `ctx_qj`).  Not differentiable:
+    the nonbond forces come from the analytic derivative columns (ref:
+    pot.F90:736-761)."""
+    n = pos.shape[0]
+    pos = pos.detach()
+    pose = ext_positions(pos, H.detach(), img)
+    idx = torch.where(nbrs.masknb, nbrs.idxnb, 0)
+    oj = img.owner_of(idx)
+    dr = pos[:, None, :] - pose[idx]
+    dr2 = torch.sum(dr * dr, dim=-1)
+    if img.n_images > 1:
+        # image mode: same owner <=> same global id
+        notself = oj != torch.arange(n, device=pos.device)[:, None]
+    else:
+        notself = gid[idx] != gid[:, None]
+    mask = nbrs.masknb & (dr2 <= ffd.rctap2) & amask[:, None]
+    return NbCtx(idx=idx, mask=mask, notself=notself, dr=dr, dr2=dr2,
+                 qj=None if q is None else q[oj], tj=types[oj])
+
+
+def ctx_prm(ctx: NbCtx, types, ffd: FFDev):
+    """Closed-form pair parameters (n, knb, 6): the columns of cf_pair the
+    vdW, Coulomb and QEq kernels read (the LG columns 6-10 are left out)."""
+    return ffd.cf_pair[types[:, None], ctx.tj, :6]
+
+
+def ctx_qj(ctx: NbCtx, q, img: ImageTable):
+    """Neighbor charges (n, knb) for a charge vector: QEq (pre-solve q) and
+    the nonbond kernels (post-solve q) share one context."""
+    return q[img.owner_of(ctx.idx)]
+
+
+def pair_bond_type(ctx: NbCtx, types, ffd: FFDev):
+    """Per-pair bond-type index (n, knb), -1 where the pair has none."""
+    return ffd.inxn2[types[:, None], ctx.tj]
+
+
+def _table_rows(ffd: FFDev, bc, dr2, mask):
+    """The 5 tabulated kernel columns at r^2 (..., 5) by linear
+    interpolation between two packed table rows (ref: pot.F90:729-743);
+    `bc` must be a valid bond type on every lane."""
+    nrows = ffd.tbl_evdw.shape[1]                         # NTABLE+1
+    x = _safe(dr2, mask, 0.5 * ffd.udr) * ffd.udri
+    itb = torch.clamp(torch.floor(x).to(torch.int64), 0, nrows - 2)
+    w = (x - itb)[..., None]
+    base = bc * nrows + itb
+    return (1.0 - w) * ffd.tblpack[base] + w * ffd.tblpack[base + 1]
+
+
+def pair_rows(ctx: NbCtx, types, ffd: FFDev):
+    """(table rows (n, knb, 5), pair-exists mask) over the context: built
+    once per step and shared by the QEq hessian and the nonbond kernels."""
+    bc = pair_bond_type(ctx, types, ffd)
+    ok = ctx.mask & (bc >= 0)
+    return _table_rows(ffd, torch.where(ok, bc, 0), ctx.dr2, ok), ok
+
+
+def _taper_pair(dr2, dr1, ctap):
+    """Taper polynomial and its r-derivative/r (ref: init.F90:437-439)."""
+    dr3 = dr1 * dr2
+    dr4 = dr2 * dr2
+    dr5 = dr1 * dr4
+    dr6 = dr2 * dr4
+    dr7 = dr1 * dr6
+    tap = (ctap[7] * dr7 + ctap[6] * dr6 + ctap[5] * dr5 + ctap[4] * dr4
+           + ctap[0])
+    dtap = (7.0 * ctap[7] * dr5 + 6.0 * ctap[6] * dr4 + 5.0 * ctap[5] * dr3
+            + 4.0 * ctap[4] * dr2)
+    return tap, dtap
+
+
+def cf_nonbond(dr2, prm, ffd: FFDev, mask):
+    """Closed-form vdW and Coulomb kernels and their (dE/dr)/r columns: the
+    analytic content of the reference's tables (ref: init.F90:440-495; the
+    LG terms are not ported).  Returns (evdw, eclmb per unit q_i q_j,
+    devdw, declmb, ok)."""
+    ok = mask & (prm[..., 0] > 0.5)
+    dr2s = _safe(dr2, ok)
+    dr1 = torch.sqrt(dr2s)
+    tap, dtap = _taper_pair(dr2s, dr1, ffd.ctap)
+    gamwinvp = _safe(prm[..., 1], ok)
+    alpha = prm[..., 2]
+    rvdwi = prm[..., 3]
+    dij = prm[..., 4]
+    rij_vd1 = dr2s ** ffd.pvdW1h
+    fn13 = (rij_vd1 + gamwinvp) ** ffd.pvdW1inv
+    exp1 = torch.exp(alpha * (1.0 - fn13 * rvdwi))
+    exp2 = torch.sqrt(exp1)
+    dr3gam = (dr1 * dr2s + _safe(prm[..., 5], ok)) ** (-1.0 / 3.0)
+    evdw = tap * dij * (exp1 - 2.0 * exp2)
+    eclmb1 = tap * units.CCLMB0 * dr3gam
+    dfn13 = ((rij_vd1 + gamwinvp) ** (ffd.pvdW1inv - 1.0)
+             * dr2s ** (ffd.pvdW1h - 1.0))
+    devdw = dij * (dtap * (exp1 - 2.0 * exp2)
+                   - tap * (alpha * rvdwi) * (exp1 - exp2) * dfn13)
+    declmb1 = units.CCLMB0 * dr3gam * (dtap - dr3gam ** 3 * tap * dr1)
+    return evdw, eclmb1, devdw, declmb1, ok
+
+
+def cf_qeq_kernel(dr2, prm, ffd: FFDev, mask):
+    """Closed-form QEq hessian kernel Tap(r) * 14.4 / (r^3+gamma)^(1/3)
+    (ref: init.F90:487-489), zero off `mask`."""
+    ok = mask & (prm[..., 0] > 0.5)
+    dr2s = _safe(dr2, ok)
+    dr1 = torch.sqrt(dr2s)
+    tap, _ = _taper_pair(dr2s, dr1, ffd.ctap)
+    dr3gam = (dr1 * dr2s + _safe(prm[..., 5], ok)) ** (-1.0 / 3.0)
+    return torch.where(ok, tap * units.CCLMB0_QEQ * dr3gam, 0.0)
+
+
+def _pair_virial(ffac, dr):
+    """Pair virial W_ab = -dE/deps_ab over directed rows: each undirected
+    pair appears twice, hence the 0.5 (ref: the Σ pos·f accumulation incl.
+    ghost rows, pot.F90:65-72)."""
+    return -0.5 * torch.einsum("nk,nka,nkb->ab", ffac, dr, dr)
+
+
+def _nonbond_rows(ctx: NbCtx, m, q, img, e_vdw, e_clmb1, d_vdw, d_clmb1,
+                  types, amask, ffd, with_virial):
+    """Energies, row-local forces [and virial] from per-pair kernel columns
+    over the mask `m` of directed pairs (energies carry the 0.5
+    double-count factor; ref force expression: pot.F90:736-761)."""
+    qj = ctx.qj if ctx.qj is not None else ctx_qj(ctx, q, img)
+    qq = q[:, None] * qj
+    evdw = 0.5 * torch.sum(torch.where(m, e_vdw, 0.0))
+    eclmb = 0.5 * torch.sum(torch.where(m, e_clmb1 * qq, 0.0))
+    ffac = torch.where(m, d_vdw + d_clmb1 * qq, 0.0)
+    f = -torch.einsum("nk,nka->na", ffac, ctx.dr)
+    echarge = charge_energy(q, types, amask, ffd)
+    if with_virial:
+        return evdw, eclmb, echarge, f, _pair_virial(ffac, ctx.dr)
+    return evdw, eclmb, echarge, f
+
+
+def nonbond_tbl_energy_forces(ctx: NbCtx, q, types, amask, ffd: FFDev,
+                              with_virial=False, pre=None, img=None):
+    """vdW + Coulomb energies and row-local forces from the reference's
+    interpolation tables over the pair context; `pre=(rows, ok)` reuses the
+    rows of `pair_rows` (shared with the QEq hessian)."""
+    if pre is not None:
+        rows, ok = pre
+        m = ok & ctx.notself & ctx.mask
+    else:
+        bc = pair_bond_type(ctx, types, ffd)
+        m = ctx.mask & ctx.notself & (bc >= 0)
+        rows = _table_rows(ffd, torch.where(m, bc, 0), ctx.dr2, m)
+    return _nonbond_rows(ctx, m, q, img, rows[..., 0], rows[..., 1],
+                         rows[..., 2], rows[..., 3], types, amask, ffd,
+                         with_virial)
+
+
+def nonbond_cf_energy_forces(ctx: NbCtx, q, types, amask, ffd: FFDev,
+                             with_virial=False, img=None):
+    """vdW + Coulomb energies and row-local forces from the closed-form
+    kernels over the pair context."""
+    m = ctx.mask & ctx.notself
+    evdw_p, eclmb1, devdw, declmb1, ok = cf_nonbond(
+        ctx.dr2, ctx_prm(ctx, types, ffd), ffd, m)
+    return _nonbond_rows(ctx, m & ok, q, img, evdw_p, eclmb1, devdw,
+                         declmb1, types, amask, ffd, with_virial)
+
+
+def nonbond_ctx_energy_forces(ctx: NbCtx, q, types, amask, ffd: FFDev,
+                              closed_form, with_virial=False, pre=None,
+                              img=None):
+    """(evdw, eclmb, echarge, f[, virial]) over the pair context: the
+    closed form, or the tables (`pre` as in nonbond_tbl_energy_forces)."""
+    if closed_form:
+        return nonbond_cf_energy_forces(ctx, q, types, amask, ffd,
+                                        with_virial=with_virial, img=img)
+    return nonbond_tbl_energy_forces(ctx, q, types, amask, ffd,
+                                     with_virial=with_virial, pre=pre,
+                                     img=img)
+
+
+# ----------------------------------------------------------------------------
+# Dense minimum-image forms: (n, n) pair matrices with no neighbor list, for
+# an orthogonal box with min(L) > 2*rctap (each pair has at most one image
+# within the cutoff).  The physics is the closed-form pair path's; only the
+# summation order differs.
+# ----------------------------------------------------------------------------
+
+def _type_prm_dense(types, P):
+    """(n, n[, k]) per-pair parameters P[t_i, t_j] of an (nso, nso[, k])
+    table."""
+    return P[types[:, None], types[None, :]]
+
+
+def _min_image_ax(pos, H, ax):
+    """Per-axis minimum-image difference and wrap count (diagonal box)."""
+    La = H[ax, ax]
+    d = pos[:, None, ax] - pos[None, :, ax]
+    s = torch.round(d / La)
+    return d - s * La, s
+
+
+def _min_image(pos, H):
+    """((dx, dy, dz), unwrapped mask, dr2) over all (n, n) pairs."""
+    ds, ss = zip(*(_min_image_ax(pos, H, ax) for ax in range(3)))
+    unwrapped = (ss[0] == 0) & (ss[1] == 0) & (ss[2] == 0)
+    return ds, unwrapped, ds[0] * ds[0] + ds[1] * ds[1] + ds[2] * ds[2]
+
+
+def qeq_dense_direct(pos, H, types, ffd: FFDev):
+    """(Hd, Hw): the dense (n, n) QEq hessian Tap(r)*14.4/(r^3+gam)^(1/3)
+    (ref kernel: init.F90:487-489) at minimum-image distances, and its
+    Est-weighted copy: 1.0 for unwrapped pairs, 0.5 for image pairs (the
+    ELL form's ext-index < n rule, ref: qeq.F90:304-306)."""
+    n = pos.shape[0]
+    _, unwrapped, dr2 = _min_image(pos, H)
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    ok = ((_type_prm_dense(types, ffd.cf_pair[..., 0]) > 0.5)
+          & (dr2 < ffd.rctap2) & ~eye)
+    dr2s = _safe(dr2, ok)
+    dr1 = torch.sqrt(dr2s)
+    tap, _ = _taper_pair(dr2s, dr1, ffd.ctap)
+    gam = _safe(_type_prm_dense(types, ffd.cf_pair[..., 5]), ok)
+    hm = torch.where(ok, tap * units.CCLMB0_QEQ
+                     * (dr1 * dr2s + gam) ** (-1.0 / 3.0), 0.0)
+    return hm, torch.where(unwrapped, hm, 0.5 * hm)
+
+
+def nonbond_dense(pos, q, H, types, amask, ffd: FFDev, with_virial=False):
+    """Dense minimum-image closed-form vdW + Coulomb: energies, row-local
+    forces [and pair virial], the dense analog of
+    `nonbond_cf_energy_forces` (force expression ref: pot.F90:736-761)."""
+    n = pos.shape[0]
+    ds, _, dr2 = _min_image(pos, H)
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    mask = ((dr2 <= ffd.rctap2) & ~eye & amask[:, None] & amask[None, :])
+    prm = _type_prm_dense(types, ffd.cf_pair[..., :6])
+    evdw_p, eclmb1, devdw, declmb1, ok = cf_nonbond(dr2, prm, ffd, mask)
+    del prm
+    m = mask & ok
+    qq = q[:, None] * q[None, :]
+    evdw = 0.5 * torch.sum(torch.where(m, evdw_p, 0.0))
+    eclmb = 0.5 * torch.sum(torch.where(m, eclmb1 * qq, 0.0))
+    ffac = torch.where(m, devdw + declmb1 * qq, 0.0)
+    fd = [ffac * d for d in ds]
+    f = -torch.stack([torch.sum(x, dim=1) for x in fd], dim=-1)
+    echarge = charge_energy(q, types, amask, ffd)
+    if with_virial:
+        w = torch.stack([torch.stack([torch.sum(fd[a] * ds[b])
+                                      for b in range(3)]) for a in range(3)])
+        return evdw, eclmb, echarge, f, -0.5 * w
+    return evdw, eclmb, echarge, f
 
 
 # ----------------------------------------------------------------------------
@@ -453,6 +753,20 @@ def _flat_compact(mask_flat, cap):
     return idx[:cap], valid, cnt
 
 
+def _exact_compact(mask_flat, cand_cnt, ks):
+    """Indices of every True entry of a flat mask, in index order, for the
+    uncached terms' per-step lists.  A center with more than `ks`
+    candidate bonds (`cand_cnt`) would lose entries: that raises, where
+    rxmd_tpu drops them."""
+    kmax = int(cand_cnt.max()) if cand_cnt.numel() else 0
+    if kmax > ks:
+        raise RuntimeError(f"many-body candidate overflow: {kmax} bonds at "
+                           f"one center > ks={ks} (raise caps['ks'])")
+    fidx = torch.nonzero(mask_flat).reshape(-1)
+    valid = torch.ones(fidx.shape, dtype=torch.bool, device=fidx.device)
+    return fidx, valid, torch.tensor(fidx.shape[0], device=fidx.device)
+
+
 # sentinel `cnt` of _flat_compact_rows when a single row exceeds its rowcap,
 # so the engine names the right knob (ang_row/tor_row/hb_row)
 ROW_OVERFLOW = 2 ** 30
@@ -553,12 +867,16 @@ def build_angle_list(types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
                      margin: float = 0.0, rowcap: int = 0) -> AngleList:
     """Compact flat angle list (ref enumeration: pot.F90:369-399).
     `cap` is the TOTAL entry capacity; `rowcap` > 0 bounds the per-center
-    count and selects the two-stage pack."""
+    count and selects the two-stage pack.  `cap=None` builds the exact
+    list, every entry and no padding (the uncached terms' per-step
+    enumeration)."""
     n = nbrs.idxb.shape[0]
-    pm, sslot, _ = _angle_mask(types, img, nbrs, bo, amask, ffd, ks, slack,
-                               margin)
+    pm, sslot, cand_cnt = _angle_mask(types, img, nbrs, bo, amask, ffd, ks,
+                                      slack, margin)
     ks = sslot.shape[1]
-    if rowcap > 0:
+    if cap is None:
+        fidx, valid, cnt = _exact_compact(pm.reshape(-1), cand_cnt, ks)
+    elif rowcap > 0:
         fidx, valid, cnt = _flat_compact_rows(pm.reshape(n, -1), cap, rowcap)
     else:
         fidx, valid, cnt = _flat_compact(pm.reshape(-1), cap)
@@ -576,10 +894,15 @@ def build_angle_list(types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
 
 
 def e_3body(pos, H, types, img, nbrs, bo: BondOrder, lp: LonePair, amask,
-            ffd: FFDev, al: AngleList):
+            ffd: FFDev, al: AngleList = None, ks: int = 12):
     """Valence angle + penalty + 3-body conjugation (ref: pot.F90:355-549)
-    over the cached flat angle list, re-gated with live bond orders.
-    Geometry comes from the differentiable bond table bo.drb."""
+    over the cached flat angle list, re-gated with live bond orders, or
+    over the exact list built here when `al` is None (`ks` candidate bonds
+    per center).  Geometry comes from the differentiable bond table
+    bo.drb."""
+    if al is None:
+        al = build_angle_list(types, img, nbrs, bo, amask, ffd, cap=None,
+                              ks=ks)
     j, a, c = al.j, al.a, al.c
     bo0 = bo.bo[..., 0]
     esub = units.CUTOF2_ESUB
@@ -746,7 +1069,7 @@ def _torsion_mask(types, gid, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     cand = _term_candidates(types, img, nbrs, bo, ffd, ks, slack, margin)
     mask4 = _torsion_mask_rows(torch.arange(n, device=types.device), cand,
                                types, gid, img, bo, amask, ffd, slack)
-    return mask4, cand[0], cand[1]
+    return mask4, cand[0], cand[2]
 
 
 def build_torsion_list(types, gid, img, nbrs, bo: BondOrder, amask,
@@ -757,15 +1080,20 @@ def build_torsion_list(types, gid, img, nbrs, bo: BondOrder, amask,
 
     Center j, bond c -> k (counted once via gid(j) < gid(k)), slot a -> i in
     j's list, slot e -> l in owner(k)'s list.  `cap` is the TOTAL entry
-    capacity; `rowcap` (> 0, required) bounds the per-center count."""
-    if rowcap <= 0:
+    capacity; `rowcap` (> 0, required) bounds the per-center count.
+    `cap=None` builds the exact list (see build_angle_list)."""
+    if cap is not None and rowcap <= 0:
         raise ValueError("build_torsion_list needs rowcap > 0 (the two-stage "
                          "pack); size it with md.probe_capacities")
     n = nbrs.idxb.shape[0]
-    mask4, sslot, _ = _torsion_mask(types, gid, img, nbrs, bo, amask, ffd,
-                                    ks, slack, margin)
+    mask4, sslot, cand_cnt = _torsion_mask(types, gid, img, nbrs, bo, amask,
+                                           ffd, ks, slack, margin)
     ks = sslot.shape[1]
-    fidx, valid, cnt = _flat_compact_rows(mask4.reshape(n, -1), cap, rowcap)
+    if cap is None:
+        fidx, valid, cnt = _exact_compact(mask4.reshape(-1), cand_cnt, ks)
+    else:
+        fidx, valid, cnt = _flat_compact_rows(mask4.reshape(n, -1), cap,
+                                              rowcap)
     j = fidx // (ks * ks * ks)
     s = fidx % (ks * ks * ks)
     a = sslot[j, s // (ks * ks)]
@@ -783,10 +1111,14 @@ def build_torsion_list(types, gid, img, nbrs, bo: BondOrder, amask,
 
 
 def e_4body(pos, H, types, img, nbrs, bo: BondOrder, amask, gid,
-            ffd: FFDev, tl: TorsionList):
+            ffd: FFDev, tl: TorsionList = None, ks: int = 12):
     """Torsion + 4-body conjugation (ref: pot.F90:1012-1219) over the
-    cached flat torsion list with live BO re-gating; all four legs come
-    from the differentiable bond table bo.drb."""
+    cached flat torsion list with live BO re-gating, or over the exact list
+    built here when `tl` is None; all four legs come from the
+    differentiable bond table bo.drb."""
+    if tl is None:
+        tl = build_torsion_list(types, gid, img, nbrs, bo, amask, ffd,
+                                cap=None, ks=ks)
     j, a, c, ok, e = tl.j, tl.a, tl.c, tl.ok, tl.e
     bo0 = bo.bo[..., 0]
     esub = units.CUTOF2_ESUB
@@ -984,46 +1316,211 @@ def e_hbond_list(pos, H, types, img, nbrs, bo: BondOrder, hl: HBondList,
     return torch.sum(torch.where(valid, pehb, 0.0))
 
 
+def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
+            cap: int = 64, kh: int = 6, ctx: NbCtx = None):
+    """Hydrogen-bond energy without a cached list (ref: pot.F90:587-665):
+    donor i, central hydrogen j bonded to i (up to `kh` per donor),
+    acceptor k from i's nonbonded list within rchb.  With `ctx` the
+    (donor, H slot, acceptor slot) grid is evaluated directly, acceptor
+    types and distances from the pair context; without it the valid
+    entries are compacted per donor into `cap` slots.  A donor with more
+    hydrogens than `kh` or entries than `cap` raises, where rxmd_tpu
+    drops them."""
+    if ffd.hbprm.shape[0] == 0:
+        return torch.zeros((), dtype=pos.dtype, device=pos.device)
+    n, kb = nbrs.idxb.shape
+    knb = nbrs.idxnb.shape[1]
+    dev = pos.device
+    maskb = bo.mask
+    idxb = torch.where(maskb, nbrs.idxb, 0)
+    masknb = nbrs.masknb
+    idxnb = torch.where(masknb, nbrs.idxnb, 0)
+    shift = img.shift.to(pos.dtype)
+
+    def ghost(idx):
+        """Differentiable positions of ext entries, via their owner rows
+        and the constant shift table (cf. e_hbond_list)."""
+        return _take(pos, img.owner_of(idx)) + shift[idx] @ H.T
+
+    tj = types[img.owner_of(idxb)]                        # (n, kb)
+    bo0_sg = bo.bo[..., 0].detach()
+    mask_ij = (maskb & (tj == ffd.h_type) & (bo0_sg > units.MINBO0)
+               & amask[:, None])
+    kh = min(kh, kb)
+    hslot, hvalid, hcnt = _row_topk_slots(mask_ij, kh)
+    if int(hcnt.max()) > kh:
+        raise RuntimeError(f"hbond overflow: {int(hcnt.max())} hydrogens on "
+                           f"one donor > kh={kh} (raise caps['kh'])")
+    row = torch.arange(n, device=dev)[:, None]
+    idx_h = idxb[row, hslot]                              # (n, kh)
+    th = tj[row, hslot]
+
+    if ctx is not None:
+        # grid mode: every (H slot, acceptor slot) lane of each donor
+        tk = ctx.tj[:, None, :]
+        ti = types[:, None, None]
+        okt = ffd.hbok[ti, th[:, :, None], tk] > 0.5
+        valid = (hvalid[:, :, None] & masknb[:, None, :] & okt
+                 & (idx_h[:, :, None] != idxnb[:, None, :])    # j != k
+                 & (ctx.dr2 < units.RCHB2)[:, None, :])
+        hbt = ffd.inxn3hb[ti, th[:, :, None], tk]
+        prm = ffd.hbprm[torch.where(hbt >= 0, hbt, 0)]     # (n, kh, knb, 4)
+        r0 = torch.where(valid & (prm[..., 0] > 0.0), prm[..., 0], 1.0)
+        phb1_, phb2_, phb3_ = prm[..., 1], prm[..., 2], prm[..., 3]
+        pose_j = ghost(idx_h)                              # (n, kh, 3)
+        pose_k = ghost(idxnb)                              # (n, knb, 3)
+        rij = pos[:, None, :] - pose_j
+        rjk = pose_j[:, :, None, :] - pose_k[:, None, :, :]
+        cos_ijk, _, njk = _angle_cos(rij[:, :, None, :], rjk, valid)
+        bo_ij = bo.bo[..., 0][row, hslot][:, :, None]      # (n, kh, 1)
+    else:
+        # compacted mode: per-donor padded pair list
+        tk_full = types[img.owner_of(idxnb)]               # (n, knb)
+        okt = ffd.inxn3hb[types[:, None, None], th[:, :, None],
+                          tk_full[:, None, :]] >= 0
+        pose_sg = ext_positions(pos.detach(), H.detach(), img)
+        rik = pos.detach()[:, None, :] - pose_sg[idxnb]
+        rik2 = torch.sum(rik * rik, dim=-1)
+        mask = (hvalid[:, :, None] & masknb[:, None, :] & okt
+                & (idx_h[:, :, None] != idxnb[:, None, :])     # j != k
+                & (rik2 < units.RCHB2)[:, None, :])
+        s, valid, cnt = _row_topk_slots(mask.reshape(n, kh * knb), cap)
+        if int(cnt.max()) > s.shape[1]:
+            raise RuntimeError(f"hbond overflow: {int(cnt.max())} entries at "
+                               f"one donor > cap={cap} (raise caps['hb'])")
+        b_slot = hslot[row, s // knb]
+        idx_j = idxb[row, b_slot]
+        idx_k = idxnb[row, s % knb]
+        hbt = ffd.inxn3hb[types[:, None], tj[row, b_slot],
+                          types[img.owner_of(idx_k)]]
+        hp = ffd.hbprm[torch.where(valid & (hbt >= 0), hbt, 0)]
+        r0 = torch.where(valid & (hp[..., 0] > 0.0), hp[..., 0], 1.0)
+        phb1_, phb2_, phb3_ = hp[..., 1], hp[..., 2], hp[..., 3]
+        pose_j = ghost(idx_j)                              # (n, cap, 3)
+        rij = pos[:, None, :] - pose_j
+        rjk = pose_j - ghost(idx_k)
+        cos_ijk, _, njk = _angle_cos(rij, rjk, valid)
+        bo_ij = bo.bo[..., 0][row, b_slot]
+    sin_xhz4 = ((1.0 - cos_ijk) * 0.5) ** 2                # sin^4(theta/2)
+    exp_hb2 = torch.exp(-phb2_ * bo_ij)
+    exp_hb3 = torch.exp(-phb3_ * (r0 / njk + njk / r0 - 2.0))
+    pehb = phb1_ * (1.0 - exp_hb2) * exp_hb3 * sin_xhz4
+    return torch.sum(torch.where(valid, pehb, 0.0))
+
+
+def _table_lerp(tbl, b, dr2, udr, udri, mask):
+    """r^2-indexed linear interpolation of one table (ref:
+    pot.F90:729-743), differentiable in dr2."""
+    x = _safe(dr2, mask, 0.5 * udr) * udri
+    itb = torch.clamp(torch.floor(x.detach()).to(torch.int64), 0,
+                      tbl.shape[1] - 2)
+    w = x - itb.to(x.dtype)
+    return (1.0 - w) * tbl[b, itb] + w * tbl[b, itb + 1]
+
+
+def e_nonbond(pos, q, H, types, img, nbrs, gid, amask, ffd: FFDev):
+    """van der Waals + Coulomb from the tables, each unordered pair once,
+    + charge self-energy (ref: pot.F90:702-773): the energy whose autograd
+    gives the nonbond forces when `energy_and_forces` runs with
+    fast_nonbond=False.  Pair geometry on owner rows (cf. bond_order)."""
+    masknb = nbrs.masknb
+    idx = torch.where(masknb, nbrs.idxnb, 0)
+    oj = img.owner_of(idx)
+    # each unordered (image) pair counted once (ref: pot.F90:715 jid<iid)
+    mask = masknb & (gid[oj] < gid[:, None]) & amask[:, None]
+    shg = img.shift.to(pos.dtype)[idx]
+    dr = (pos[:, None, :] - _take(pos, oj)
+          - torch.einsum("nka,ba->nkb", shg, H))
+    dr2 = torch.sum(dr * dr, dim=-1)
+    mask = mask & (dr2 <= ffd.rctap2)
+    b = ffd.inxn2[types[:, None], types[oj]]
+    bc = torch.where(b >= 0, b, 0)
+    pevdw = _table_lerp(ffd.tbl_evdw, bc, dr2, ffd.udr, ffd.udri, mask)
+    peclmb = _table_lerp(ffd.tbl_eclmb, bc, dr2, ffd.udr, ffd.udri, mask)
+    peclmb = peclmb * q[:, None] * q[oj]
+    evdw = torch.sum(torch.where(mask, pevdw, 0.0))
+    eclmb = torch.sum(torch.where(mask, peclmb, 0.0))
+    return evdw, eclmb, charge_energy(q, types, amask, ffd)
+
+
 # ----------------------------------------------------------------------------
 # assembly
 # ----------------------------------------------------------------------------
 
+# the uncached terms' capacities: candidate bonds ("ks") and hydrogens
+# ("kh") per center, and the per-donor entries of e_hbond's compacted mode
+DEFAULT_CAPS = {"ks": 12, "kh": 6, "hb": 64}
+
+
 def energy_components(pos, q, H, types, gid, img: ImageTable,
-                      nbrs: Neighbors, ffd: FFDev, lists, amask=None):
-    """Bonded potential-energy components as a (14,) vector in the
+                      nbrs: Neighbors, ffd: FFDev, lists=None, amask=None,
+                      caps=None, include_nonbond=True, ctx=None):
+    """All potential-energy components as a (14,) vector in the
     reference's PE slot convention (ref: module.F90:143-146):
       0=total 1=Ebond 2=Elp 3=Eover 4=Eunder 5=Eval 6=Epen 7=Ecoa
       8=Etors 9=Econj 10=Ehb 11=Evdw 12=Eclmb 13=Echarge
-    over the cached (angle, torsion, hbond) lists.  Slots 11-13 are zero:
-    the nonbonded terms come from the pair sweep (`energy_and_forces`)."""
+    over the cached (angle, torsion, hbond) `lists`, or over per-call
+    enumeration where `lists` is None (`caps` "ks", "kh", "hb"; the
+    hydrogen bonds on the pair context `ctx`, built here if not given).
+    Slots 11-13 hold the table nonbond `e_nonbond` with `include_nonbond`,
+    else zero (the caller splices its own in)."""
+    caps = {**DEFAULT_CAPS, **(caps or {})}
     if amask is None:
         amask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
-    al, tl, hl = lists
+    al, tl, hl = lists if lists is not None else (None, None, None)
     bo = bond_order(pos, H, types, img, nbrs, ffd)
     lp = lone_pair(types, bo.delta, ffd)
     ebond = e_bond(types, img, nbrs, bo, gid, amask, ffd)
     elp, eover, eunder = e_lnpr(types, img, nbrs, bo, lp, amask, ffd)
     eval_, epen, ecoa = e_3body(pos, H, types, img, nbrs, bo, lp, amask,
-                                ffd, al)
-    etors, econj = e_4body(pos, H, types, img, nbrs, bo, amask, gid, ffd, tl)
-    ehb = e_hbond_list(pos, H, types, img, nbrs, bo, hl, ffd)
+                                ffd, al, ks=caps["ks"])
+    etors, econj = e_4body(pos, H, types, img, nbrs, bo, amask, gid, ffd, tl,
+                           ks=caps["ks"])
+    if hl is not None:
+        ehb = e_hbond_list(pos, H, types, img, nbrs, bo, hl, ffd)
+    else:
+        if ctx is None:
+            ctx = nb_ctx(pos, None, H, types, img, nbrs, gid, amask, ffd)
+        ehb = e_hbond(pos, H, types, img, nbrs, bo, amask, ffd,
+                      cap=caps["hb"], kh=caps["kh"], ctx=ctx)
     z = torch.zeros_like(ebond)
+    evdw = eclmb = echarge = z
+    if include_nonbond:
+        evdw, eclmb, echarge = e_nonbond(pos, q, H, types, img, nbrs, gid,
+                                         amask, ffd)
     comps = torch.stack([z, ebond, elp, eover, eunder, eval_, epen, ecoa,
-                         etors, econj, ehb, z, z, z])
+                         etors, econj, ehb, evdw, eclmb, echarge])
     return torch.cat([comps[1:].sum()[None], comps[1:]])
 
 
-def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists,
-                      amask=None, with_virial=False, external_nonbond=None):
+def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
+                      amask=None, with_virial=False, external_nonbond=None,
+                      caps=None, fast_nonbond=True, closed_form=None,
+                      ctx=None, rows_pre=None):
     """(PE components, forces[, virial]).
 
     Bonded forces are -dE/dpos by autograd; the ghost-force reduction
     happens in the backward pass of the owner-row gathers.  With
     `with_virial` the (3, 3) potential virial W_ab = -dE/deps_ab comes from
     the strain gradient in the same backward pass (ref: the per-step
-    Σ pos·f stress accumulation, pot.F90:65-72).  `external_nonbond` =
-    (evdw, eclmb, echarge, f_nb, w_nb) from the pair sweep is spliced in.
+    Σ pos·f stress accumulation, pot.F90:65-72).
+
+    The nonbond term: `external_nonbond` = (evdw, eclmb, echarge, f_nb,
+    w_nb), computed by the caller (the pair sweep, the dense form or the
+    pair context), is spliced in; else, with `fast_nonbond`, the closed-form
+    (`closed_form`) or table kernels run over the pair context `ctx` (built
+    here if None; `rows_pre` reuses `pair_rows`) with the analytic
+    derivative columns and row-local forces (ref: pot.F90:736-761); else
+    the table energy `e_nonbond` joins the autograd pass.  `closed_form`
+    None means the tables, as in rxmd_tpu.
     """
+    use_fast = fast_nonbond and external_nonbond is None
+    if amask is None:
+        amask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    if ctx is None and use_fast:
+        ctx = nb_ctx(pos, q, H, types, img, nbrs, gid, amask, ffd)
+    kw = dict(lists=lists, amask=amask, caps=caps, ctx=ctx,
+              include_nonbond=not use_fast and external_nonbond is None)
     p = pos.detach().requires_grad_(True)
     with torch.enable_grad():
         if with_virial:
@@ -1031,18 +1528,25 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists,
                               requires_grad=True)
             strain = torch.eye(3, dtype=pos.dtype, device=pos.device) + eps
             comps = energy_components(p @ strain.T, q, strain @ H, types,
-                                      gid, img, nbrs, ffd, lists, amask)
+                                      gid, img, nbrs, ffd, **kw)
             gp, ge = torch.autograd.grad(comps[0], (p, eps))
             w = -ge
         else:
             comps = energy_components(p, q, H, types, gid, img, nbrs, ffd,
-                                      lists, amask)
+                                      **kw)
             (gp,) = torch.autograd.grad(comps[0], (p,))
     comps = comps.detach()
     f = -gp
+    if use_fast:
+        external_nonbond = nonbond_ctx_energy_forces(
+            ctx, q, types, amask, ffd, closed_form, with_virial=with_virial,
+            pre=rows_pre, img=img)
     if external_nonbond is not None:
-        evdw, eclmb, echarge, f_nb, w_nb = external_nonbond
-        comps = torch.cat([comps[:11], torch.stack([evdw, eclmb, echarge])])
+        evdw, eclmb, echarge, f_nb = external_nonbond[:4]
+        w_nb = external_nonbond[4] if len(external_nonbond) > 4 else None
+        comps = torch.cat([comps[:11], torch.stack([
+            torch.as_tensor(x, dtype=comps.dtype, device=comps.device)
+            for x in (evdw, eclmb, echarge)])])
         comps = torch.cat([comps[1:].sum()[None], comps[1:]])
         f = f + f_nb
         if with_virial and w_nb is not None:

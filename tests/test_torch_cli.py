@@ -3,11 +3,15 @@ on the 168-atom deck in float64 on the CPU: mdmode 4, 10 steps from
 --run_from_xyz, PRINTE every 5 steps, all four frame formats every 5
 steps, QEq by full CG at tol 1e-12 (see test_torch_engine.py).
 
-rxmd_tpu's CLI has no flag for `nonbond_closed_form` or `block_steps`: in
-float64 it would take the interpolation-table nonbond (which the port
-does not have) and fuse 10 steps per dispatch, which moves its list
-rebuilds.  So its `config.apply_cli` is wrapped (monkeypatch) to set
-nonbond_closed_form=True and block_steps=1; nothing in rxmd_tpu changes.
+Neither CLI has a flag for `nonbond_closed_form`, nor rxmd_tpu's for
+`block_steps`.  In float64 both would take the interpolation-table
+nonbond over the pair list, whose CG stops an iteration count apart that
+the 10% bar below does not hold (61 against 70 at step 10; the default's
+parity is held per step by test_torch_engine_paths.py), and rxmd_tpu
+would fuse 10 steps per dispatch, which moves its list rebuilds.  So both
+packages' `config.apply_cli` are wrapped (monkeypatch) to set
+nonbond_closed_form=True (the port then runs its pair sweep), and
+rxmd_tpu's to set block_steps=1; nothing in either package changes.
 
 Bars: the PRINTE numbers and the numbers of every text frame agree to
 the printed precision (one unit in the last printed digit, which absorbs
@@ -26,7 +30,7 @@ import pytest
 import torch
 
 from rxmd_tpu import __main__ as jmain, config as jcfg
-from rxmd_tpu_torch import __main__ as tmain
+from rxmd_tpu_torch import __main__ as tmain, config as tcfg
 from rxmd_tpu_torch.io import refbin as trb
 
 # the suite runs in several worker processes at once; one torch thread
@@ -109,16 +113,23 @@ def _same_text_file(pa, pb):
 @pytest.fixture(scope="module")
 def jax_cli():
     """rxmd_tpu's main with the closed-form nonbond and one step per
-    dispatch (see the module docstring)."""
-    orig = jcfg.apply_cli
+    dispatch, and the port's with the closed form (see the module
+    docstring)."""
+    orig, torig = jcfg.apply_cli, tcfg.apply_cli
 
     def apply_cli(cfg, args):
         cfg = orig(cfg, args)
         cfg.nonbond_closed_form = True
         cfg.block_steps = 1
         return cfg
+
+    def port_apply_cli(cfg, args):
+        cfg = torig(cfg, args)
+        cfg.nonbond_closed_form = True
+        return cfg
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcfg, "apply_cli", apply_cli)
+        mp.setattr(tcfg, "apply_cli", port_apply_cli)
         yield jmain.main
 
 

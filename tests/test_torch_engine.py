@@ -2,9 +2,10 @@
 Engine on the 168-atom deck, with rebuild_every=4 so the wrap, neighbor,
 term-list and slot rebuilds run.
 
-* float64, prepare plus 10 NVE steps: rxmd_tpu runs its ELL closed-form
-  path, the port its pair sweep (plain version on the CPU); the physics
-  is the same.  Bars: per-step PE components within 1e-8 relative and
+* float64, prepare plus 10 NVE steps, closed-form nonbond in both
+  (nonbond_closed_form=True; float64 would take the tables): rxmd_tpu
+  runs its ELL closed-form path, the port its pair sweep (plain version
+  on the CPU); the physics is the same.  Bars: per-step PE components within 1e-8 relative and
   positions within 1e-8 A.  QEq is converged tightly (tol 1e-12) wherever
   a full CG runs, since at the default stop test two summation orders can
   stop at different iterates (see test_torch_qeq.py); exL steps run
@@ -60,16 +61,16 @@ def _trajectory(engine, to_np, nsteps):
 @pytest.fixture(scope="module", params=[2, 1], ids=["exL", "fullCG"])
 def runs(request):
     kw = dict(dtype="float64", isQEq=request.param, QEq_tol=1e-12,
-              rebuild_every=4, pstep=1)
+              rebuild_every=4, pstep=1, nonbond_closed_form=True)
     ff = jff.parse_ffield(FF)
     st = jsys.from_cellfile(CELL, ff.name_to_type)
-    je = jmd.Engine(ff, st, jcfg.RunConfig(block_steps=1,
-                                           nonbond_closed_form=True, **kw))
+    je = jmd.Engine(ff, st, jcfg.RunConfig(block_steps=1, **kw))
     jc, jp, _, _ = _trajectory(je, np.asarray, NSTEPS)
     tf = tff.parse_ffield(FF)
     te = tmd.Engine(tf, tsys.state_from_numpy(
         {k: np.asarray(v) for k, v in vars(st).items()}),
         tcfg.RunConfig(**kw), device="cpu")
+    assert te.pair_engine == "sweep"
     tc, tp, etot, rebuilds = _trajectory(te, lambda x: x.cpu().numpy(),
                                          NSTEPS)
     return jc, jp, tc, tp, etot, rebuilds, te

@@ -140,9 +140,11 @@ def pipeline():
             img = eng.img._replace(shift=eng.img.shift.to(dt))
             lists = eng.tlists if dt == torch.float64 else \
                 _lists32(eng.tlists)
+            zero = torch.zeros((), dtype=dt)
             comps, f = trx.energy_and_forces(
                 s.pos.to(dt), s.q.to(dt), s.H.to(dt), s.types, s.gid, img,
-                eng.nbrs, ffd, lists)
+                eng.nbrs, ffd, lists, external_nonbond=(
+                    zero, zero, zero, torch.zeros_like(s.pos.to(dt)), None))
             res[dt] = comps.double().numpy(), f.double().numpy()
         out[delta] = dict(res=res, eng=eng, ff=ff, angle=(j, a, c))
     return out

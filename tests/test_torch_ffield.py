@@ -95,25 +95,31 @@ def test_engine_on_cuda_without_a_card_raises():
 
 
 def test_float64_on_cuda_raises_at_construction(monkeypatch):
-    """The CUDA sweep kernels are float32: a float64 engine on a card must
-    fail in the constructor, naming the fix, not deep in the first sweep.
-    The card is mocked; the check runs before anything touches it."""
+    """The CUDA sweep kernels are float32: a float64 engine that asks for
+    the sweep (the closed form; float64's default is the table pair-list
+    engine) on a card must fail in the constructor, naming the fix, not
+    deep in the first sweep.  The card is mocked; the check runs before
+    anything touches it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     tf, st = _state()
     with pytest.raises(ValueError, match="--dtype float32"):
-        tmd.Engine(tf, st, tcfg.RunConfig(dtype="float64"), device="cuda")
+        tmd.Engine(tf, st, tcfg.RunConfig(dtype="float64",
+                                          nonbond_closed_form=True),
+                   device="cuda")
 
 
 # mdmodes 0, 1, 4-8 and 10 are ported; 2, 3 and 9 are not reference modes
-@pytest.mark.parametrize("kw,what", [
-    (dict(mdmode=3), "mdmode=3"),
-    (dict(isPQEq=True), "PQEq"),
-    (dict(pair_kernel=False), "ELL and dense"),
-    (dict(nonbond_closed_form=False), "interpolation-table"),
-    (dict(term_cache=False), "term_cache"),
+@pytest.mark.parametrize("kw,lg,what", [
+    (dict(mdmode=3), False, "mdmode=3"),
+    (dict(isPQEq=True), False, "PQEq"),
+    ({}, True, "LG dispersion"),
 ])
-def test_engine_names_missing_paths(kw, what):
+def test_engine_names_missing_paths(kw, lg, what):
     tf, st = _state()
+    if lg:
+        # the synthetic deck flagged as an LG force field: the engine
+        # refuses it before reading any LG parameter
+        tf = dataclasses.replace(tf, is_lg=True)
     with pytest.raises(NotImplementedError, match=what):
         tmd.Engine(tf, st, tcfg.RunConfig(**kw), device="cpu")
 

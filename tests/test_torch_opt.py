@@ -34,7 +34,7 @@ torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(__file__), "data")
 FF = os.path.join(DATA, "ffield_chon_synth")
 CELL = os.path.join(DATA, "chon168.xyz")
-KW = dict(dtype="float64", QEq_tol=1e-12, mdmode=10)
+KW = dict(dtype="float64", QEq_tol=1e-12, mdmode=10, nonbond_closed_form=True)
 
 
 def _recording(cls, store):
@@ -59,8 +59,7 @@ def runs():
                    _recording(jopt._MDAdapter, probes["jax"]))
         mp.setattr(topt._MDAdapter, "evaluate",
                    _recording(topt._MDAdapter, probes["port"]))
-        je = jmd.Engine(ff, st, jcfg.RunConfig(
-            block_steps=1, nonbond_closed_form=True, **KW))
+        je = jmd.Engine(ff, st, jcfg.RunConfig(block_steps=1, **KW))
         jpe = jopt.conjugate_gradient(
             je, max_iter=2, log=None,
             writer=lambda it, pos, pe: iters["jax"].append(pe))

@@ -33,7 +33,8 @@ CELL = os.path.join(DATA, "chon168.xyz")
 def setup():
     tf = tff.parse_ffield(FF)
     te = tmd.Engine(tf, tsys.from_cellfile(CELL, tf.name_to_type),
-                    tcfg.RunConfig(dtype="float64"), device="cpu")
+                    tcfg.RunConfig(dtype="float64", nonbond_closed_form=True),
+                    device="cpu")
     te._rebuild(te.state)
     s = te.state
     ops = te._make_pair_ops(s.pos, s.H, s.types, te._slotmap)

@@ -42,15 +42,14 @@ NSTEPS = 6
 # 5 kcal/mol/A^2 on C and O (0-based types 0 and 2)
 KW = dict(dtype="float64", mdmode=5, sstep=2, isQEq=1, QEq_tol=1e-12,
           rebuild_every=4, isEfield=True, eFieldDir=2, eFieldStrength=0.5,
-          spring_const=5.0, spring_types=(0, 2))
+          spring_const=5.0, spring_types=(0, 2), nonbond_closed_form=True)
 
 
 def _pair(**over):
     ff = jff.parse_ffield(FF)
     st = jsys.from_cellfile(CELL, ff.name_to_type)
     kw = {**KW, **over}
-    je = jmd.Engine(ff, st, jcfg.RunConfig(block_steps=1,
-                                           nonbond_closed_form=True, **kw))
+    je = jmd.Engine(ff, st, jcfg.RunConfig(block_steps=1, **kw))
     te = tmd.Engine(tff.parse_ffield(FF), tsys.state_from_numpy(
         {k: np.asarray(v) for k, v in vars(st).items()}),
         tcfg.RunConfig(**kw), device="cpu")
