@@ -40,7 +40,18 @@ first failure ends the run with a non-zero exit code and no result line.
      in a triclinic cell: 168 atoms in float32 on the card against float64
      on the CPU, then --mc for 20 steps at isQEq=1 and 2 (chunked brute
      neighbor build, 27 images); (d) float64, the default config (the
-     table pair list): 168 atoms on the card against the CPU, then --mc.
+     table pair list): 168 atoms on the card against the CPU, then --mc;
+  8. pqeq lg: PQEq (tests/data/pqeq_chon.par) and ReaxFF-lg
+     (tests/data/ffield_chon_synth_lg), which no sweep kernel takes: (a)
+     PQEq in float32 at --mc, isQEq=1 and 2, prepare + 5 steps timed by
+     phase with peak device memory, on the pair list, shells relaxed;
+     (b) PQEq at 168 atoms, float64 on the card against the CPU (CG
+     capped at 8) and float32 against that; (c) LG in float32 at --mc on
+     the dense forms and on the pair list, each step's PE components
+     against each other, and LG's float64 table engine at 168 atoms on
+     the card against the CPU; (d) the program at --mc: `main` with
+     tests/data/rxmd_chon_pqeq.in from geninit's rxff.bin, a restart from
+     its rxff.npz with the shells read back, and a run with --lg.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -61,6 +72,9 @@ DATA = os.path.join(REPO, "tests", "data")
 FFIELD = os.path.join(DATA, "ffield_chon_synth")
 CELL = os.path.join(DATA, "chon168.xyz")
 RXMD_IN = os.path.join(DATA, "rxmd_chon.in")
+FFIELD_LG = os.path.join(DATA, "ffield_chon_synth_lg")
+PQEQ_PAR = os.path.join(DATA, "pqeq_chon.par")
+RXMD_PQEQ_IN = os.path.join(DATA, "rxmd_chon_pqeq.in")
 SOURCE = "rxmd_tpu_torch/csrc/pairsweep.cu"
 REPLACES = "rxmd_tpu/ops/pairsweep.py:289"
 KERNELS = ("nonbond", "qeq_build", "qeq_apply")
@@ -104,6 +118,9 @@ TOL_QEQ_SPLIT = 1e-3
 # float64 on the card against float64 on the CPU, per PE component
 # relative, with the CG capped so both take the same iterations
 TOL_F64_CARD = 1e-8
+# PQEq at 168 atoms, float64 on the card against the CPU: the shells
+# within TOL_SPOS [A] (1e-3 A steps of float64 values)
+TOL_SPOS = 1e-10
 # lattice angles (alpha, beta, gamma) of the triclinic deck: the CHON
 # cell's fractional coordinates in a sheared cell
 TRICLINIC = (95.0, 100.0, 105.0)
@@ -127,11 +144,12 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def load_deck(mc, dtype, device, angles=None):
+def load_deck(mc, dtype, device, angles=None, lg=False):
     """The CHON deck replicated mc; with `angles` (alpha, beta, gamma) its
-    fractional coordinates in a triclinic cell of those lattice angles."""
+    fractional coordinates in a triclinic cell of those lattice angles;
+    with `lg` the LG force field."""
     from rxmd_tpu_torch import ffield, system
-    ff = ffield.parse_ffield(FFIELD)
+    ff = ffield.parse_ffield(FFIELD_LG if lg else FFIELD, lg=lg)
     frac, types, cell = system.read_geninit_xyz(CELL, ff.name_to_type)
     if angles is not None:
         cell = cell[:3] + tuple(angles)
@@ -141,9 +159,9 @@ def load_deck(mc, dtype, device, angles=None):
     return ff, st
 
 
-def make_engine(mc, device, dtype="float32", angles=None, **cfg):
+def make_engine(mc, device, dtype="float32", angles=None, lg=False, **cfg):
     from rxmd_tpu_torch import config, md
-    ff, st = load_deck(mc, torch.float64, "cpu", angles)
+    ff, st = load_deck(mc, torch.float64, "cpu", angles, lg)
     kw = dict(dtype=dtype, isQEq=1, pstep=5)
     kw.update(cfg)
     return md.Engine(ff, st, config.RunConfig(**kw), device=device)
@@ -481,15 +499,18 @@ def phase_timing(e, mc, steps, seed):
 
 
 def path_run(mc, device, steps, seed, dtype="float32", angles=None,
-             timed=True, **cfg):
+             timed=True, lg=False, **cfg):
     """An engine on the deck: init_velocity(seed), prepare, `steps` steps,
     with the launch counts zeroed first.  Returns a dict: the engine, the
-    per-step PE components (steps + 1, 14) and final positions as float64
-    numpy, and with `timed` the wall ms per step, the device ms per step
-    by phase (CUDA events), one more rebuild's ms and the prepare s."""
+    per-step PE components (steps + 1, 14), final positions and shells as
+    float64 numpy, and with `timed` the wall ms per step, the device ms
+    per step by phase (CUDA events), one more rebuild's ms, the prepare s
+    and the peak device memory of the run (MB)."""
     from rxmd_tpu_torch import md
-    e = make_engine(mc, device, dtype=dtype, angles=angles, **cfg)
+    e = make_engine(mc, device, dtype=dtype, angles=angles, lg=lg, **cfg)
     zero_launches()
+    if e.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(e.device)
     e.init_velocity(seed=seed)
     sync = (torch.cuda.synchronize if e.device.type == "cuda"
             else (lambda: None))
@@ -507,6 +528,7 @@ def path_run(mc, device, steps, seed, dtype="float32", angles=None,
     wall = time.perf_counter() - t0
     res = dict(engine=e, comps=np.array(comps), n=e.state.n,
                pos=e.state.pos.double().cpu().numpy(), prep_s=prep_s,
+               spos=e.state.spos.double().cpu().numpy(),
                cg=(e.cg_iters - it0) / steps)
     if timed:
         ph = e.phases.ms()
@@ -514,23 +536,25 @@ def path_run(mc, device, steps, seed, dtype="float32", angles=None,
         e._rebuild(e.state)
         res.update(ms=wall / steps * 1e3, rebuild_ms=e.phases.ms()[
             "rebuild"][0], phases={k: v / steps for k, (v, _) in ph.items()
-                                   if k != "rebuild"})
+                                   if k != "rebuild"},
+            peak_mb=torch.cuda.max_memory_allocated(e.device) / 2**20)
         e.phases = None
     check(all(np.isfinite(c).all() for c in comps)
           and np.isfinite(res["pos"]).all(), "finite PE and positions")
     return res
 
 
-def report(label, r, smi):
+def report(label, r, smi, phase="pair paths"):
     """One timing line; every time printed beside the card's nvidia-smi
     name and power limit."""
     e = r["engine"]
     phases = ", ".join(f"{k} {v:.2f}" for k, v in sorted(r["phases"].items()))
-    log(f"pair paths | {label} | engine {e.pair_engine}, {r['n']} atoms, "
+    log(f"{phase} | {label} | engine {e.pair_engine}, {r['n']} atoms, "
         f"{str(e.dtype)[6:]}, isQEq={e.cfg.isQEq}: {r['ms']:.2f} ms/step "
         f"wall, {r['n'] * 1e3 / r['ms']:.4e} atom-steps/s, by phase (ms/step)"
         f" {phases}; rebuild {r['rebuild_ms']:.2f} ms; prepare "
-        f"{r['prep_s']:.2f} s; {r['cg']:.1f} CG iterations/step | {smi}")
+        f"{r['prep_s']:.2f} s; {r['cg']:.1f} CG iterations/step; peak "
+        f"device memory {r['peak_mb']:.1f} MB | {smi}")
 
 
 def pe_diff(comps, ref):
@@ -566,12 +590,6 @@ def phase_pair_paths(mc, seed, steps=5, tric_steps=20):
     timed.  Every run asserts its pair engine, and the dense and ELL runs
     launch no sweep kernel."""
     smi = nvidia_smi()
-
-    def no_sweep(what):
-        from rxmd_tpu_torch.ops import pairsweep as ps
-        check(not any(ps.launches.values()),
-              f"{what}: no sweep kernel launched ({dict(ps.launches)})")
-
     ref = {}
     for isq in (1, 2):
         r = path_run(mc, DEVICE, steps, seed, isQEq=isq)
@@ -627,17 +645,159 @@ def phase_pair_paths(mc, seed, steps=5, tric_steps=20):
     for r in small:
         check(r["engine"].pair_engine == "ell" and not r["engine"].closed_form,
               "float64 default: the table ELL engine")
-    a, b = small[0]["comps"], small[1]["comps"]
-    err = float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
-    log(f"(d) float64 default, 168 atoms, 5 steps, card vs CPU: PE "
-        f"components max rel diff {err:.3e} (bound {TOL_F64_CARD})")
-    check(err <= TOL_F64_CARD, "float64 on the card against the CPU")
+    f64_card_vs_cpu("(d) float64 default", small)
     del small
     r = path_run(mc, DEVICE, steps, seed, dtype="float64")
     check(r["engine"].pair_engine == "ell" and not r["engine"].closed_form,
           "float64 default at --mc: the table ELL engine")
     no_sweep("float64")
     report("(d) float64 default (tables)", r, smi)
+
+
+def no_sweep(what):
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    check(not any(ps.launches.values()),
+          f"{what}: no sweep kernel launched ({dict(ps.launches)})")
+
+
+def f64_card_vs_cpu(label, small):
+    """Two float64 runs (card, CPU) of one configuration: each PE
+    component within TOL_F64_CARD relative per step."""
+    a, b = small[0]["comps"], small[1]["comps"]
+    err = float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
+    log(f"{label}, 168 atoms, 5 steps, card vs CPU: PE components max rel "
+        f"diff {err:.3e} (bound {TOL_F64_CARD})")
+    check(np.isfinite(a).all() and err <= TOL_F64_CARD,
+          f"{label}: float64 on the card against the CPU")
+
+
+def phase_pqeq_lg(mc, seed, steps=5):
+    """PQEq and LG, which the sweep kernels do not take (see the module
+    docstring, phase 8).  Every run asserts its pair engine and that no
+    sweep kernel ran."""
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    pq = dict(isPQEq=True, pqeq_parm_path=PQEQ_PAR)
+    # (a) PQEq, float32, at --mc
+    for isq in (1, 2):
+        r = path_run(mc, DEVICE, steps, seed, isQEq=isq, **pq)
+        e = r["engine"]
+        check(e.pair_engine == "ell" and e.pq is not None,
+              f"PQEq isQEq={isq}: the pair-list engine")
+        no_sweep(f"PQEq isQEq={isq}")
+        st = e.state
+        check(all(bool(torch.isfinite(x).all()) for x in
+                  (st.pos, st.vel, st.q, st.spos, e.force)),
+              f"PQEq isQEq={isq}: finite state")
+        smax = float(st.spos.abs().max())
+        check(smax > 0, f"PQEq isQEq={isq}: shells moved")
+        report(f"(a) PQEq, max|spos| {smax:.3e} A", r, smi, "pqeq lg")
+        del r, e, st
+
+    # (b) PQEq at 168 atoms: float64 card against CPU, float32 against it
+    small = [path_run((1, 1, 1), dev, 5, seed, dtype="float64", timed=False,
+                      rebuild_every=4, NMAXQEq=8, **pq)
+             for dev in (DEVICE, "cpu")]
+    f64_card_vs_cpu("(b) PQEq float64", small)
+    serr = float(np.abs(small[0]["spos"] - small[1]["spos"]).max())
+    log(f"(b) PQEq float64 shells, card vs CPU: {serr:.3e} A (bound "
+        f"{TOL_SPOS})")
+    check(serr <= TOL_SPOS, "PQEq shells on the card against the CPU")
+    r32 = path_run((1, 1, 1), DEVICE, 5, seed, timed=False, rebuild_every=4,
+                   NMAXQEq=8, **pq)
+    err = pe_diff(r32["comps"], small[1]["comps"])
+    log(f"(b) PQEq float32 card vs float64 CPU, 168 atoms, 5 steps: PE "
+        f"components {err:.3e} of |PE| (bound {TOL_SMALL_PE})")
+    check(err <= TOL_SMALL_PE, "PQEq float32 against float64")
+    del small, r32
+
+    # (c) LG: the dense forms, then the pair list, float32 at --mc; the
+    # float64 table engine at 168 atoms on the card against the CPU
+    runs = {}
+    for label, cfg, want in (("(c) LG dense", dict(pair_kernel=False),
+                              "dense"),
+                             ("(c) LG ELL", dict(dense_direct_max=0), "ell")):
+        r = path_run(mc, DEVICE, steps, seed, lg=True, **cfg)
+        check(r["engine"].pair_engine == want and r["engine"].ffd.is_lg,
+              f"{label}: engine {want}")
+        no_sweep(label)
+        report(label, r, smi, "pqeq lg")
+        runs[want] = r["comps"]
+        del r
+    check_path_pe("(c) LG ELL against LG dense", runs["ell"], runs["dense"])
+    small = [path_run((1, 1, 1), dev, 5, seed, dtype="float64", timed=False,
+                      rebuild_every=4, NMAXQEq=8, lg=True)
+             for dev in (DEVICE, "cpu")]
+    for r in small:
+        check(r["engine"].pair_engine == "ell" and not r["engine"].closed_form,
+              "LG float64: the table ELL engine")
+    f64_card_vs_cpu("(c) LG float64 tables", small)
+    del small
+    phase_pqeq_lg_program(mc)
+    log(f"pqeq lg: phase took {time.perf_counter() - t0:.1f} s | {smi}")
+
+
+def phase_pqeq_lg_program(mc):
+    """(d) The program under PQEq at --mc: geninit, `main` with
+    rxmd_chon_pqeq.in for 10 steps, a 5-step restart from its rxff.npz
+    (shells read back; first PE against the fresh-list PE), then 5 steps
+    with --lg on the LG force field from a fresh geninit rxff.bin."""
+    from rxmd_tpu_torch.io import checkpoint
+    from rxmd_tpu_torch.tools import geninit
+    def fresh_dat(dat):
+        # geninit's rxff.bin alone, so that `main` starts from step 0
+        check(geninit.main(["-i", CELL, "-f", FFIELD, "-o", dat, "-mc",
+                            *map(str, mc)]) == 0, "geninit")
+        os.remove(os.path.join(dat, "rxff.npz"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dat = os.path.join(tmp, "DAT")
+        fresh_dat(dat)
+        base = ["--rxmdin", RXMD_PQEQ_IN, "--ffield", FFIELD, "--outDir",
+                dat, "--dtype", "float32", "--pqeq", PQEQ_PAR]
+        zero_launches()
+        out, eng = run_main(base + ["--ntime_step", "10", "--pstep", "5"])
+        no_sweep("PQEq main")
+        n = eng.state.n
+        pe = printe_pe(out)
+        check(eng.pair_engine == "ell" and eng.pq is not None and len(pe) == 3
+              and all(np.isfinite(p) for _, p in pe), "PQEq main: PRINTE")
+        wall = [x for x in out.splitlines() if x.startswith("total (sec)")]
+        log(f"(d) PQEq main: {n} atoms, {wall[0] if wall else ''}, CG "
+            f"iterations {eng.cg_iters}")
+        st = checkpoint.load(os.path.join(dat, "rxff.npz"), torch.float32)
+        smax = float(st.spos.abs().max())
+        check(st.step == 10 and smax > 0,
+              f"rxff.npz at step 10 with shells (max|spos| {smax:.3e} A)")
+        pe_fresh = float(eng.prepare()[0]) / n
+        del eng
+        zero_launches()
+        out2, eng2 = run_main(base + ["--ntime_step", "5", "--pstep", "5"])
+        no_sweep("PQEq restart")
+        pe2 = printe_pe(out2)
+        read = eng2.start_state.spos.to("cpu", torch.float32)
+        check(torch.equal(read, st.spos.cpu()),
+              "PQEq restart: the engine starts from the file's shells")
+        rel = abs(pe2[0][1] - pe_fresh) / abs(pe_fresh)
+        log(f"(d) PQEq restart: shells read back (max|spos| "
+            f"{float(read.abs().max()):.3e} A); first PE {pe2[0][1]:.6e} "
+            f"against the fresh-list PE {pe_fresh:.6e}: rel diff {rel:.3e} "
+            f"(bound {TOL_TE})")
+        check(pe2[0][0] == 10 and rel <= TOL_TE, "PQEq restart PE")
+        del eng2
+        dat_lg = os.path.join(tmp, "DAT_LG")
+        fresh_dat(dat_lg)
+        zero_launches()
+        out3, eng3 = run_main(["--rxmdin", RXMD_IN, "--ffield", FFIELD_LG,
+                               "--lg", "--outDir", dat_lg, "--dtype",
+                               "float32", "--ntime_step", "5", "--pstep",
+                               "5"])
+        no_sweep("--lg main")
+        pe3 = printe_pe(out3)
+        check(eng3.ffd.is_lg and eng3.pq is None
+              and [k for k, _ in pe3] == [0, 5]
+              and all(np.isfinite(p) for _, p in pe3), "--lg main: PRINTE")
+        log(f"(d) --lg main: engine {eng3.pair_engine}, PE {pe3}")
 
 
 def zero_launches():
@@ -704,13 +864,15 @@ class Tee:
 
 def run_main(argv):
     """rxmd_tpu_torch.__main__.main in this process (so the launch counts
-    can be read), its output echoed and returned, with the engine it ran."""
+    can be read), its output echoed and returned, with the engine it ran;
+    the engine's `start_state` is its state when `run` began."""
     from rxmd_tpu_torch import __main__ as prog, md
     engines = []
     run = md.Engine.run
 
     def spy(self, *a, **k):
         engines.append(self)
+        self.start_state = self.state
         return run(self, *a, **k)
     tee = Tee()
     md.Engine.run, old = spy, sys.stdout
@@ -881,6 +1043,7 @@ def main():
     del e
     phase_program(mc, args.steps)
     phase_pair_paths(mc, args.seed)
+    phase_pqeq_lg(mc, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -14,6 +14,9 @@ card with PRINTE-format output and trajectory frames, and writes the final
 rxff.npz and rxff.bin.  The default --dtype float64 runs the reference's
 interpolation tables over the pair list; --dtype float32 runs the
 closed-form pair sweep and its CUDA kernels (md.Engine.pair_engine).
+`PQEqParm` in rxmd.in (or --pqeq) runs PQEq and --lg reads a ReaxFF-lg
+force field; both run on the pair list (LG also on the dense forms), and
+the summary's first line names what ran.
 """
 import os
 import sys

@@ -13,17 +13,24 @@ prints PRINTE lines, writes frames and keeps the per-phase timers.
 The pair engine (`Engine.pair_engine`), chosen at construction:
   * "sweep": the cell-column pair sweep (ops/pairsweep, CUDA kernels on a
     card, float32 there): closed-form kernels, orthogonal box, cached term
-    lists, no tighten_lists; taken by default wherever it can run;
+    lists, no tighten_lists, neither PQEq nor LG; taken by default
+    wherever it can run;
   * "dense": the dense minimum-image (n, n) forms (closed form, orthogonal
-    box with min(L) > 2*rctap, n <= dense_direct_max), as rxmd_tpu;
+    box with min(L) > 2*rctap, n <= dense_direct_max, no PQEq), as
+    rxmd_tpu;
   * "ell": the pair context over the nonbonded list, closed-form or the
-    reference's interpolation tables (the float64 default), as rxmd_tpu.
+    reference's interpolation tables (the float64 default), as rxmd_tpu;
+    under PQEq the pair terms of `pqeq.solve` and `reax.e_nonbond_pqeq`
+    walk the skinned nonbonded list.
 Boxes may be triclinic; the term lists may be cached or enumerated in
 every energy call (term_cache=False), and the neighbor lists tightened to
 the true cutoffs every step (tighten_lists).  mdmodes 0, 1, 4-8 (and 10
 through `opt.conjugate_gradient`); QEq off / full CG (isQEq=1) / extended
-Lagrangian (isQEq=2); the electric field and spring restraints.  PQEq and
-LG raise NotImplementedError.  Steps run one per host iteration
+Lagrangian (isQEq=2), or PQEq (`PQEqParm`: core/shell charges, taper
+12.5 A, the shells relaxed one capped step per solve, the nonbond and its
+forces by autograd); the ReaxFF-lg dispersion and inner-core terms of an
+LG force field (closed form or tables); the electric field (on shells
+too) and spring restraints.  Steps run one per host iteration
 (`block_steps` is accepted and not used).
 """
 from __future__ import annotations
@@ -35,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from . import neighbors, qeq, reax, units
+from . import neighbors, pqeq, qeq, reax, units
 from .config import RunConfig
 from .ffield import ForceField, effective_maxrc
 from .io import refbin, traj
@@ -184,11 +191,13 @@ class PhaseTimer:
                 for k, v in self.events.items()}
 
 
-def _pair_engine(cfg: RunConfig, closed_form, H, n, rctap):
+def _pair_engine(cfg: RunConfig, closed_form, H, n, rctap, lg=False):
     """The nonbond and QEq pair engine of a configuration (see the module
     docstring): where rxmd_tpu routes, except that pair_kernel=None takes
     the sweep wherever it can run, and pair_kernel=True on a
-    configuration the sweep cannot take raises, naming why."""
+    configuration the sweep cannot take raises, naming why.  The sweep's
+    kernels know neither the PQEq core/shell terms nor the LG terms, and
+    the dense forms not PQEq (ref: rxmd_tpu md.py:248, 272)."""
     ortho = bool(np.allclose(H, np.diag(np.diag(H))))
     no_sweep = [name for cond, name in (
         (not closed_form, "the interpolation tables (nonbond_closed_form="
@@ -196,13 +205,16 @@ def _pair_engine(cfg: RunConfig, closed_form, H, n, rctap):
         (not ortho, "a triclinic box"),
         (not cfg.term_cache, "term_cache=False"),
         (cfg.tighten_lists, "tighten_lists"),
+        (cfg.isPQEq, "PQEq"),
+        (lg, "LG dispersion"),
     ) if cond]
     if cfg.pair_kernel is not False and not no_sweep:
         return "sweep"
     if cfg.pair_kernel:
         raise ValueError("pair_kernel=True: the pair sweep cannot run "
                          + ", ".join(no_sweep))
-    if (closed_form and ortho and float(np.diag(H).min()) > 2.0 * rctap
+    if (closed_form and ortho and not cfg.isPQEq
+            and float(np.diag(H).min()) > 2.0 * rctap
             and n <= cfg.dense_direct_max):
         return "dense"
     return "ell"
@@ -221,13 +233,28 @@ class Engine:
         missing = [name for cond, name in (
             (cfg.mdmode not in MDMODES, f"mdmode={cfg.mdmode}"),
             (cfg.isQEq not in (0, 1, 2), f"isQEq={cfg.isQEq}"),
-            (cfg.isPQEq, "PQEq"),
-            (ff.is_lg, "LG dispersion"),
         ) if cond]
         if missing:
             raise NotImplementedError(
                 "rxmd_tpu_torch has no path for " + ", ".join(missing))
-        rctap = units.RCTAP0
+        rctap = units.RCTAP0_PQEQ if cfg.isPQEq else units.RCTAP0
+        self.pq = None
+        if cfg.isPQEq:
+            par = pqeq.parse_pqeq_par(cfg.pqeq_parm_path)
+            # chi/eta overrides before the FFDev, on a copy: the caller's
+            # ForceField keeps its own
+            ff = pqeq.apply_to_ff(dataclasses.replace(
+                ff, chi=ff.chi.copy(), eta=ff.eta.copy()), par)
+            self.pq = pqeq.make_pqeq(par, dtype=dtype, rctap=rctap,
+                                     device=device)
+            tmax = int(state.types.max())
+            if tmax >= self.pq.ntype:
+                # parameters match ffield types by row order (ref:
+                # cmdline.F90:213-226): a type beyond the table must not
+                # gather a clamped row
+                raise ValueError(
+                    f"atom type {tmax} has no PQEq parameters "
+                    f"({self.pq.ntype} rows in {cfg.pqeq_parm_path})")
         H = state.H.cpu().numpy()
         # closed-form kernels in float32, the reference's interpolation
         # tables in float64, unless the config says
@@ -238,7 +265,7 @@ class Engine:
         # per-step tightening renumbers
         self.term_cache = cfg.term_cache and not cfg.tighten_lists
         self.pair_engine = _pair_engine(cfg, self.closed_form, H, state.n,
-                                        rctap)
+                                        rctap, lg=ff.is_lg)
         if (self.pair_engine == "sweep" and device.type == "cuda"
                 and dtype != torch.float32):
             raise ValueError(
@@ -349,11 +376,12 @@ class Engine:
         """This step's pair data, shared by QEq and the nonbond term: the
         sweep's PairOps over the slot map `sm`; for the pair-list engine
         the pair context and, with the tables, its table rows (as
-        reax.pair_rows gives them); nothing for the dense forms."""
+        reax.pair_rows gives them); nothing for the dense forms or PQEq,
+        whose pair terms walk the list themselves."""
         with self._phase("pairs"):
             if self.pair_engine == "sweep":
                 return self._make_pair_ops(pos, s.H, s.types, sm)
-            if self.pair_engine == "dense":
+            if self.pair_engine == "dense" or self.pq is not None:
                 return None
             amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
             ctx = reax.nb_ctx(pos, None, s.H, s.types, self.img, nbrs, s.gid,
@@ -427,7 +455,10 @@ class Engine:
         return PairOps
 
     def _external_nonbond(self, pos, q, s: State, pairs, with_virial):
-        """(evdw, eclmb, echarge, f_nb, w_nb or None) of the pair engine."""
+        """(evdw, eclmb, echarge, f_nb, w_nb or None) of the pair engine;
+        None under PQEq, whose nonbond joins the autograd pass."""
+        if self.pq is not None:
+            return None
         types = s.types
         amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
         if self.pair_engine == "dense":
@@ -459,11 +490,25 @@ class Engine:
         return frac @ H.T
 
     def _qeq_step(self, pos, q, qsfp, qsfv, s: State, nbrs, pairs,
-                  isqeq=None):
+                  isqeq=None, spos=None):
+        """(q, qsfp, qsfv, CG iterations, spos) after a QEq solve, or under
+        PQEq a PQEq solve and its shell step from `spos`."""
         cfg = self.cfg
         isqeq = cfg.isQEq if isqeq is None else isqeq
         if isqeq == 0:
-            return q, qsfp, qsfv, 0
+            return q, qsfp, qsfv, 0, spos
+        if self.pq is not None:
+            with self._phase("qeq"):
+                qn, spos_n, iters, _ = pqeq.solve(
+                    pos, spos, q, qsfp, s.H, s.types, self.img, nbrs,
+                    self.ffd, self.pq, isqeq=isqeq, nmax=cfg.NMAXQEq,
+                    tol=cfg.QEq_tol, lex_fqs=cfg.Lex_fqs,
+                    efield_dir=cfg.eFieldDir if cfg.isEfield else None,
+                    efield_strength=cfg.eFieldStrength)
+            self.cg_iters += iters
+            if isqeq == 1:
+                return qn, q, torch.zeros_like(qsfv), iters, spos_n
+            return qn, qsfp, qsfv, iters, spos_n
         sweep = self.pair_engine == "sweep"
         pre = None
         if self.pair_engine == "ell":
@@ -479,31 +524,35 @@ class Engine:
         self.cg_iters += res.iters
         if isqeq == 1:
             # fictitious charges re-seeded from pre-QEq q (ref: qeq.F90:42-43)
-            return res.q, q, torch.zeros_like(qsfv), res.iters
-        return res.q, qsfp, qsfv, res.iters
+            return res.q, q, torch.zeros_like(qsfv), res.iters, spos
+        return res.q, qsfp, qsfv, res.iters, spos
 
-    def _potential(self, pos, q, s: State, nbrs, lists, pairs, with_virial):
+    def _potential(self, pos, q, s: State, nbrs, lists, pairs, with_virial,
+                   spos=None):
         """Potential energy components, forces [and virial]: the pair
         engine's nonbond spliced into the bonded terms' autograd pass (the
-        hydrogen bonds of uncached terms reuse the pair context)."""
+        hydrogen bonds of uncached terms reuse the pair context); under
+        PQEq the core/shell nonbond at shells `spos` joins that pass."""
         with self._phase("nonbond"):
             ext_nb = self._external_nonbond(pos, q, s, pairs, with_virial)
-        ctx = pairs[0] if self.pair_engine == "ell" else None
+        ctx = pairs[0] if pairs is not None and self.pair_engine == "ell" \
+            else None
         with self._phase("bonded"):
             return reax.energy_and_forces(
                 pos, q, s.H, s.types, s.gid, self.img, nbrs, self.ffd,
                 lists, with_virial=with_virial, external_nonbond=ext_nb,
-                caps=self.caps, ctx=ctx)
+                caps=self.caps, ctx=ctx, pq=self.pq, spos=spos)
 
     def _external_forces(self, pos, q):
         """Electric-field and spring forces, or None without either."""
         cfg = self.cfg
         f_extra = None
         if cfg.isEfield:
-            # constant-field force on the core charges (ref:
-            # module.F90:359-383); PQEq's shell charges are not ported
+            # constant-field force on the core charges, q + Z under PQEq
+            # (ref: EEfield module.F90:359-383)
+            qc = q if self.pq is None else q + self.pq.Z[self.state.types]
             f_extra = torch.zeros_like(pos)
-            f_extra[:, cfg.eFieldDir] = (-q * cfg.eFieldStrength
+            f_extra[:, cfg.eFieldDir] = (-qc * cfg.eFieldStrength
                                          * units.EEV_KCAL)
         if cfg.spring_const:
             # harmonic restraint toward the initial positions
@@ -513,8 +562,10 @@ class Engine:
             f_extra = fs if f_extra is None else f_extra + fs
         return f_extra
 
-    def _forces(self, pos, q, s: State, nbrs, lists, pairs, with_virial):
-        out = self._potential(pos, q, s, nbrs, lists, pairs, with_virial)
+    def _forces(self, pos, q, s: State, nbrs, lists, pairs, with_virial,
+                spos=None):
+        out = self._potential(pos, q, s, nbrs, lists, pairs, with_virial,
+                              spos)
         f_extra = self._external_forces(pos, q)
         if f_extra is None:
             return out
@@ -690,12 +741,15 @@ class Engine:
         # cold-start extended Lagrangian: one full CG solve seeds the
         # fictitious charge DOF
         isq = 1 if self.cfg.isQEq == 2 else None
-        q, qsfp, qsfv, nq = self._qeq_step(s.pos, s.q, s.qsfp, s.qsfv, s,
-                                           nbrs, pairs, isqeq=isq)
+        q, qsfp, qsfv, nq, spos = self._qeq_step(
+            s.pos, s.q, s.qsfp, s.qsfv, s, nbrs, pairs, isqeq=isq,
+            spos=s.spos)
         if self.cfg.isQEq == 2:
             qsfp, qsfv = q, torch.zeros_like(qsfv)
-        comps, f = self._forces(s.pos, q, s, nbrs, self.tlists, pairs, False)
-        self.state = dataclasses.replace(s, q=q, qsfp=qsfp, qsfv=qsfv)
+        comps, f = self._forces(s.pos, q, s, nbrs, self.tlists, pairs, False,
+                                spos)
+        self.state = dataclasses.replace(s, q=q, qsfp=qsfp, qsfv=qsfv,
+                                         spos=spos)
         self.force = f
         self.comps = comps
         self.nqeq = nq
@@ -726,12 +780,12 @@ class Engine:
         nbrs = self._tight_nbrs(pos, s.H, s.types, self.nbrs)
         pairs = self._pair_data(pos, s, nbrs, self._slotmap)
         if s.step % cfg.qstep == 0:
-            q, qsfp, qsfv, nq = self._qeq_step(pos, s.q, qsfp, qsfv, s, nbrs,
-                                               pairs)
+            q, qsfp, qsfv, nq, spos = self._qeq_step(
+                pos, s.q, qsfp, qsfv, s, nbrs, pairs, spos=s.spos)
         else:
-            q, nq = s.q, 0
+            q, nq, spos = s.q, 0, s.spos
         comps, f2, w = self._forces(pos, q, s, nbrs, self.tlists, pairs,
-                                    True)
+                                    True, spos)
 
         # per-step stress accumulation: kinetic m v_a v_b with the
         # half-kicked velocity + potential virial (ref: main.F90:86-94)
@@ -749,7 +803,8 @@ class Engine:
         self._maxdr2_dev = torch.max(torch.sum((pos - self._pos_ref) ** 2,
                                                dim=1))
         self.state = dataclasses.replace(s, pos=pos, vel=v, q=q, qsfp=qsfp,
-                                         qsfv=qsfv, step=s.step + 1)
+                                         qsfv=qsfv, spos=spos,
+                                         step=s.step + 1)
         self.force, self.comps, self.nqeq = f2, comps, nq
         self._steps_since_rebuild += 1
 
@@ -812,10 +867,23 @@ class Engine:
                 f"atom-steps/s: {self.state.n * nsteps / wall:.3e}")
         return wall
 
+    def describe(self):
+        """One line naming what this engine runs."""
+        cfg = self.cfg
+        charges = ("off" if cfg.isQEq == 0 else
+                   ("PQEq" if self.pq is not None else "QEq")
+                   + (" full CG" if cfg.isQEq == 1 else " ext. Lagrangian"))
+        return (f"engine: pair engine {self.pair_engine}, "
+                f"{'closed form' if self.closed_form else 'tables'}, "
+                f"{str(self.dtype)[6:]} on {self.device}; charges {charges}"
+                f"{'; LG dispersion' if self.ff.is_lg else ''}; taper "
+                f"{self.rctap} A")
+
     def summary(self):
-        """End-of-run per-phase timing / occupancy / memory report
-        (ref: FinalizeMD main.F90:128-186)."""
-        return self.timers.summary_lines(device=self.device)
+        """What runs (`describe`), then the end-of-run per-phase timing /
+        occupancy / memory report (ref: FinalizeMD main.F90:128-186)."""
+        return [self.describe()] + self.timers.summary_lines(
+            device=self.device)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -855,7 +923,7 @@ class Engine:
         nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
         pairs = self._pair_data(s.pos, s, nbrs, self._slotmap)
         _, _, w = self._potential(s.pos, s.q, s, nbrs, self.tlists, pairs,
-                                  True)
+                                  True, s.spos)
         m = (2.0 * self.hmas)[s.types]
         kin = torch.einsum("i,ia,ib->ab", m, s.vel, s.vel)
         vol = torch.abs(torch.linalg.det(s.H))

@@ -43,16 +43,18 @@ class _MDAdapter:
     def evaluate(self, pos):
         """(PE, forces, charges) at `pos`, leaving `pos` untouched: a
         wrapped copy, fresh exact-gate lists (and the sweep's slot layout;
-        overflow checked once), a full CG (isQEq=1), then the forces,
-        through the engine's pair engine."""
+        overflow checked once), a full CG (isQEq=1; under PQEq a PQEq
+        solve from the engine's shells and its shell step, which the
+        probe's forces read and nothing keeps), then the forces, through
+        the engine's pair engine."""
         e = self.engine
         s = e.state
         pw = e._wrap(pos, s.H)
         nbrs, lists, sm = e._build_lists(pw, s, slack=1.0, margin=0.0)
         pairs = e._pair_data(pw, s, nbrs, sm)
-        q, _, _, _ = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs, pairs,
-                                 isqeq=1)
-        comps, f = e._forces(pw, q, s, nbrs, lists, pairs, False)
+        q, _, _, _, spos = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs,
+                                       pairs, isqeq=1, spos=s.spos)
+        comps, f = e._forces(pw, q, s, nbrs, lists, pairs, False, spos)
         return comps[0], f, q
 
     def commit(self, pos, q):

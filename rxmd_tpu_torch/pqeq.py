@@ -1,0 +1,378 @@
+"""Polarizable charge equilibration (PQEq), the core/shell model
+(counterpart of rxmd_tpu.pqeq; ref: src/pqeq.F90, module.F90:336-613).
+
+Each polarizable atom carries a Gaussian core of charge q_i + Z_i at pos
+and a shell of charge -Z_i at pos + spos.  Charges are solved by the
+two-vector CG of QEq with erf-screened Coulomb kernels and a constant
+gradient term (Eq. 30 of the PQEq paper, ref: pqeq.F90:326-334); then the
+shells take one damped steepest-descent step, capped at 1e-3 A (ref:
+pqeq.F90:187-259).  The pair terms run over the skinned nonbonded list
+(the ELL form); the kernels are tabulated on an r^2 grid in float64 with
+numpy and `math.erf`, then cast, so both packages interpolate the same
+numbers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from . import units
+from .neighbors import ImageTable, Neighbors, ext_positions
+from .reax import FFDev
+
+
+@dataclasses.dataclass
+class PQEqParams:
+    """PQEq constants as tensors on one device."""
+    ntype: int
+    names: tuple
+    is_polar: torch.Tensor   # (nt,) bool
+    X0: torch.Tensor         # electronegativity override [eV]
+    J0: torch.Tensor         # hardness override [eV]
+    Z: torch.Tensor          # core charge
+    Ks: torch.Tensor         # shell spring constant
+    alphacc: torch.Tensor    # (nt, nt) screening parameters
+    alphasc: torch.Tensor
+    alphass: torch.Tensor
+    # kernels on the r^2 grid, (nt, nt, NTABLE+1): value and derivative/r
+    pcc: torch.Tensor
+    dpcc: torch.Tensor
+    psc: torch.Tensor
+    dpsc: torch.Tensor
+    pss: torch.Tensor
+    dpss: torch.Tensor
+    udr: torch.Tensor
+    udri: torch.Tensor
+    rctap2: torch.Tensor
+
+
+def pqeq_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> PQEqParams:
+    """PQEqParams from a dict of numpy arrays keyed by field name, e.g.
+    ``{k: np.asarray(v) for k, v in jax_pq._asdict().items()}``."""
+    kw = {}
+    for f in dataclasses.fields(PQEqParams):
+        v = d[f.name]
+        if f.name == "ntype":
+            kw[f.name] = int(v)
+        elif f.name == "names":
+            kw[f.name] = tuple(str(x) for x in v)
+        elif f.name == "is_polar":
+            kw[f.name] = torch.as_tensor(np.array(v, bool), device=device)
+        else:
+            kw[f.name] = torch.as_tensor(np.array(v, np.float64),
+                                         dtype=dtype, device=device)
+    return PQEqParams(**kw)
+
+
+def parse_pqeq_par(path: str):
+    """Parse a pqeq1.par file (ref: cmdline.F90:168-236): an NPARMS line,
+    then name, P, X0, J0, Z, Rc, Rs, Ks per type in the ffield's order.
+    The reference ignores the P column and marks every listed type
+    polarizable (cmdline.F90:216); so does this."""
+    rows = []
+    nparms = None
+    with open(path) as fh:
+        for line in fh:
+            t = line.strip()
+            if not t or t.startswith("#"):
+                continue
+            if t.startswith("NPARMS"):
+                nparms = int(t.split()[1])
+                continue
+            tok = t.split()
+            rows.append((tok[0], True, *(float(x) for x in tok[2:8])))
+            if nparms and len(rows) == nparms:
+                break
+    names = tuple(r[0] for r in rows)
+    arr = np.array([r[2:] for r in rows])
+    return {
+        "names": names,
+        "is_polar": np.array([r[1] for r in rows]),
+        "X0": arr[:, 0], "J0": arr[:, 1], "Z": arr[:, 2],
+        "Rc": arr[:, 3], "Rs": arr[:, 4], "Ks": arr[:, 5],
+    }
+
+
+def make_pqeq(par: dict, dtype=torch.float64, rctap: float = None,
+              ntable: int = units.NTABLE, device="cpu") -> PQEqParams:
+    """Screening alphas (ref: module.F90:448-485) and the tabulated
+    kernels (ref: initialize_pqeq module.F90:537-612)."""
+    if rctap is None:
+        rctap = units.RCTAP0_PQEQ
+    nt = len(par["names"])
+    polar = np.asarray(par["is_polar"], bool)
+    Z = np.where(polar, par["Z"], 0.0)        # ref: module.F90:503-507
+    Ks = np.where(polar, par["Ks"], 0.0)
+    lam = units.LAMBDA_PQEQ
+    a_c = 0.5 * lam / np.asarray(par["Rc"]) ** 2
+    a_s = 0.5 * lam / np.asarray(par["Rs"]) ** 2
+
+    def comb(x, y):
+        return np.sqrt(x[:, None] * y[None, :] / (x[:, None] + y[None, :]))
+    alphacc = comb(a_c, a_c)
+    alphass = np.where(polar[:, None] & polar[None, :], comb(a_s, a_s), 0.0)
+    alphasc = np.where(polar[:, None], comb(a_s, a_c), 0.0)
+
+    ctap = np.array(units.taper_coeffs(rctap))
+    udr = rctap * rctap / ntable
+    k = np.arange(ntable + 1, dtype=np.float64)
+    dr2 = np.maximum(udr * k, 1e-12)
+    dr1 = np.sqrt(dr2)
+    dr3, dr4 = dr1 * dr2, dr2 * dr2
+    dr5 = dr1 * dr4
+    dr6 = dr2 * dr4
+    dr7 = dr1 * dr6
+    tap = (ctap[7] * dr7 + ctap[6] * dr6 + ctap[5] * dr5 + ctap[4] * dr4
+           + ctap[0])
+    dtap = (7 * ctap[7] * dr5 + 6 * ctap[6] * dr4 + 5 * ctap[5] * dr3
+            + 4 * ctap[4] * dr2)
+    erf = np.vectorize(math.erf)
+
+    def kernel(alpha):
+        # E = erf(a r)/r * Tap;  dE = (dE/dr)/r  (ref: module.F90:573-607)
+        clmb = 1.0 / dr1
+        dclmb = -clmb ** 3
+        screen = erf(alpha * dr1)
+        dscreen = (2.0 * alpha / np.sqrt(np.pi) * np.exp(-alpha * alpha * dr2)
+                   / dr1)
+        E = clmb * screen * tap
+        dE = dclmb * screen * tap + clmb * dscreen * tap + clmb * screen * dtap
+        return E, dE
+
+    tabs = {k: np.zeros((nt, nt, ntable + 1))
+            for k in ("pcc", "dpcc", "psc", "dpsc", "pss", "dpss")}
+    for i in range(nt):
+        for j in range(nt):
+            for name, alpha in (("cc", alphacc), ("sc", alphasc),
+                                ("ss", alphass)):
+                tabs["p" + name][i, j], tabs["dp" + name][i, j] = kernel(
+                    max(alpha[i, j], 1e-10))
+
+    def f(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=dtype,
+                               device=device)
+    return PQEqParams(
+        ntype=nt, names=tuple(par["names"]),
+        is_polar=torch.as_tensor(polar, device=device),
+        X0=f(par["X0"]), J0=f(par["J0"]), Z=f(Z), Ks=f(Ks),
+        alphacc=f(alphacc), alphasc=f(alphasc), alphass=f(alphass),
+        **{k: f(v) for k, v in tabs.items()},
+        udr=f(udr), udri=f(1.0 / udr), rctap2=f(rctap * rctap))
+
+
+def apply_to_ff(ff, par):
+    """Override chi/eta of the polarizable types in place (ref:
+    module.F90:502-523, including the 2x eta convention)."""
+    for i, polar in enumerate(par["is_polar"]):
+        if i >= ff.nso:
+            break
+        if polar:
+            ff.chi[i] = par["X0"][i]
+            ff.eta[i] = 2.0 * par["J0"][i]
+    return ff
+
+
+def _lerp2(tblE, ti, tj, dr2, udr, udri, mask):
+    """Linear interpolation of an (nt, nt, NTABLE+1) kernel table at r^2,
+    differentiable in dr2."""
+    x = torch.where(mask, dr2, 0.5 * udr) * udri
+    itb = torch.clamp(torch.floor(x.detach()).to(torch.int64), 0,
+                      tblE.shape[-1] - 2)
+    w = x - itb.to(x.dtype)
+    return (1.0 - w) * tblE[ti, tj, itb] + w * tblE[ti, tj, itb + 1]
+
+
+def pqeq_kernels(pq: PQEqParams, tblE, ti, tj, dvec, mask):
+    """Tabulated screened-Coulomb value for displacement vectors `dvec`,
+    zero beyond the taper cutoff (ref: module.F90:399-416)."""
+    dr2 = torch.sum(dvec * dvec, dim=-1)
+    m = mask & (dr2 <= pq.rctap2)
+    return torch.where(m, _lerp2(tblE, ti, tj, dr2, pq.udr, pq.udri, m), 0.0)
+
+
+def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
+          ffd: FFDev, pq: PQEqParams, amask=None, isqeq: int = 1,
+          nmax: int = 500, tol: float = 1e-7, lex_fqs: float = 1.0,
+          efield_dir=None, efield_strength: float = 0.0,
+          lmin_f32: bool = False):
+    """PQEq CG solve + one shell relaxation step (ref: pqeq.F90:2-259).
+    Returns (q, spos_new, iters, Est).
+
+    isqeq=1: full CG from q; isqeq=2: the extended-Lagrangian warm start,
+    one iteration.  The loop is rxmd_tpu.pqeq's: each iteration reads the
+    stop tests on Est (ref: pqeq.F90:114-115) on the host and, on a stop,
+    keeps the previous iterate; the gradient is recomputed from the new
+    iterate, not carried by the residual recurrence of qeq._cg.
+    `efield_dir`/`efield_strength`: a constant field on the shell charges
+    (ref: pqeq.F90:205).  `lmin_f32` stores the line-minimization step in
+    float32 as the reference does (pqeq.F90:27)."""
+    n = pos.shape[0]
+    dtype = pos.dtype
+    dev = pos.device
+    # float32 floor on the relative-change stop tests (see qeq.solve)
+    tol = max(tol, 20.0 * float(torch.finfo(dtype).eps))
+    if amask is None:
+        amask = torch.ones((n,), dtype=torch.bool, device=dev)
+    w = amask.to(dtype)
+
+    pose = ext_positions(pos, H, img)
+    mask = nbrs.masknb
+    idx = torch.where(mask, nbrs.idxnb, 0)
+    oj = img.owner_of(idx)
+    sposj = spos[oj]                 # shells ride their owner's image
+    ti = types[:, None]
+    tj = types[oj]
+    dr = pos[:, None, :] - pose[idx]
+    dr2 = torch.sum(dr * dr, dim=-1)
+    mask = mask & (dr2 < pq.rctap2)
+
+    # hessian rows: core-core screened kernel in eV (ref: pqeq.F90:322-324)
+    hcc = units.CCLMB0_QEQ * pqeq_kernels(pq, pq.pcc, ti, tj, dr, mask)
+
+    # constant gradient term fpqeq (Eq. 30, ref: pqeq.F90:326-334)
+    drcs = dr - sposj                # core(i) - shell(j)
+    psc_ji = units.CCLMB0_QEQ * pqeq_kernels(pq, pq.psc, tj, ti, drcs, mask)
+    zj = pq.Z[tj]
+    polar_j = pq.is_polar[tj]
+    fpqeq = torch.sum(torch.where(mask, hcc * zj, 0.0)
+                      - torch.where(mask & polar_j, psc_ji * zj, 0.0), dim=1)
+    fpqeq = torch.where(amask, fpqeq, 0.0)
+
+    eta = torch.where(amask, ffd.eta[types], 0.0)
+    chi = torch.where(amask, ffd.chi[types], 0.0)
+
+    def matvec(x):
+        xs = torch.where(mask, x[oj], 0.0)
+        return eta * x + torch.sum(hcc * xs, dim=1)
+
+    def gradient(qs, qt):
+        gs = torch.where(amask, -chi - matvec(qs) - fpqeq, 0.0)
+        gt = torch.where(amask, -1.0 * w - matvec(qt), 0.0)
+        return gs, gt, torch.stack([torch.sum(gs * gs), torch.sum(gt * gt)])
+
+    # electrostatic energy (ref: get_hsh pqeq.F90:361-435): every directed
+    # pair counted once with weight 0.5 for cc and ss, 1.0 for sc
+    zi = pq.Z[types][:, None]
+    polar_i = pq.is_polar[types][:, None]
+    drsc = dr + spos[:, None, :]     # shell(i) - core(j)
+    drss = drsc - sposj              # shell(i) - shell(j)
+    csc = torch.where(
+        mask & polar_i,
+        -units.CCLMB0_QEQ * pqeq_kernels(pq, pq.psc, ti, tj, drsc, mask) * zi,
+        0.0)
+    css = torch.where(
+        mask & polar_i & polar_j,
+        units.CCLMB0_QEQ * pqeq_kernels(pq, pq.pss, ti, tj, drss, mask)
+        * zi * zj, 0.0)
+    zt = pq.Z[types]
+    del dr, dr2, drcs, drsc, drss, psc_ji, sposj
+
+    def electrostatic(qcur):
+        qic = qcur + zt
+        qjc = torch.where(mask, qcur[oj], 0.0) + zj
+        pair = 0.5 * (hcc * qic[:, None] * qjc + css) + csc * qjc
+        per_atom = (chi * qcur + 0.5 * eta * qcur * qcur
+                    + torch.sum(torch.where(mask, pair, 0.0), dim=1))
+        return torch.sum(torch.where(amask, per_atom, 0.0))
+
+    if isqeq == 2:
+        qs = torch.where(amask, lex_fqs * qsfp + (1.0 - lex_fqs) * q, 0.0)
+        nmax_eff = 1
+    else:
+        qs = torch.where(amask, q, 0.0)
+        nmax_eff = nmax
+    qt = torch.zeros_like(q)
+    gs, gt, gnew = gradient(qs, qt)
+    hs, ht = gs, gt
+    qcur = q
+    # "never converged yet" sentinel (ref GEst2=1.d99, pqeq.F90:98), the
+    # dtype's own max so float32 does not overflow
+    gest2 = torch.tensor(torch.finfo(dtype).max, dtype=dtype, device=dev)
+    est = torch.zeros((), dtype=dtype, device=dev)
+    it = 0
+    while it < nmax_eff:
+        est = electrostatic(qcur)
+        ex1 = 0.5 * (torch.abs(gest2) + torch.abs(est)) < tol
+        ex2 = (torch.abs(gest2) > 0.0) & (torch.abs(est / gest2 - 1.0) < tol)
+        if bool(ex1 | ex2):
+            break
+        hshs_v = matvec(hs)
+        hsht_v = matvec(ht)
+        g_h = torch.stack([torch.sum(gs * hs), torch.sum(gt * ht)])
+        h_hsh = torch.stack([torch.sum(hs * hshs_v), torch.sum(ht * hsht_v)])
+        lmin = g_h / torch.where(h_hsh != 0.0, h_hsh, 1.0)
+        if lmin_f32:
+            lmin = lmin.to(torch.float32).to(dtype)    # ref: pqeq.F90:27
+        qs1 = qs + lmin[0] * hs
+        qt1 = qt + lmin[1] * ht
+        mu = torch.sum(qs1) / torch.sum(qt1)
+        qcur = torch.where(amask, qs1 - mu * qt1, 0.0)
+        gs1, gt1, gnew1 = gradient(qs1, qt1)
+        gsafe = torch.where(torch.abs(gnew) > 0.0, gnew, 1.0)
+        hs = gs1 + (gnew1[0] / gsafe[0]) * hs
+        ht = gt1 + (gnew1[1] / gsafe[1]) * ht
+        qs, qt, gs, gt, gnew, gest2 = qs1, qt1, gs1, gt1, gnew1, est
+        it += 1
+
+    spos_new = update_shells(pos, spos, qcur, H, types, img, nbrs, pq, amask,
+                             efield_dir=efield_dir,
+                             efield_strength=efield_strength)
+    return qcur, spos_new, it, est
+
+
+def shell_forces(pos, spos, q, H, types, img, nbrs, pq: PQEqParams, amask,
+                 efield_dir=None, efield_strength=0.0):
+    """Total force on each shell: spring + screened Coulomb from every
+    neighbor core and shell, + the optional field
+    (ref: pqeq.F90:197-238 Eqs. 37-38 + :205)."""
+    pose = ext_positions(pos, H, img)
+    mask = nbrs.masknb
+    idx = torch.where(mask, nbrs.idxnb, 0)
+    oj = img.owner_of(idx)
+    ti = types[:, None]
+    tj = types[oj]
+    zi = pq.Z[types]
+    zj = pq.Z[tj]
+    qjc = torch.where(mask, q[oj], 0.0) + zj
+
+    shelli = pos + spos
+    drsc = shelli[:, None, :] - pose[idx]            # shell(i) - core(j)
+    drss = drsc - spos[oj]                           # shell(i) - shell(j)
+
+    def dkern(tbl, dvec):
+        dr2 = torch.sum(dvec * dvec, dim=-1)
+        m = mask & (dr2 <= pq.rctap2)
+        return torch.where(m, _lerp2(tbl, ti, tj, dr2, pq.udr, pq.udri, m),
+                           0.0)
+
+    dsc = dkern(pq.dpsc, drsc)[..., None] * drsc
+    ff_sc = -units.CCLMB0 * dsc * (qjc * zi[:, None])[..., None]
+    dss = dkern(pq.dpss, drss)[..., None] * drss
+    polar_j = pq.is_polar[tj]
+    ff_ss = torch.where(polar_j[..., None],
+                        units.CCLMB0 * dss * (zi[:, None] * zj)[..., None],
+                        0.0)
+    sforce = -pq.Ks[types][:, None] * spos - torch.sum(ff_sc + ff_ss, dim=1)
+    if efield_dir is not None and efield_strength != 0.0:
+        sforce = sforce.clone()
+        sforce[:, efield_dir] += -zi * efield_strength * units.EEV_KCAL
+    return sforce
+
+
+def update_shells(pos, spos, q, H, types, img, nbrs, pq: PQEqParams, amask,
+                  efield_dir=None, efield_strength=0.0):
+    """One damped steepest-descent shell relaxation, displacement capped at
+    1e-3 A (ref: update_shell_positions pqeq.F90:187-259, Eq. 39)."""
+    max_disp = 1e-3
+    sforce = shell_forces(pos, spos, q, H, types, img, nbrs, pq, amask,
+                          efield_dir, efield_strength)
+    ks = torch.clamp(pq.Ks[types], min=1e-10)
+    dr = sforce / ks[:, None]
+    ddr = torch.sqrt(torch.clamp(torch.sum(dr * dr, dim=-1), min=1e-30))
+    scale = torch.where(ddr > max_disp, max_disp / ddr, 1.0)
+    dr = dr * scale[:, None]
+    polar_i = pq.is_polar[types] & amask
+    return torch.where(polar_i[:, None], spos + dr, spos)

@@ -99,7 +99,10 @@ class FFDev:
     pvdW1h: torch.Tensor
     pvdW1inv: torch.Tensor
     ctap: torch.Tensor            # (8,) taper coefficients
-    cf_pair: torch.Tensor         # (nso, nso, 11), see rxmd_tpu FFDev.cf_pair
+    cf_pair: torch.Tensor         # (nso, nso, 11): [exists, gamW^-p, alpha,
+                                  #  1/rvdW, Dij, gamij, C_lg, dr6_lg, ecore,
+                                  #  acore, 1/rcore]; 6-10 zero unless LG
+    is_lg: bool                   # ReaxFF-lg: the kernels read columns 6-10
     # packed per-interaction-type parameter rows
     angprm: torch.Tensor          # (nanty, 17)
     torprm: torch.Tensor          # (ntoty, 9)
@@ -121,6 +124,8 @@ def ffdev_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> FFDev:
         v = d[f.name]
         if f.name == "h_type":
             kw[f.name] = int(v)
+        elif f.name == "is_lg":
+            kw[f.name] = bool(v)
         elif f.name in _INT_FIELDS:
             kw[f.name] = torch.as_tensor(np.array(v), dtype=torch.int64,
                                          device=device)
@@ -158,6 +163,12 @@ def ffdev_from(ff: ForceField, dtype=torch.float64, rctap: float = None,
             cf[i, j, 3] = 1.0 / ff.rvdW[i, j]
             cf[i, j, 4] = ff.Dij[i, j]
             cf[i, j, 5] = ff.gamij[i, j]
+            if ff.is_lg and i < 4 and j < 4:
+                cf[i, j, 6] = ff.C_lg[i, j]
+                cf[i, j, 7] = (2.0 * np.sqrt(ff.Re_lg[i] * ff.Re_lg[j])) ** 6
+                cf[i, j, 8] = ff.ecore[i, j]
+                cf[i, j, 9] = ff.acore[i, j]
+                cf[i, j, 10] = 1.0 / ff.rcore[i, j] if ff.rcore[i, j] else 0.0
     angprm = np.stack([
         ff.theta00, ff.pval1, ff.pval2, ff.pval4, ff.pval6, ff.pval7,
         ff.pval8, ff.pval9, ff.pval10, ff.ppen1, ff.ppen2, ff.ppen3,
@@ -182,6 +193,7 @@ def ffdev_from(ff: ForceField, dtype=torch.float64, rctap: float = None,
     d.update(rc2b=rc2b, h_type=h_type, rctap2=rctap * rctap,
              pvdW1h=0.5 * ff.pvdW1, pvdW1inv=1.0 / ff.pvdW1,
              ctap=np.array(units.taper_coeffs(rctap)), cf_pair=cf,
+             is_lg=bool(ff.is_lg),
              angprm=angprm, torprm=torprm, hbprm=hbprm,
              hbok=(ff.inxn3hb >= 0).astype(np.float64),
              t4ok=(ff.inxn4 >= 0).astype(np.float64),
@@ -292,10 +304,16 @@ def nb_ctx(pos, q, H, types, img: ImageTable, nbrs: Neighbors, gid, amask,
                  qj=None if q is None else q[oj], tj=types[oj])
 
 
+def _n_prm(ffd: FFDev):
+    """The columns of cf_pair the kernels read: all 11 under LG, else the
+    first 6 (an (n, n, 6) float32 stack at 8,064 atoms is 1.56 GB)."""
+    return 11 if ffd.is_lg else 6
+
+
 def ctx_prm(ctx: NbCtx, types, ffd: FFDev):
-    """Closed-form pair parameters (n, knb, 6): the columns of cf_pair the
-    vdW, Coulomb and QEq kernels read (the LG columns 6-10 are left out)."""
-    return ffd.cf_pair[types[:, None], ctx.tj, :6]
+    """Closed-form pair parameters (n, knb, 6 or 11): the columns of
+    cf_pair the vdW, Coulomb and QEq kernels read."""
+    return ffd.cf_pair[types[:, None], ctx.tj, :_n_prm(ffd)]
 
 
 def ctx_qj(ctx: NbCtx, q, img: ImageTable):
@@ -345,9 +363,9 @@ def _taper_pair(dr2, dr1, ctap):
 
 def cf_nonbond(dr2, prm, ffd: FFDev, mask):
     """Closed-form vdW and Coulomb kernels and their (dE/dr)/r columns: the
-    analytic content of the reference's tables (ref: init.F90:440-495; the
-    LG terms are not ported).  Returns (evdw, eclmb per unit q_i q_j,
-    devdw, declmb, ok)."""
+    analytic content of the reference's tables (ref: init.F90:440-514, with
+    the LG dispersion and inner-core terms :496-514 when `ffd.is_lg`).
+    Returns (evdw, eclmb per unit q_i q_j, devdw, declmb, ok)."""
     ok = mask & (prm[..., 0] > 0.5)
     dr2s = _safe(dr2, ok)
     dr1 = torch.sqrt(dr2s)
@@ -368,6 +386,18 @@ def cf_nonbond(dr2, prm, ffd: FFDev, mask):
     devdw = dij * (dtap * (exp1 - 2.0 * exp2)
                    - tap * (alpha * rvdwi) * (exp1 - exp2) * dfn13)
     declmb1 = units.CCLMB0 * dr3gam * (dtap - dr3gam ** 3 * tap * dr1)
+    if ffd.is_lg:
+        dr3 = dr1 * dr2s
+        clg = prm[..., 6]
+        den = dr3 * dr3 + _safe(prm[..., 7], ok)
+        elg = -clg / den
+        acore = _safe(prm[..., 9], ok, 0.0)
+        rcorei = _safe(prm[..., 10], ok, 0.0)
+        ecore = prm[..., 8] * torch.exp(acore * (1.0 - dr1 * rcorei))
+        delg = clg * 6.0 * dr2s * dr2s / den ** 2
+        decore = -acore * ecore * rcorei / dr1
+        evdw = evdw + tap * (elg + ecore)
+        devdw = devdw + dtap * (elg + ecore) + tap * (delg + decore)
     return evdw, eclmb1, devdw, declmb1, ok
 
 
@@ -502,7 +532,7 @@ def nonbond_dense(pos, q, H, types, amask, ffd: FFDev, with_virial=False):
     ds, _, dr2 = _min_image(pos, H)
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
     mask = ((dr2 <= ffd.rctap2) & ~eye & amask[:, None] & amask[None, :])
-    prm = _type_prm_dense(types, ffd.cf_pair[..., :6])
+    prm = _type_prm_dense(types, ffd.cf_pair[..., :_n_prm(ffd)])
     evdw_p, eclmb1, devdw, declmb1, ok = cf_nonbond(dr2, prm, ffd, mask)
     del prm
     m = mask & ok
@@ -1443,6 +1473,63 @@ def e_nonbond(pos, q, H, types, img, nbrs, gid, amask, ffd: FFDev):
     return evdw, eclmb, charge_energy(q, types, amask, ffd)
 
 
+def e_nonbond_pqeq(pos, spos, q, H, types, img, nbrs, gid, amask,
+                   ffd: FFDev, pq):
+    """van der Waals from the tables + the 4-term core/shell Coulomb +
+    charge self-energy and shell spring (ref: ENbond_PQEq pot.F90:784-923),
+    each unordered pair once, differentiable in `pos`.  Pair geometry on
+    owner rows; shells ride their owner's image."""
+    from .pqeq import pqeq_kernels
+    masknb = nbrs.masknb
+    idx = torch.where(masknb, nbrs.idxnb, 0)
+    oj = img.owner_of(idx)
+    mask = masknb & (gid[oj] < gid[:, None]) & amask[:, None]
+    shg = img.shift.to(pos.dtype)[idx]
+    dr = (pos[:, None, :] - _take(pos, oj)
+          - torch.einsum("nka,ba->nkb", shg, H))
+    spose_r = _take(spos, oj)
+    dr2 = torch.sum(dr * dr, dim=-1)
+    mask = mask & (dr2 <= ffd.rctap2)
+    b = ffd.inxn2[types[:, None], types[oj]]
+    bc = torch.where(b >= 0, b, 0)
+    pevdw = _table_lerp(ffd.tbl_evdw, bc, dr2, ffd.udr, ffd.udri, mask)
+    evdw = torch.sum(torch.where(mask, pevdw, 0.0))
+
+    ti = types[:, None]
+    tj = types[oj]
+    zi = pq.Z[types][:, None]
+    zj = pq.Z[tj]
+    qic = q[:, None] + zi
+    qjc = torch.where(mask, q[oj], 0.0) + zj
+    polar_i = pq.is_polar[types][:, None]
+    polar_j = pq.is_polar[tj]
+    C0 = units.CCLMB0
+    ecc = C0 * pqeq_kernels(pq, pq.pcc, ti, tj, dr, mask) * qic * qjc
+    drsc = dr + spos[:, None, :]
+    esc = torch.where(mask & polar_i,
+                      -C0 * pqeq_kernels(pq, pq.psc, ti, tj, drsc, mask)
+                      * zi * qjc, 0.0)
+    drcs = dr - spose_r
+    ecs = torch.where(mask & polar_j,
+                      -C0 * pqeq_kernels(pq, pq.psc, tj, ti, drcs, mask)
+                      * qic * zj, 0.0)
+    drss = drsc - spose_r
+    ess = torch.where(mask & polar_i & polar_j,
+                      C0 * pqeq_kernels(pq, pq.pss, ti, tj, drss, mask)
+                      * zi * zj, 0.0)
+    eclmb = torch.sum(torch.where(mask, ecc + esc + ecs + ess, 0.0))
+
+    # self-energy + shell spring (ref: pot.F90:819-825)
+    eshell = torch.where(pq.is_polar[types],
+                         0.5 * pq.Ks[types] * torch.sum(spos * spos, dim=-1),
+                         0.0)
+    echarge = torch.sum(torch.where(
+        amask,
+        units.CECHRGE * (ffd.chi[types] * q + 0.5 * ffd.eta[types] * q * q)
+        + eshell, 0.0))
+    return evdw, eclmb, echarge
+
+
 # ----------------------------------------------------------------------------
 # assembly
 # ----------------------------------------------------------------------------
@@ -1454,7 +1541,8 @@ DEFAULT_CAPS = {"ks": 12, "kh": 6, "hb": 64}
 
 def energy_components(pos, q, H, types, gid, img: ImageTable,
                       nbrs: Neighbors, ffd: FFDev, lists=None, amask=None,
-                      caps=None, include_nonbond=True, ctx=None):
+                      caps=None, include_nonbond=True, ctx=None, pq=None,
+                      spos=None):
     """All potential-energy components as a (14,) vector in the
     reference's PE slot convention (ref: module.F90:143-146):
       0=total 1=Ebond 2=Elp 3=Eover 4=Eunder 5=Eval 6=Epen 7=Ecoa
@@ -1462,8 +1550,9 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
     over the cached (angle, torsion, hbond) `lists`, or over per-call
     enumeration where `lists` is None (`caps` "ks", "kh", "hb"; the
     hydrogen bonds on the pair context `ctx`, built here if not given).
-    Slots 11-13 hold the table nonbond `e_nonbond` with `include_nonbond`,
-    else zero (the caller splices its own in)."""
+    Slots 11-13 hold the table nonbond `e_nonbond` (under PQEq, `pq` the
+    parameters and `spos` the shells: `e_nonbond_pqeq`) with
+    `include_nonbond`, else zero (the caller splices its own in)."""
     caps = {**DEFAULT_CAPS, **(caps or {})}
     if amask is None:
         amask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
@@ -1485,7 +1574,10 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
                       cap=caps["hb"], kh=caps["kh"], ctx=ctx)
     z = torch.zeros_like(ebond)
     evdw = eclmb = echarge = z
-    if include_nonbond:
+    if include_nonbond and pq is not None:
+        evdw, eclmb, echarge = e_nonbond_pqeq(pos, spos, q, H, types, img,
+                                              nbrs, gid, amask, ffd, pq)
+    elif include_nonbond:
         evdw, eclmb, echarge = e_nonbond(pos, q, H, types, img, nbrs, gid,
                                          amask, ffd)
     comps = torch.stack([z, ebond, elp, eover, eunder, eval_, epen, ecoa,
@@ -1496,7 +1588,7 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
 def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
                       amask=None, with_virial=False, external_nonbond=None,
                       caps=None, fast_nonbond=True, closed_form=None,
-                      ctx=None, rows_pre=None):
+                      ctx=None, rows_pre=None, pq=None, spos=None):
     """(PE components, forces[, virial]).
 
     Bonded forces are -dE/dpos by autograd; the ghost-force reduction
@@ -1511,15 +1603,18 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
     (`closed_form`) or table kernels run over the pair context `ctx` (built
     here if None; `rows_pre` reuses `pair_rows`) with the analytic
     derivative columns and row-local forces (ref: pot.F90:736-761); else
-    the table energy `e_nonbond` joins the autograd pass.  `closed_form`
-    None means the tables, as in rxmd_tpu.
+    the table energy `e_nonbond` joins the autograd pass, as the PQEq
+    energy `e_nonbond_pqeq` always does (`pq`, `spos`; ref: rxmd_tpu takes
+    no row-local nonbond under PQEq).  `closed_form` None means the
+    tables, as in rxmd_tpu.
     """
-    use_fast = fast_nonbond and external_nonbond is None
+    use_fast = fast_nonbond and external_nonbond is None and pq is None
     if amask is None:
         amask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
     if ctx is None and use_fast:
         ctx = nb_ctx(pos, q, H, types, img, nbrs, gid, amask, ffd)
-    kw = dict(lists=lists, amask=amask, caps=caps, ctx=ctx,
+    kw = dict(lists=lists, amask=amask, caps=caps, ctx=ctx, pq=pq,
+              spos=spos,
               include_nonbond=not use_fast and external_nonbond is None)
     p = pos.detach().requires_grad_(True)
     with torch.enable_grad():

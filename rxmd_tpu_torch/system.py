@@ -26,7 +26,7 @@ def box_matrix(la, lb, lc, alpha, beta, gamma):
     return H
 
 
-_FLOAT_FIELDS = ("pos", "vel", "q", "qsfp", "qsfv", "H")
+_FLOAT_FIELDS = ("pos", "vel", "q", "qsfp", "qsfv", "H", "spos")
 
 
 @dataclasses.dataclass
@@ -42,6 +42,8 @@ class State:
     gid: torch.Tensor     # (N,) int64 global atom id
     H: torch.Tensor       # (3, 3) box matrix, columns = lattice vectors
     step: int             # current MD step
+    spos: torch.Tensor    # (N, 3) PQEq shell displacement from core
+                          # (ref: module.F90:286; zeros unless PQEq)
 
     @property
     def n(self):
@@ -62,7 +64,8 @@ class State:
 
 
 def make_state(pos, types, H, vel=None, q=None, qsfp=None, qsfv=None,
-               gid=None, step=0, dtype=torch.float64, device="cpu"):
+               gid=None, step=0, spos=None, dtype=torch.float64,
+               device="cpu"):
     def f(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
@@ -82,6 +85,7 @@ def make_state(pos, types, H, vel=None, q=None, qsfp=None, qsfv=None,
         gid=(torch.arange(n, device=device) if gid is None else i64(gid)),
         H=f(H),
         step=int(step),
+        spos=z3.clone() if spos is None else f(spos),
     )
 
 
@@ -91,7 +95,7 @@ def state_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> State:
     return make_state(d["pos"], d["types"], d["H"], vel=d.get("vel"),
                       q=d.get("q"), qsfp=d.get("qsfp"), qsfv=d.get("qsfv"),
                       gid=d.get("gid"), step=int(np.asarray(d.get("step", 0))),
-                      dtype=dtype, device=device)
+                      spos=d.get("spos"), dtype=dtype, device=device)
 
 
 def read_geninit_xyz(path: str, name_to_type: dict):

@@ -157,3 +157,35 @@ def test_kernel_refuses_what_it_does_not_take(planes):
         with pytest.raises(ValueError, match="takes a "):
             call()
     assert dict(ps.launches) == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["PQEq", "LG"])
+def test_pqeq_and_lg_step_on_the_card(what):
+    """prepare + one step under PQEq and under LG on the card, float32:
+    the pair-list engine (the sweep takes neither), no sweep kernel
+    launched, finite, and the total PE within 1e-4 of the same run on the
+    CPU (the float32 CG may stop an iteration apart on the two devices)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lg = what == "LG"
+    ff = ffield.parse_ffield(os.path.join(DATA, "ffield_chon_synth_lg")
+                             if lg else FF, lg=lg)
+    kw = dict(dtype="float32", NMAXQEq=8)
+    if not lg:
+        kw.update(isPQEq=True,
+                  pqeq_parm_path=os.path.join(DATA, "pqeq_chon.par"))
+    pe = {}
+    for dev in ("cuda", "cpu"):
+        st = system.from_cellfile(CELL, ff.name_to_type)
+        e = md.Engine(ff, st, config.RunConfig(**kw), device=dev)
+        assert e.pair_engine == "ell" and e.pairk is None
+        n0 = dict(ps.launches)
+        e.init_velocity(seed=2)
+        e.prepare()
+        e.step()
+        assert dict(ps.launches) == n0
+        assert bool(torch.isfinite(e.comps).all())
+        assert bool(torch.isfinite(e.state.spos).all())
+        pe[dev] = float(e.comps[0])
+    assert abs(pe["cuda"] - pe["cpu"]) <= 1e-4 * abs(pe["cpu"])

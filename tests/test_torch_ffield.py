@@ -68,7 +68,10 @@ def test_import_leaves_jax_out():
             "rxmd_tpu_torch.ops.pairsweep, rxmd_tpu_torch.__main__, "
             "rxmd_tpu_torch.opt, rxmd_tpu_torch.io.traj, "
             "rxmd_tpu_torch.io.refbin, rxmd_tpu_torch.io.checkpoint, "
-            "rxmd_tpu_torch.tools.geninit, rxmd_tpu_torch.utils.timers; "
+            "rxmd_tpu_torch.tools.geninit, rxmd_tpu_torch.utils.timers, "
+            "rxmd_tpu_torch.pqeq, rxmd_tpu_torch.tools.stat, "
+            "rxmd_tpu_torch.tools.plot, rxmd_tpu_torch.tools.bondlifetime; "
+            "assert 'matplotlib' not in sys.modules, 'matplotlib imported'; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "import torch; "
             "assert not torch.backends.cuda.matmul.allow_tf32; "
@@ -108,19 +111,30 @@ def test_float64_on_cuda_raises_at_construction(monkeypatch):
                    device="cuda")
 
 
-# mdmodes 0, 1, 4-8 and 10 are ported; 2, 3 and 9 are not reference modes
-@pytest.mark.parametrize("kw,lg,what", [
-    (dict(mdmode=3), False, "mdmode=3"),
-    (dict(isPQEq=True), False, "PQEq"),
-    ({}, True, "LG dispersion"),
+def _short_pqeq_file(tmp_path):
+    """tests/data/pqeq_chon.par cut to its first two types (C, H): the
+    deck's O and N have no rows."""
+    lines = open(os.path.join(DATA, "pqeq_chon.par")).readlines()
+    rows = [ln for ln in lines if ln[:1] in "CHON" and
+            not ln.startswith("NPARMS")]
+    path = tmp_path / "short.par"
+    path.write_text("NPARMS 2\n" + "".join(rows[:2]))
+    return str(path)
+
+
+# mdmodes 0, 1, 4-8 and 10 are ported; 2, 3 and 9 are not reference modes,
+# and isQEq takes 0, 1 and 2; PQEq parameters match the ffield's types by
+# row order, so a file short of the deck's types is refused
+@pytest.mark.parametrize("kw,exc,what", [
+    (dict(mdmode=3), NotImplementedError, "mdmode=3"),
+    (dict(isQEq=3), NotImplementedError, "isQEq=3"),
+    (dict(isPQEq=True), ValueError, "atom type 3 has no PQEq parameters"),
 ])
-def test_engine_names_missing_paths(kw, lg, what):
+def test_engine_names_missing_paths(kw, exc, what, tmp_path):
     tf, st = _state()
-    if lg:
-        # the synthetic deck flagged as an LG force field: the engine
-        # refuses it before reading any LG parameter
-        tf = dataclasses.replace(tf, is_lg=True)
-    with pytest.raises(NotImplementedError, match=what):
+    if kw.get("isPQEq"):
+        kw = dict(kw, pqeq_parm_path=_short_pqeq_file(tmp_path))
+    with pytest.raises(exc, match=what):
         tmd.Engine(tf, st, tcfg.RunConfig(**kw), device="cpu")
 
 

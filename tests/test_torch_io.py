@@ -130,7 +130,9 @@ def test_checkpoint_round_trip_and_across_packages(states, tmp_path):
     port, jax_ = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
     tck.save(port, ts)
     _assert_states_equal(tck.load(port), ts)
-    # rxmd_tpu restarts from the port's file; spos (PQEq only) is zeros
+    # rxmd_tpu restarts from the port's file; the port writes its spos,
+    # zeros for this state without PQEq shells (test_torch_pqeq.py carries
+    # relaxed shells across)
     jl = jck.load(port)
     _assert_states_equal(jl, ts)
     assert np.array_equal(np.asarray(jl.spos), np.zeros((ts.n, 3)))
