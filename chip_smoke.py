@@ -51,7 +51,18 @@ first failure ends the run with a non-zero exit code and no result line.
      against each other, and LG's float64 table engine at 168 atoms on
      the card against the CPU; (d) the program at --mc: `main` with
      tests/data/rxmd_chon_pqeq.in from geninit's rxff.bin, a restart from
-     its rxff.npz with the shells read back, and a run with --lg.
+     its rxff.npz with the shells read back, and a run with --lg;
+  9. sharded: the domain-decomposed engine (parallel.ShardedEngine), which
+     runs no sweep kernel: at --mc in float32 on the closed-form pair list,
+     as one NCCL rank on mesh (1, 1, 1) (the halo as periodic self-images,
+     every reduction an NCCL all-reduce), prepare + 5 steps at isQEq=1
+     and 2, each step's total PE against md.Engine's pair-list run (its
+     CG on the list too) from the same start within TOL_TE, timed by phase
+     (halo and all-reduce spans inside the others) with peak device
+     memory; after the isQEq=1 run the engine's rows against rxmd_tpu's
+     every-row layout on the same domain (row_layout_cost); with two
+     or more cards, dryrun.run over min(count, 8) NCCL ranks at --mc held
+     the same way, else one line saying that needs a second card.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -800,6 +811,225 @@ def phase_pqeq_lg_program(mc):
         log(f"(d) --lg main: engine {eng3.pair_engine}, PE {pe3}")
 
 
+def phase_sharded(mc, seed, steps=5):
+    """The sharded engine on the card (see the module docstring, phase 9).
+    Every run asserts that no sweep kernel ran."""
+    from rxmd_tpu_torch import md
+    from rxmd_tpu_torch.config import RunConfig
+    from rxmd_tpu_torch.parallel import comm, dryrun
+    from rxmd_tpu_torch.parallel.engine import ShardedEngine
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    # the CG runs to its float32 stop in both: capped short of it (8
+    # iterations, as the float64 parity tests cap it) the charges are not
+    # converged and the PE moves with them at first order
+    ref_cfg = dict(pair_kernel=False, dense_direct_max=0, qeq_dense_max=0)
+    comm.init_process_group(0, 1, f"127.0.0.1:{dryrun.free_port()}", DEVICE)
+    try:
+        for isq in (1, 2):
+            ff, st = load_deck(mc, torch.float64, "cpu")
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            e = ShardedEngine(ff, st, RunConfig(
+                dtype="float32", isQEq=isq, pstep=5),
+                device=DEVICE)
+            check(e.comm.grouped and e.comm.size == 1
+                  and e.mesh_shape == (1, 1, 1) and e.closed_form
+                  and e.device.type == torch.device(DEVICE).type,
+                  "sharded: one NCCL rank, mesh (1, 1, 1), closed form")
+            e.init_velocity(seed=seed)
+            t0 = time.perf_counter()
+            comps = [e.prepare().double().cpu().numpy()]
+            prep_s = time.perf_counter() - t0
+            e.phases = md.PhaseTimer()
+            it0 = e.cg_iters
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                e.run(1, log=None)
+                comps.append(e.comps.double().cpu().numpy())
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+            ph = e.phases.ms()
+            e.phases = md.PhaseTimer()
+            e.rebuild()
+            ph["rebuild"] = e.phases.ms()["rebuild"]
+            e.phases = None
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            no_sweep(f"sharded isQEq={isq}")
+            comps = np.array(comps)
+            sizes = (f"ncap {e.ncap}, bcap {e.bcap}, rows "
+                     f"{e._block.keep.shape[0]} of {e.mext}")
+            cg = (e.cg_iters - it0) / steps
+            if isq == 1:
+                log(f"sharded | {row_layout_cost(e)} | {smi}")
+            del e
+            r = path_run(mc, DEVICE, steps, seed, isQEq=isq, **ref_cfg)
+            check(r["engine"].pair_engine == "ell", "reference: ELL engine")
+            report("md.Engine reference (ELL, list CG)", r, smi, "sharded")
+            ref = r["comps"]
+            del r
+            err = float((np.abs(comps[:, 0] - ref[:, 0])
+                         / np.abs(ref[:, 0])).max())
+            parts = ", ".join(f"{k} {v / (c if k == 'rebuild' else steps):.2f}"
+                              for k, (v, c) in sorted(ph.items()))
+            n = st.n
+            log(f"sharded | isQEq={isq}, {n} atoms, float32, mesh (1, 1, 1), "
+                f"1 NCCL rank, {sizes}: {wall:.2f} ms/step wall, "
+                f"{n * 1e3 / wall:.4e} atom-steps/s, by phase (ms/step; "
+                f"rebuild ms each; halo and allreduce inside the others) "
+                f"{parts}; prepare {prep_s:.2f} s; {cg:.1f} CG "
+                f"iterations/step; peak device memory {peak:.1f} MB | {smi}")
+            log(f"sharded | isQEq={isq}: total PE per step against md.Engine "
+                f"(ELL) max rel diff {err:.3e} (bound {TOL_TE})")
+            check(np.isfinite(comps).all() and err <= TOL_TE,
+                  f"sharded isQEq={isq}: total PE against md.Engine")
+    finally:
+        comm.destroy()
+    count = torch.cuda.device_count()
+    if count >= 2:
+        err, rec, _ = dryrun.run(min(count, 8), DEVICE, mc=mc,
+                                 dtype="float32", tol=TOL_TE)
+        log(f"sharded | {min(count, 8)} NCCL ranks, mesh {rec['mesh']}: "
+            f"PE against md.Engine {err:.3e} of |PE| (bound {TOL_TE}) | {smi}")
+    else:
+        log(f"sharded | multi-rank NCCL run: not run, it needs a second card "
+            f"(torch.cuda.device_count() = {count})")
+    log(f"sharded: phase took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def wall_ms(fn, reps=3):
+    """(median host ms of fn() over reps calls after a warm-up, each ended
+    by a device synchronize; the last result)."""
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    out = fn()
+    ts = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), out
+
+
+def row_layout_cost(e):
+    """The sharded engine's rows against rxmd_tpu's layout, on the domain
+    `e` holds after a rebuild.  The engine computes over the residents and
+    the live ghosts (Block.keep): nonbonded rows, many-body centers and CG
+    vectors for the residents alone (Neighbors.center_rows), bonded rows
+    for the ghosts within `bond_depth`.  rxmd_tpu computes every row of
+    the ghost buffers, ncap + 6 bcap, each with both lists and CG entries
+    (rxmd_tpu/parallel/engine.py:406-461, 464-609).  Both layouts run the
+    same domain's neighbor build, term lists, one force evaluation (halo
+    refresh, pair context, bonded energies forward and backward with the
+    copy-back, the nonbond) and one isQEq=2 solve, each timed by wall_ms;
+    the residents' energies, forces and charges must agree (float32 sums
+    in other orders).  Returns the log line."""
+    from rxmd_tpu_torch import neighbors, qeq, reax
+    from rxmd_tpu_torch.parallel import halo
+    from rxmd_tpu_torch.md import _trim
+    from rxmd_tpu_torch.parallel.engine import identity_image
+    s, spec, comm, ncap, dev = e.sstate, e.spec, e.comm, e.ncap, e.device
+    plan, frac_ext, valid_ext = halo.build_plan(s.frac, s.valid, spec, comm)
+    tex_all = halo.apply_plan(plan, s.types, spec, comm)
+    gex_all = halo.apply_plan(plan, s.gid, spec, comm)
+
+    def cut_nbrs():
+        keep = e._block.keep
+        return e._neighbors(frac_ext[keep], valid_ext[keep], tex_all[keep])
+
+    def all_nbrs():
+        pos_rel = (frac_ext - e.mylo) @ e.Hg.T
+        nbrs, occ = neighbors.build_neighbors_cells(
+            pos_rel, valid_ext, tex_all, e.grid, e.rc2b_ext, e.rctap2_ext,
+            e.kb, e.knb)
+        check(int(occ) <= e.grid.ccap, "row layouts: cell capacity")
+        v = valid_ext[:, None]
+        return pos_rel, nbrs._replace(
+            idxb=torch.where(v, nbrs.idxb, -1),
+            cntb=torch.where(valid_ext, nbrs.cntb, 0),
+            idxnb=torch.where(v, nbrs.idxnb, -1),
+            cntnb=torch.where(valid_ext, nbrs.cntnb, 0))
+
+    res = {}
+    for name, keep, build in (
+            ("cut", e._block.keep, cut_nbrs),
+            ("all", torch.arange(e.mext, device=dev), all_nbrs)):
+        m = keep.shape[0]
+        tex, gex = tex_all[keep], gex_all[keep]
+        img = identity_image(m, e.dtype, dev)
+        amask = torch.zeros(m, dtype=torch.bool, device=dev)
+        amask[:ncap] = s.valid
+        t_nb, (pos_rel, nbrs) = wall_ms(build)
+        t_lists, lists = wall_ms(lambda: e._term_lists(
+            pos_rel, tex, gex, img, nbrs, amask, e.term_slack,
+            e.term_margin))
+        lists = tuple(_trim(lst) for lst in lists)
+        rows = nbrs.center_rows
+
+        def refresh(x, is_frac=False):
+            return halo.apply_plan(plan, x, spec, comm, is_frac)[keep]
+        q_ext = refresh(s.q)
+
+        def force():
+            frac_res = s.frac.detach().requires_grad_(True)
+            with torch.enable_grad():
+                pr = (refresh(frac_res, True) - e.mylo) @ e.Hg.T
+                ctx = reax.nb_ctx(pr, None, e.Hg, tex, img, nbrs, gex, amask,
+                                  e.ffd)
+                comps = reax.energy_components(
+                    pr, q_ext, e.Hg, tex, gex, img, nbrs, e.ffd, lists,
+                    amask=amask, caps=e.caps, include_nonbond=False,
+                    ctx=ctx)
+                (g,) = torch.autograd.grad(comps[0], (frac_res,))
+            ctx = ctx._replace(qj=q_ext[ctx.idx])
+            ev, ec, ech, f_nb, _ = reax.nonbond_ctx_energy_forces(
+                ctx, q_ext[:rows], tex[:rows], amask[:rows], e.ffd,
+                e.closed_form, with_virial=True, img=img)
+            f = -(g @ e.Hi) + f_nb[:ncap]
+            return torch.cat([comps[1:11].detach(),
+                              torch.stack([ev, ec, ech])]), f, ctx
+        t_force, (comps, f, ctx) = wall_ms(force)
+
+        def solve():
+            if name == "cut":
+                return qeq.solve(
+                    pos_rel[:ncap], s.q, s.qsfp, tex[:ncap], e.ffd,
+                    amask=s.valid, isqeq=2, lex_fqs=e.cfg.Lex_fqs, img=img,
+                    nbrs=nbrs, pre=(ctx, None, None), allreduce=comm.psum,
+                    refresh=refresh, resident_ext=amask).q
+            # every row a CG entry, its ghost rows refreshed from the
+            # residents before each matvec
+            return qeq.solve(
+                pos_rel, q_ext, refresh(s.qsfp), tex, e.ffd, amask=amask,
+                isqeq=2, lex_fqs=e.cfg.Lex_fqs, img=img, nbrs=nbrs,
+                pre=(ctx, None, None), allreduce=comm.psum,
+                refresh=lambda x: refresh(x[:ncap]),
+                resident_ext=amask).q[:ncap]
+        t_qeq, q = wall_ms(solve)
+        res[name] = dict(rows=m, centers=rows, t=(t_nb, t_lists, t_force,
+                                                   t_qeq),
+                         comps=comps.double(), f=f.double(), q=q.double())
+    a, b = res["cut"], res["all"]
+    v = s.valid
+    e_err = float((a["comps"].sum() - b["comps"].sum()).abs()
+                  / b["comps"].sum().abs())
+    f_err = float((a["f"][v] - b["f"][v]).abs().max()
+                  / b["f"][v].abs().max())
+    q_err = float((a["q"][v] - b["q"][v]).abs().max()
+                  / b["q"][v].abs().max())
+    check(e_err <= TOL_TE and f_err <= TOL_F and q_err <= TOL_Q,
+          f"row layouts agree (energy {e_err:.2e}, forces {f_err:.2e}, "
+          f"charges {q_err:.2e})")
+    ta, tb = a["t"], b["t"]
+    parts = " / ".join(f"{x:.2f} vs {y:.2f}" for x, y in zip(ta, tb))
+    return (f"rows {a['rows']} (centers {a['centers']}) against rxmd_tpu's "
+            f"{b['rows']} (centers {b['centers']}), ms: neighbor build / "
+            f"term lists / force evaluation / isQEq=2 solve {parts}; sum "
+            f"{sum(ta):.2f} vs {sum(tb):.2f}; residents' energy "
+            f"{e_err:.2e}, forces {f_err:.2e}, charges {q_err:.2e} apart")
+
+
 def zero_launches():
     from rxmd_tpu_torch.ops import pairsweep as ps
     for k in ps.launches:
@@ -1044,6 +1274,7 @@ def main():
     phase_program(mc, args.steps)
     phase_pair_paths(mc, args.seed)
     phase_pqeq_lg(mc, args.seed)
+    phase_sharded(mc, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

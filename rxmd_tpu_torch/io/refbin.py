@@ -66,6 +66,18 @@ def read_rxff_bin(path: str, dtype=torch.float64, device="cpu"):
                 "cell": tuple(cell)}
 
 
+def box_cell(H):
+    """(la, lb, lc, alpha, beta, gamma) of a box matrix, as the header of
+    rxff.bin holds them."""
+    H = host(H)
+    la, lb, lc = np.linalg.norm(H, axis=0)
+    cosg = H[:, 0] @ H[:, 1] / (la * lb)
+    cosb = H[:, 0] @ H[:, 2] / (la * lc)
+    cosa = H[:, 1] @ H[:, 2] / (lb * lc)
+    return (la, lb, lc, np.degrees(np.arccos(cosa)),
+            np.degrees(np.arccos(cosb)), np.degrees(np.arccos(cosg)))
+
+
 def write_rxff_bin(path: str, state: State, cell=None, vprocs=(1, 1, 1),
                    step=None):
     """Write a State as a reference rxff.bin.
@@ -78,12 +90,7 @@ def write_rxff_bin(path: str, state: State, cell=None, vprocs=(1, 1, 1),
     """
     H = host(state.H)
     if cell is None:
-        la, lb, lc = np.linalg.norm(H, axis=0)
-        cosg = H[:, 0] @ H[:, 1] / (la * lb)
-        cosb = H[:, 0] @ H[:, 2] / (la * lc)
-        cosa = H[:, 1] @ H[:, 2] / (lb * lc)
-        cell = (la, lb, lc, np.degrees(np.arccos(cosa)),
-                np.degrees(np.arccos(cosb)), np.degrees(np.arccos(cosg)))
+        cell = box_cell(H)
     n = state.n
     Hi = np.linalg.inv(H)
     frac = (host(state.pos) @ Hi.T) % 1.0

@@ -89,6 +89,15 @@ class Neighbors(NamedTuple):
     def masknb(self):
         return self.idxnb >= 0
 
+    @property
+    def center_rows(self) -> int:
+        """The atoms that center per-atom work (the nonbonded list, the
+        many-body terms, the charges): the first `center_rows` rows of
+        every per-atom array.  All atoms on one device; a domain's
+        residents in the sharded engine, whose ghosts carry bonded rows
+        alone."""
+        return self.idxnb.shape[0]
+
 
 def _select_k(mask, k):
     """Column indices of up to k True entries per row (lowest index first),
@@ -252,14 +261,20 @@ def _cell_table_packed(pos, valid, types, grid: CellGrid):
 
 
 def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
-                          rctap2, kb: int, knb: int, nrows: int = None):
+                          rctap2, kb: int, knb: int, nrows: int = None,
+                          nb_rows: int = None, bond_rows=None):
     """O(M) cell-list neighbor build over an extended atom set (used from
     400 atoms).  `pos` are real coordinates inside the grid region; `valid`
-    masks live entries.  Returns (Neighbors for the first `nrows` entries,
-    max cell occupancy)."""
+    masks live entries.  Returns (Neighbors: bonded rows for the first
+    `nrows` entries, nonbonded rows for the first `nb_rows` (default
+    `nrows`), max cell occupancy).  With `bond_rows` (row indices) only
+    those rows get bonded lists, the others stay empty.  The sharded
+    engine needs bonded rows for its ghosts near its domain too (their
+    bond orders), nonbonded rows only for its residents."""
     m = pos.shape[0]
     dev = pos.device
     nrows = nrows or m
+    nb_rows = nb_rows or nrows
     slot_pay, slot_idx, cid3, overflow = _cell_table_packed(
         pos, valid, types, grid)
     nc = np.array(grid.ncells)
@@ -271,17 +286,17 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
     slot_idx = torch.cat([slot_idx, torch.full((1, ccap), -1,
                                                dtype=torch.int64, device=dev)])
     nc_t = torch.as_tensor(nc, device=dev)
-    rows = torch.arange(nrows, device=dev)
 
-    def lists(stencil, bonded, cap):
+    def lists(rows, stencil, bonded, cap):
+        nr = rows.shape[0]
         offs = torch.as_tensor(np.array(stencil, np.int64), device=dev)
         nb3 = cid3[rows][:, None, :] + offs[None, :, :]          # (B, S, 3)
         oob = ((nb3 < 0) | (nb3 >= nc_t)).any(dim=-1)
         nbc = (nb3[..., 0] * nc[1] + nb3[..., 1]) * nc[2] + nb3[..., 2]
         nbc = torch.where(oob, ctot, nbc)
         S = offs.shape[0]
-        pay = slot_pay[nbc].reshape(nrows, S * ccap, 4)
-        cand = slot_idx[nbc].reshape(nrows, S * ccap)
+        pay = slot_pay[nbc].reshape(nr, S * ccap, 4)
+        cand = slot_idx[nbc].reshape(nr, S * ccap)
         d = pos[rows][:, None, :] - pay[..., :3]
         dr2 = torch.sum(d * d, dim=-1)
         if bonded:
@@ -298,8 +313,17 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
                           torch.gather(cand, 1, slot.clamp(min=0)), -1)
         return idx, mask.sum(dim=1)
 
-    idxb, cntb = lists(grid.stencil_b, True, kb)
-    idxnb, cntnb = lists(grid.stencil_nb, False, knb)
+    if bond_rows is None:
+        idxb, cntb = lists(torch.arange(nrows, device=dev), grid.stencil_b,
+                           True, kb)
+    else:
+        ib, cb = lists(bond_rows, grid.stencil_b, True, kb)
+        idxb = torch.full((nrows, kb), -1, dtype=torch.int64, device=dev)
+        idxb[bond_rows] = ib
+        cntb = torch.zeros(nrows, dtype=cb.dtype, device=dev)
+        cntb[bond_rows] = cb
+    idxnb, cntnb = lists(torch.arange(nb_rows, device=dev), grid.stencil_nb,
+                         False, knb)
     return Neighbors(idxb=idxb, cntb=cntb, idxnb=idxnb, cntnb=cntnb), overflow
 
 

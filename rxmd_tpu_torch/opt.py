@@ -1,5 +1,5 @@
-"""Structural optimization: nonlinear conjugate gradient (mdmode=10), the
-single-device counterpart of rxmd_tpu.opt.
+"""Structural optimization: nonlinear conjugate gradient (mdmode=10)
+(counterpart of rxmd_tpu.opt).
 
 Reimplements the reference optimizer (ref: src/cg.F90:26-393): Polak-Ribiere
 style CG over atom positions, bracketing by step doubling from 1e-2/N with
@@ -12,6 +12,12 @@ probe.  Each probe builds its lists fresh: the neighbor lists, the angle /
 torsion / hbond lists with exact gates (slack 1, margin 0: what rxmd_tpu's
 uncached terms evaluate) and, for the pair sweep, the slot layout; then a
 full CG and the forces, through the engine's pair engine as an MD step.
+The same loop drives the sharded engine through an adapter whose vectors
+are each domain's block: its dot products and maxima are reduced over the
+mesh, the CG vectors migrate with their atoms between iterations
+(MigrateVec3D, ref: cg.F90:292-314) and a probe may move an atom at most
+half the Verlet skin, so the probe's fresh halo plan stays complete
+(rxmd_tpu opt.py:67-90).
 """
 from __future__ import annotations
 
@@ -32,9 +38,23 @@ CG_GSTOL = 1e-6           # golden-section interval tolerance (per atom)
 class _MDAdapter:
     """Single-device engine: positions are a plain (n, 3) tensor."""
 
+    drift_limit = np.inf
+
     def __init__(self, engine):
         self.engine = engine
         self.n = engine.state.n
+
+    @staticmethod
+    def dot(a, b):
+        return float(torch.sum(a * b))
+
+    @staticmethod
+    def max_norm(p):
+        return float(torch.max(torch.linalg.norm(p, dim=-1)))
+
+    @staticmethod
+    def resync(pos, g, p):
+        return pos, g, p
 
     def positions(self):
         return self.engine.state.pos
@@ -62,17 +82,47 @@ class _MDAdapter:
                                                 pos=pos, q=q)
 
 
+class _ShardedAdapter:
+    """Sharded engine: positions are the domain's block; dot products and
+    maxima are reduced over the mesh, so every rank takes the same line
+    search."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.n = engine.n
+        # residents may sit at most this far outside their subdomain
+        # before a probe's ghost selection could miss an interaction
+        self.drift_limit = 0.5 * engine.skin_nb
+
+    def dot(self, a, b):
+        return float(self.engine.comm.psum(torch.sum(a * b)))
+
+    def max_norm(self, p):
+        return float(self.engine.comm.pmax(
+            torch.max(torch.linalg.norm(p, dim=-1))))
+
+    def positions(self):
+        return self.engine.cg_positions()
+
+    def evaluate(self, pos):
+        return self.engine.cg_evaluate(pos)
+
+    def resync(self, pos, g, p):
+        return self.engine.cg_resync(pos, g, p)
+
+    def commit(self, pos, q):
+        self.engine.cg_commit(pos, q)
+
+
 def _make_adapter(engine):
     from .md import Engine as MDEngine
+    from .parallel.engine import ShardedEngine
     if isinstance(engine, MDEngine):
         return _MDAdapter(engine)
-    raise TypeError(
-        f"conjugate_gradient needs md.Engine, got {type(engine).__name__} "
-        "(rxmd_tpu_torch has no sharded engine)")
-
-
-def _dot(a, b):
-    return float(torch.sum(a * b))
+    if isinstance(engine, ShardedEngine):
+        return _ShardedAdapter(engine)
+    raise TypeError(f"conjugate_gradient needs md.Engine or ShardedEngine, "
+                    f"got {type(engine).__name__}")
 
 
 def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
@@ -91,11 +141,14 @@ def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
     if log:
         log(f"Start structural optimization. ftol={ftol:.2e} PE0={pe:.6f}")
 
-    def e_at(alpha, pos, p):
+    def e_at(alpha, pos, p, pmax):
+        if alpha * pmax > ad.drift_limit:
+            # the probe would outrun the halo skin margin
+            return None
         e, _, _ = ad.evaluate(pos + alpha * p)
         return float(e)
 
-    def bracket(pos, p, pe0, f0):
+    def bracket(pos, p, pe0, f0, pmax):
         """Double the step from 1e-2/N until the Armijo test fails
         (ref: BracketSearchRange cg.F90:101-141 + WolfeConditions
         cg.F90:144-208).  The reference's stop test reads
@@ -103,24 +156,27 @@ def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
         gates the bracket (the curvature bool is computed but unused);
         we reproduce that observable behavior."""
         stepl = 1e-2 / n
-        p_dot_f = _dot(p, f0)                      # p . force(x)
+        p_dot_f = ad.dot(p, f0)                    # p . force(x)
         for _ in range(min(max_bracket, CG_MAX_BRACKET)):
             stepl *= 2.0
-            e = e_at(stepl, pos, p)
+            e = e_at(stepl, pos, p, pmax)
+            if e is None:
+                # cap the bracket at the decomposition's drift limit
+                return stepl * 0.5
             armijo = e <= pe0 + p_dot_f * CG_WC1 * stepl
             if not armijo:                         # bracket found
                 return stepl
         return None
 
-    def golden(pos, p, b):
+    def golden(pos, p, b, pmax):
         """Golden-section minimization on [0, b]: interval shrinks until
         |a-d| <= CG_GStol/N, returns the right edge like the reference
         (GoldenSectionSearch returns dx, cg.F90:242-281 + use at :232)."""
         a = 0.0
         x1 = b - GOLD * (b - a)
         x2 = a + GOLD * (b - a)
-        f1 = e_at(x1, pos, p)
-        f2 = e_at(x2, pos, p)
+        f1 = e_at(x1, pos, p, pmax)
+        f2 = e_at(x2, pos, p, pmax)
         for _ in range(CG_MAX_LINEMIN):
             if abs(a - b) <= CG_GSTOL / n:
                 break
@@ -130,19 +186,22 @@ def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
                 a = x1
             x1 = b - GOLD * (b - a)
             x2 = a + GOLD * (b - a)
-            f1 = e_at(x1, pos, p)
-            f2 = e_at(x2, pos, p)
+            f1 = e_at(x1, pos, p, pmax)
+            f2 = e_at(x2, pos, p, pmax)
         return b
 
     for it in range(max_iter):
-        b = bracket(pos, p, pe, g)
+        pmax = ad.max_norm(p)
+        b = bracket(pos, p, pe, g, pmax)
         if b is None:
             if log:
                 log(f"no bracket found at iter {it}; at a minimum")
             break
-        alpha = golden(pos, p, b)
+        alpha = golden(pos, p, b, pmax)
         pos = pos + alpha * p
-        g_old = g
+        # atoms and the CG vectors move to their new domains before the
+        # next evaluation (the identity on one device)
+        pos, g_old, p = ad.resync(pos, g, p)
         pe_old = pe
         pe_, g, q = ad.evaluate(pos)
         pe = float(pe_)
@@ -155,9 +214,9 @@ def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
             if log:
                 log(f"Energy converged at iter {it}")
             break
-        b1 = _dot(g_old, g_old)
-        b2 = _dot(g, g)
-        b3 = _dot(g, g_old)
+        b1 = ad.dot(g_old, g_old)
+        b2 = ad.dot(g, g)
+        b3 = ad.dot(g, g_old)
         p = (b2 - b3) / b1 * p + g          # ref: cg.F90:82-89
 
     ad.commit(pos, q)

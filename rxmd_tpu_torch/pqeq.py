@@ -197,7 +197,7 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
           ffd: FFDev, pq: PQEqParams, amask=None, isqeq: int = 1,
           nmax: int = 500, tol: float = 1e-7, lex_fqs: float = 1.0,
           efield_dir=None, efield_strength: float = 0.0,
-          lmin_f32: bool = False):
+          lmin_f32: bool = False, allreduce=None, refresh=None):
     """PQEq CG solve + one shell relaxation step (ref: pqeq.F90:2-259).
     Returns (q, spos_new, iters, Est).
 
@@ -208,10 +208,23 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
     iterate, not carried by the residual recurrence of qeq._cg.
     `efield_dir`/`efield_strength`: a constant field on the shell charges
     (ref: pqeq.F90:205).  `lmin_f32` stores the line-minimization step in
-    float32 as the reference does (pqeq.F90:27)."""
-    n = pos.shape[0]
+    float32 as the reference does (pqeq.F90:27).
+
+    `pos`, `spos` and `types` cover the atoms `img` maps, the center rows
+    (`nbrs.center_rows`) first; `q`, `qsfp` and `amask` cover the center
+    rows (on one device both are all atoms).  Multi-domain hooks
+    (rxmd_tpu pqeq.py:168-179), each None on one device: `allreduce` sums
+    a tensor over the domains (three reductions an iteration), `refresh`
+    maps a vector over the rows to the extended rows (the ghost exchange,
+    ref: MODE_QCOPY1/2, pqeq.F90:89-165)."""
+    n = nbrs.center_rows
     dtype = pos.dtype
     dev = pos.device
+    multi = allreduce is not None
+    if allreduce is None:
+        allreduce = lambda x: x
+    if refresh is None:
+        refresh = lambda x: x
     # float32 floor on the relative-change stop tests (see qeq.solve)
     tol = max(tol, 20.0 * float(torch.finfo(dtype).eps))
     if amask is None:
@@ -223,9 +236,10 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
     idx = torch.where(mask, nbrs.idxnb, 0)
     oj = img.owner_of(idx)
     sposj = spos[oj]                 # shells ride their owner's image
-    ti = types[:, None]
+    tr = types[:n]
+    ti = tr[:, None]
     tj = types[oj]
-    dr = pos[:, None, :] - pose[idx]
+    dr = pos[:n, None, :] - pose[idx]
     dr2 = torch.sum(dr * dr, dim=-1)
     mask = mask & (dr2 < pq.rctap2)
 
@@ -241,23 +255,24 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
                       - torch.where(mask & polar_j, psc_ji * zj, 0.0), dim=1)
     fpqeq = torch.where(amask, fpqeq, 0.0)
 
-    eta = torch.where(amask, ffd.eta[types], 0.0)
-    chi = torch.where(amask, ffd.chi[types], 0.0)
+    eta = torch.where(amask, ffd.eta[tr], 0.0)
+    chi = torch.where(amask, ffd.chi[tr], 0.0)
 
     def matvec(x):
-        xs = torch.where(mask, x[oj], 0.0)
+        xs = torch.where(mask, refresh(x)[oj], 0.0)
         return eta * x + torch.sum(hcc * xs, dim=1)
 
     def gradient(qs, qt):
         gs = torch.where(amask, -chi - matvec(qs) - fpqeq, 0.0)
         gt = torch.where(amask, -1.0 * w - matvec(qt), 0.0)
-        return gs, gt, torch.stack([torch.sum(gs * gs), torch.sum(gt * gt)])
+        return gs, gt, allreduce(torch.stack([torch.sum(gs * gs),
+                                              torch.sum(gt * gt)]))
 
     # electrostatic energy (ref: get_hsh pqeq.F90:361-435): every directed
     # pair counted once with weight 0.5 for cc and ss, 1.0 for sc
-    zi = pq.Z[types][:, None]
-    polar_i = pq.is_polar[types][:, None]
-    drsc = dr + spos[:, None, :]     # shell(i) - core(j)
+    zi = pq.Z[tr][:, None]
+    polar_i = pq.is_polar[tr][:, None]
+    drsc = dr + spos[:n, None, :]    # shell(i) - core(j)
     drss = drsc - sposj              # shell(i) - shell(j)
     csc = torch.where(
         mask & polar_i,
@@ -267,16 +282,23 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
         mask & polar_i & polar_j,
         units.CCLMB0_QEQ * pqeq_kernels(pq, pq.pss, ti, tj, drss, mask)
         * zi * zj, 0.0)
-    zt = pq.Z[types]
+    zt = pq.Z[tr]
     del dr, dr2, drcs, drsc, drss, psc_ji, sposj
 
     def electrostatic(qcur):
+        """This domain's share of Est (the caller reduces it)."""
         qic = qcur + zt
-        qjc = torch.where(mask, qcur[oj], 0.0) + zj
+        qjc = torch.where(mask, refresh(qcur)[oj], 0.0) + zj
         pair = 0.5 * (hcc * qic[:, None] * qjc + css) + csc * qjc
         per_atom = (chi * qcur + 0.5 * eta * qcur * qcur
                     + torch.sum(torch.where(mask, pair, 0.0), dim=1))
         return torch.sum(torch.where(amask, per_atom, 0.0))
+
+    def line_products(gs, gt, hs, ht):
+        """(g.h, h.Hh) of the two CG directions."""
+        hshs_v, hsht_v = matvec(hs), matvec(ht)
+        return torch.stack([torch.sum(gs * hs), torch.sum(gt * ht),
+                            torch.sum(hs * hshs_v), torch.sum(ht * hsht_v)])
 
     if isqeq == 2:
         qs = torch.where(amask, lex_fqs * qsfp + (1.0 - lex_fqs) * q, 0.0)
@@ -295,20 +317,27 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
     it = 0
     while it < nmax_eff:
         est = electrostatic(qcur)
+        if multi:
+            # Est and the four line-search products in one reduction: the
+            # matvecs come before the stop test, as in rxmd_tpu's loop
+            # body, and go unused on a stop
+            prods = line_products(gs, gt, hs, ht)
+            red = allreduce(torch.cat([est[None], prods]))
+            est, prods = red[0], red[1:]
         ex1 = 0.5 * (torch.abs(gest2) + torch.abs(est)) < tol
         ex2 = (torch.abs(gest2) > 0.0) & (torch.abs(est / gest2 - 1.0) < tol)
         if bool(ex1 | ex2):
             break
-        hshs_v = matvec(hs)
-        hsht_v = matvec(ht)
-        g_h = torch.stack([torch.sum(gs * hs), torch.sum(gt * ht)])
-        h_hsh = torch.stack([torch.sum(hs * hshs_v), torch.sum(ht * hsht_v)])
+        if not multi:
+            prods = line_products(gs, gt, hs, ht)
+        g_h, h_hsh = prods[:2], prods[2:]
         lmin = g_h / torch.where(h_hsh != 0.0, h_hsh, 1.0)
         if lmin_f32:
             lmin = lmin.to(torch.float32).to(dtype)    # ref: pqeq.F90:27
         qs1 = qs + lmin[0] * hs
         qt1 = qt + lmin[1] * ht
-        mu = torch.sum(qs1) / torch.sum(qt1)
+        st = allreduce(torch.stack([torch.sum(qs1), torch.sum(qt1)]))
+        mu = st[0] / st[1]
         qcur = torch.where(amask, qs1 - mu * qt1, 0.0)
         gs1, gt1, gnew1 = gradient(qs1, qt1)
         gsafe = torch.where(torch.abs(gnew) > 0.0, gnew, 1.0)
@@ -317,28 +346,31 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
         qs, qt, gs, gt, gnew, gest2 = qs1, qt1, gs1, gt1, gnew1, est
         it += 1
 
-    spos_new = update_shells(pos, spos, qcur, H, types, img, nbrs, pq, amask,
-                             efield_dir=efield_dir,
+    spos_new = update_shells(pos, spos, refresh(qcur), H, types, img, nbrs,
+                             pq, amask, efield_dir=efield_dir,
                              efield_strength=efield_strength)
     return qcur, spos_new, it, est
 
 
 def shell_forces(pos, spos, q, H, types, img, nbrs, pq: PQEqParams, amask,
                  efield_dir=None, efield_strength=0.0):
-    """Total force on each shell: spring + screened Coulomb from every
-    neighbor core and shell, + the optional field
-    (ref: pqeq.F90:197-238 Eqs. 37-38 + :205)."""
+    """Total force on each shell of the center rows: spring + screened
+    Coulomb from every neighbor core and shell, + the optional field
+    (ref: pqeq.F90:197-238 Eqs. 37-38 + :205).  `pos`, `spos`, `q` and
+    `types` cover the atoms `img` maps (see `solve`)."""
+    n = nbrs.center_rows
     pose = ext_positions(pos, H, img)
     mask = nbrs.masknb
     idx = torch.where(mask, nbrs.idxnb, 0)
     oj = img.owner_of(idx)
-    ti = types[:, None]
+    tr = types[:n]
+    ti = tr[:, None]
     tj = types[oj]
-    zi = pq.Z[types]
+    zi = pq.Z[tr]
     zj = pq.Z[tj]
     qjc = torch.where(mask, q[oj], 0.0) + zj
 
-    shelli = pos + spos
+    shelli = pos[:n] + spos[:n]
     drsc = shelli[:, None, :] - pose[idx]            # shell(i) - core(j)
     drss = drsc - spos[oj]                           # shell(i) - shell(j)
 
@@ -355,7 +387,7 @@ def shell_forces(pos, spos, q, H, types, img, nbrs, pq: PQEqParams, amask,
     ff_ss = torch.where(polar_j[..., None],
                         units.CCLMB0 * dss * (zi[:, None] * zj)[..., None],
                         0.0)
-    sforce = -pq.Ks[types][:, None] * spos - torch.sum(ff_sc + ff_ss, dim=1)
+    sforce = -pq.Ks[tr][:, None] * spos[:n] - torch.sum(ff_sc + ff_ss, dim=1)
     if efield_dir is not None and efield_strength != 0.0:
         sforce = sforce.clone()
         sforce[:, efield_dir] += -zi * efield_strength * units.EEV_KCAL
@@ -367,12 +399,14 @@ def update_shells(pos, spos, q, H, types, img, nbrs, pq: PQEqParams, amask,
     """One damped steepest-descent shell relaxation, displacement capped at
     1e-3 A (ref: update_shell_positions pqeq.F90:187-259, Eq. 39)."""
     max_disp = 1e-3
+    n = nbrs.center_rows
+    tr = types[:n]
     sforce = shell_forces(pos, spos, q, H, types, img, nbrs, pq, amask,
                           efield_dir, efield_strength)
-    ks = torch.clamp(pq.Ks[types], min=1e-10)
+    ks = torch.clamp(pq.Ks[tr], min=1e-10)
     dr = sforce / ks[:, None]
     ddr = torch.sqrt(torch.clamp(torch.sum(dr * dr, dim=-1), min=1e-30))
     scale = torch.where(ddr > max_disp, max_disp / ddr, 1.0)
     dr = dr * scale[:, None]
-    polar_i = pq.is_polar[types] & amask
-    return torch.where(polar_i[:, None], spos + dr, spos)
+    polar_i = pq.is_polar[tr] & amask
+    return torch.where(polar_i[:, None], spos[:n] + dr, spos[:n])

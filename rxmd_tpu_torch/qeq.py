@@ -13,7 +13,11 @@ The hessian comes from one of three pair engines:
     n <= `dense_max` folds it into a dense (n, n) matrix once.
 Termination follows the reference's two tests on Est (ref:
 qeq.F90:114-115); the loop reads the stop flag on the host once per
-iteration.  `lmin_f32` stores the line-minimization step in float32 as
+iteration.  A domain of the sharded engine solves over its residents:
+`allreduce` sums the CG's scalars over the domains (the reference's
+batched MPI buffer, qeq.F90:126-131), `refresh` brings a resident vector
+to the ghost rows the pair context indexes (MODE_QCOPY1/2,
+qeq.F90:86-164), each the identity on one device.  `lmin_f32` stores the line-minimization step in float32 as
 the reference does (qeq.F90:23), so iteration counts match its.
 """
 from __future__ import annotations
@@ -38,7 +42,8 @@ def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
           isqeq: int = 1, nmax: int = 500, tol: float = 1e-7,
           lex_fqs: float = 1.0, *, H=None, img=None, nbrs=None,
           lmin_f32: bool = False, closed_form=None, pre=None,
-          dense_max: int = 8192, direct: bool = False) -> QEqResult:
+          dense_max: int = 8192, direct: bool = False, allreduce=None,
+          refresh=None, resident_ext=None) -> QEqResult:
     """Solve for charges.  isqeq=1: full CG (ref: qeq.F90:39-48); isqeq=2:
     extended-Lagrangian warm start, one iteration (ref: qeq.F90:51-57).
 
@@ -47,8 +52,19 @@ def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
     H·ht, Est pair sum) rows of the pair sweep; else the pair context:
     `pre` = (ctx, table rows, ok) from reax.pair_rows, or (ctx, None, None)
     for the closed form, or None to build it from (H, img, nbrs) with the
-    closed form if `closed_form` else the tables."""
+    closed form if `closed_form` else the tables.
+
+    Multi-domain hooks (rxmd_tpu qeq.py:60-64), each None on one device:
+    `allreduce` sums a tensor over the domains, `refresh` maps a vector
+    over the rows (`pos`, `q`) to the extended rows the pair context
+    indexes, `resident_ext` marks the extended rows that are this
+    domain's own (the Est pair weights, ref: qeq.F90:304-306).  With
+    `refresh` the pair context (`pre`) is required and no dense fold is
+    made."""
     n = pos.shape[0]
+    local_only = refresh is None
+    if refresh is None:
+        refresh = lambda x: x
     dtype = pos.dtype
     # the stop tests are RELATIVE energy changes; below ~20 ulp of the
     # working precision they never trigger and the CG burns iterations on
@@ -65,7 +81,7 @@ def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
             rhs = torch.stack([-chi, -w], dim=1)
             return torch.where(amask[:, None], rhs - matvec2(X), 0.0)
         return _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs,
-                   lmin_f32, matvec2_and_est, gradient)
+                   lmin_f32, matvec2_and_est, gradient, allreduce)
 
     def est_of(pair_sum, qcur):
         per_atom = chi * qcur + 0.5 * eta * qcur * qcur + pair_sum * qcur
@@ -114,10 +130,12 @@ def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
     oj = img.owner_of(ctx.idx)
     hz = torch.where(mask, hess, 0.0)
     # Est pair weight: 0.5 per directed entry plus another 0.5 when the
-    # neighbor is the atom itself, not an image (ref: qeq.F90:304-306)
-    est_w = torch.where(ctx.idx < n, 1.0, 0.5).to(dtype)
+    # neighbor is an atom of this domain, not an image or a ghost (ref:
+    # qeq.F90:304-306)
+    own = ctx.idx < n if resident_ext is None else resident_ext[ctx.idx]
+    est_w = torch.where(own, 1.0, 0.5).to(dtype)
 
-    if n <= dense_max and isqeq != 2:
+    if local_only and n <= dense_max and isqeq != 2:
         # a full CG: fold the list into a dense (n, n) matrix once, each
         # matvec a matmul; index_put_ with accumulate sums repeated
         # (row, owner) entries in a fixed order
@@ -133,23 +151,26 @@ def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
         return cg(lambda X: eta[:, None] * X + Hd @ X, matvec2_and_est)
 
     def matvec2(X):
-        Xs = torch.where(mask[..., None], X[oj], 0.0)            # (n, knb, 2)
+        Xs = torch.where(mask[..., None], refresh(X)[oj], 0.0)   # (n, knb, 2)
         return eta[:, None] * X + torch.einsum("nk,nkc->nc", hz, Xs)
 
     def matvec2_and_est(Hv, qcur):
         """One (n, knb, 3) gather feeds both H·(hs, ht) and the Est pair
         sum (cf. the reference's single get_hsh pass)."""
         Y = torch.cat([Hv, qcur[:, None]], dim=1)
-        Ys = torch.where(mask[..., None], Y[oj], 0.0)
+        Ys = torch.where(mask[..., None], refresh(Y)[oj], 0.0)
         mv = eta[:, None] * Hv + torch.einsum("nk,nkc->nc", hz, Ys[..., :2])
         return mv, est_of(torch.sum(est_w * hz * Ys[..., 2], dim=1), qcur)
     return cg(matvec2, matvec2_and_est)
 
 
 def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
-        matvec2_and_est, gradient):
+        matvec2_and_est, gradient, allreduce=None):
     """Two-vector CG with the reference's exact termination semantics
-    (ref: qeq.F90:96-166): on a stop the previous iterate is kept."""
+    (ref: qeq.F90:96-166): on a stop the previous iterate is kept.  Under
+    `allreduce` an iteration makes two reductions: (Est, g.h, h.Hh), the
+    one fused reduction of rxmd_tpu (qeq.py:283-287), then (sum X1,
+    g1.g1), which rxmd_tpu makes as two."""
     if isqeq == 2:
         qs0 = torch.where(amask, lex_fqs * qsfp + (1.0 - lex_fqs) * q, 0.0)
         nmax_eff = 1
@@ -159,6 +180,8 @@ def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
     X = torch.stack([qs0, torch.zeros_like(q)], dim=1)   # (n, 2) = (qs, qt)
     G = gradient(X)
     gnew = torch.sum(G * G, dim=0)                        # (2,)
+    if allreduce is not None:
+        gnew = allreduce(gnew)
     Hv = G
     qcur = q
     # "never converged yet" sentinel (ref GEst2=1.d99, qeq.F90:98), the
@@ -170,6 +193,9 @@ def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
         HH, est = matvec2_and_est(Hv, qcur)              # (n, 2), ()
         g_h = torch.sum(G * Hv, dim=0)
         h_hsh = torch.sum(Hv * HH, dim=0)
+        if allreduce is not None:
+            red = allreduce(torch.cat([est[None], g_h, h_hsh]))
+            est, g_h, h_hsh = red[0], red[1:3], red[3:5]
         ex1 = 0.5 * (torch.abs(gest2) + torch.abs(est)) < tol
         ex2 = (torch.abs(gest2) > 0.0) & (torch.abs(est / gest2 - 1.0) < tol)
         if bool(ex1 | ex2):
@@ -179,13 +205,16 @@ def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
             lmin = lmin.to(torch.float32).to(dtype)       # ref: qeq.F90:23
         X1 = X + lmin[None, :] * Hv
         st = torch.sum(X1, dim=0)                         # (2,): Σqs, Σqt
-        mu = st[0] / st[1]
-        q1 = torch.where(amask, X1[:, 0] - mu * X1[:, 1], 0.0)
         # CG residual recurrence: gradient(X1) = gradient(X) - lmin*A·Hv,
         # and A·Hv = HH was just computed (saves the explicit
         # get_gradient sweep of ref qeq.F90:157)
         G1 = torch.where(amask[:, None], G - lmin[None, :] * HH, 0.0)
         gnew1 = torch.sum(G1 * G1, dim=0)
+        if allreduce is not None:
+            red = allreduce(torch.cat([st, gnew1]))
+            st, gnew1 = red[:2], red[2:]
+        mu = st[0] / st[1]
+        q1 = torch.where(amask, X1[:, 0] - mu * X1[:, 1], 0.0)
         gsafe = torch.where(torch.abs(gnew) > 0.0, gnew, 1.0)
         Hv = G1 + (gnew1 / gsafe)[None, :] * Hv
         X, qcur, G, gnew, gest2 = X1, q1, G1, gnew1, est

@@ -286,20 +286,20 @@ def nb_ctx(pos, q, H, types, img: ImageTable, nbrs: Neighbors, gid, amask,
     """The shared pair data over the nonbonded list; q=None leaves the
     charges out (gather them later with `ctx_qj`).  Not differentiable:
     the nonbond forces come from the analytic derivative columns (ref:
-    pot.F90:736-761)."""
-    n = pos.shape[0]
+    pot.F90:736-761).  Rows: `nbrs.center_rows`."""
+    n = nbrs.center_rows
     pos = pos.detach()
     pose = ext_positions(pos, H.detach(), img)
     idx = torch.where(nbrs.masknb, nbrs.idxnb, 0)
     oj = img.owner_of(idx)
-    dr = pos[:, None, :] - pose[idx]
+    dr = pos[:n, None, :] - pose[idx]
     dr2 = torch.sum(dr * dr, dim=-1)
     if img.n_images > 1:
         # image mode: same owner <=> same global id
         notself = oj != torch.arange(n, device=pos.device)[:, None]
     else:
-        notself = gid[idx] != gid[:, None]
-    mask = nbrs.masknb & (dr2 <= ffd.rctap2) & amask[:, None]
+        notself = gid[idx] != gid[:n, None]
+    mask = nbrs.masknb & (dr2 <= ffd.rctap2) & amask[:n, None]
     return NbCtx(idx=idx, mask=mask, notself=notself, dr=dr, dr2=dr2,
                  qj=None if q is None else q[oj], tj=types[oj])
 
@@ -876,19 +876,22 @@ def _term_candidates(types, img, nbrs, bo: BondOrder, ffd: FFDev, ks: int,
 
 
 def _angle_mask(types, img, nbrs, bo, amask, ffd, ks, slack, margin):
-    """(n, ks, ks) build-time angle validity on the candidate sublist."""
-    n = nbrs.idxb.shape[0]
+    """(n, ks, ks) build-time angle validity on the candidate sublist, n
+    the center rows (`Neighbors.center_rows`)."""
+    n = nbrs.center_rows
     row = torch.arange(n, device=types.device)[:, None]
     sslot, svalid, cnt, bo_eff, oj, idx = _term_candidates(
         types, img, nbrs, bo, ffd, ks, slack, margin)
+    sslot, svalid, cnt = sslot[:n], svalid[:n], cnt[:n]
     bo_s = bo_eff[row, sslot]
     tn_s = types[oj][row, sslot]
     pm = (svalid[:, :, None] & svalid[:, None, :]
           & (sslot[:, :, None] < sslot[:, None, :])
           & (bo_s[:, :, None] * bo_s[:, None, :]
              > units.CUTOF2_ESUB * slack)
-          & amask[:, None, None])
-    a3_s = ffd.inxn3[tn_s[:, :, None], types[:, None, None], tn_s[:, None, :]]
+          & amask[:n, None, None])
+    a3_s = ffd.inxn3[tn_s[:, :, None], types[:n, None, None],
+                     tn_s[:, None, :]]
     return pm & (a3_s >= 0), sslot, cnt
 
 
@@ -900,7 +903,7 @@ def build_angle_list(types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     count and selects the two-stage pack.  `cap=None` builds the exact
     list, every entry and no padding (the uncached terms' per-step
     enumeration)."""
-    n = nbrs.idxb.shape[0]
+    n = nbrs.center_rows
     pm, sslot, cand_cnt = _angle_mask(types, img, nbrs, bo, amask, ffd, ks,
                                       slack, margin)
     ks = sslot.shape[1]
@@ -1093,9 +1096,10 @@ def _torsion_mask_rows(rows, cand, types, gid, img, bo: BondOrder, amask,
 
 def _torsion_mask(types, gid, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
                   ks: int = 12, slack: float = 1.0, margin: float = 0.0):
-    """Compact (n, a, c, e) torsion validity mask over candidate sublists
-    (all reference enumeration gates, ref: pot.F90:1019-1081)."""
-    n = nbrs.idxb.shape[0]
+    """Compact (n, a, c, e) torsion validity mask over candidate sublists,
+    n the center rows (all reference enumeration gates, ref:
+    pot.F90:1019-1081)."""
+    n = nbrs.center_rows
     cand = _term_candidates(types, img, nbrs, bo, ffd, ks, slack, margin)
     mask4 = _torsion_mask_rows(torch.arange(n, device=types.device), cand,
                                types, gid, img, bo, amask, ffd, slack)
@@ -1115,7 +1119,7 @@ def build_torsion_list(types, gid, img, nbrs, bo: BondOrder, amask,
     if cap is not None and rowcap <= 0:
         raise ValueError("build_torsion_list needs rowcap > 0 (the two-stage "
                          "pack); size it with md.probe_capacities")
-    n = nbrs.idxb.shape[0]
+    n = nbrs.center_rows
     mask4, sslot, cand_cnt = _torsion_mask(types, gid, img, nbrs, bo, amask,
                                            ffd, ks, slack, margin)
     ks = sslot.shape[1]
@@ -1274,7 +1278,7 @@ def _hbond_mask(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     """(n, kh, knb) hbond candidate validity over compacted H slots: donor
     i, central H j bonded to i, acceptor k from i's nonbonded list."""
     tab = _hbond_tables(pos, H, types, img, nbrs, bo, amask, ffd, kh, slack)
-    n = nbrs.idxb.shape[0]
+    n = nbrs.center_rows             # donors
     m = _hbond_rows_m(torch.arange(n, device=types.device), tab, pos, types,
                       nbrs, ffd, margin)
     return m, tab[0], tab[6]
@@ -1286,7 +1290,7 @@ def build_hbond_list(pos, H, types, img, nbrs, bo: BondOrder, amask,
                      rowcap: int = 0) -> HBondList:
     """Compact flat hbond list; `cap` is the TOTAL entry capacity and
     `rowcap` (> 0, required) the per-donor bound of the two-stage pack."""
-    n = nbrs.idxb.shape[0]
+    n = nbrs.center_rows
     dev = types.device
     if ffd.hbprm.shape[0] == 0:
         z = torch.zeros((cap,), dtype=torch.int64, device=dev)
@@ -1355,14 +1359,17 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     types and distances from the pair context; without it the valid
     entries are compacted per donor into `cap` slots.  A donor with more
     hydrogens than `kh` or entries than `cap` raises, where rxmd_tpu
-    drops them."""
+    drops them.  Donors: `nbrs.center_rows`."""
     if ffd.hbprm.shape[0] == 0:
         return torch.zeros((), dtype=pos.dtype, device=pos.device)
-    n, kb = nbrs.idxb.shape
-    knb = nbrs.idxnb.shape[1]
+    n, knb = nbrs.center_rows, nbrs.idxnb.shape[1]
+    kb = nbrs.idxb.shape[1]
     dev = pos.device
-    maskb = bo.mask
-    idxb = torch.where(maskb, nbrs.idxb, 0)
+    maskb = bo.mask[:n]
+    idxb = torch.where(maskb, nbrs.idxb[:n], 0)
+    bo0 = bo.bo[:n, :, 0]
+    tr = types[:n]
+    pr = pos[:n]
     masknb = nbrs.masknb
     idxnb = torch.where(masknb, nbrs.idxnb, 0)
     shift = img.shift.to(pos.dtype)
@@ -1373,9 +1380,9 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
         return _take(pos, img.owner_of(idx)) + shift[idx] @ H.T
 
     tj = types[img.owner_of(idxb)]                        # (n, kb)
-    bo0_sg = bo.bo[..., 0].detach()
+    bo0_sg = bo0.detach()
     mask_ij = (maskb & (tj == ffd.h_type) & (bo0_sg > units.MINBO0)
-               & amask[:, None])
+               & amask[:n, None])
     kh = min(kh, kb)
     hslot, hvalid, hcnt = _row_topk_slots(mask_ij, kh)
     if int(hcnt.max()) > kh:
@@ -1388,7 +1395,7 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     if ctx is not None:
         # grid mode: every (H slot, acceptor slot) lane of each donor
         tk = ctx.tj[:, None, :]
-        ti = types[:, None, None]
+        ti = tr[:, None, None]
         okt = ffd.hbok[ti, th[:, :, None], tk] > 0.5
         valid = (hvalid[:, :, None] & masknb[:, None, :] & okt
                  & (idx_h[:, :, None] != idxnb[:, None, :])    # j != k
@@ -1399,17 +1406,17 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
         phb1_, phb2_, phb3_ = prm[..., 1], prm[..., 2], prm[..., 3]
         pose_j = ghost(idx_h)                              # (n, kh, 3)
         pose_k = ghost(idxnb)                              # (n, knb, 3)
-        rij = pos[:, None, :] - pose_j
+        rij = pr[:, None, :] - pose_j
         rjk = pose_j[:, :, None, :] - pose_k[:, None, :, :]
         cos_ijk, _, njk = _angle_cos(rij[:, :, None, :], rjk, valid)
-        bo_ij = bo.bo[..., 0][row, hslot][:, :, None]      # (n, kh, 1)
+        bo_ij = bo0[row, hslot][:, :, None]                # (n, kh, 1)
     else:
         # compacted mode: per-donor padded pair list
         tk_full = types[img.owner_of(idxnb)]               # (n, knb)
-        okt = ffd.inxn3hb[types[:, None, None], th[:, :, None],
+        okt = ffd.inxn3hb[tr[:, None, None], th[:, :, None],
                           tk_full[:, None, :]] >= 0
         pose_sg = ext_positions(pos.detach(), H.detach(), img)
-        rik = pos.detach()[:, None, :] - pose_sg[idxnb]
+        rik = pr.detach()[:, None, :] - pose_sg[idxnb]
         rik2 = torch.sum(rik * rik, dim=-1)
         mask = (hvalid[:, :, None] & masknb[:, None, :] & okt
                 & (idx_h[:, :, None] != idxnb[:, None, :])     # j != k
@@ -1421,16 +1428,16 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
         b_slot = hslot[row, s // knb]
         idx_j = idxb[row, b_slot]
         idx_k = idxnb[row, s % knb]
-        hbt = ffd.inxn3hb[types[:, None], tj[row, b_slot],
+        hbt = ffd.inxn3hb[tr[:, None], tj[row, b_slot],
                           types[img.owner_of(idx_k)]]
         hp = ffd.hbprm[torch.where(valid & (hbt >= 0), hbt, 0)]
         r0 = torch.where(valid & (hp[..., 0] > 0.0), hp[..., 0], 1.0)
         phb1_, phb2_, phb3_ = hp[..., 1], hp[..., 2], hp[..., 3]
         pose_j = ghost(idx_j)                              # (n, cap, 3)
-        rij = pos[:, None, :] - pose_j
+        rij = pr[:, None, :] - pose_j
         rjk = pose_j - ghost(idx_k)
         cos_ijk, _, njk = _angle_cos(rij, rjk, valid)
-        bo_ij = bo.bo[..., 0][row, b_slot]
+        bo_ij = bo0[row, b_slot]
     sin_xhz4 = ((1.0 - cos_ijk) * 0.5) ** 2                # sin^4(theta/2)
     exp_hb2 = torch.exp(-phb2_ * bo_ij)
     exp_hb3 = torch.exp(-phb3_ * (r0 / njk + njk / r0 - 2.0))
@@ -1478,34 +1485,37 @@ def e_nonbond_pqeq(pos, spos, q, H, types, img, nbrs, gid, amask,
     """van der Waals from the tables + the 4-term core/shell Coulomb +
     charge self-energy and shell spring (ref: ENbond_PQEq pot.F90:784-923),
     each unordered pair once, differentiable in `pos`.  Pair geometry on
-    owner rows; shells ride their owner's image."""
+    owner rows; shells ride their owner's image.  Rows:
+    `nbrs.center_rows`."""
     from .pqeq import pqeq_kernels
     masknb = nbrs.masknb
+    n = nbrs.center_rows
     idx = torch.where(masknb, nbrs.idxnb, 0)
     oj = img.owner_of(idx)
-    mask = masknb & (gid[oj] < gid[:, None]) & amask[:, None]
+    mask = masknb & (gid[oj] < gid[:n, None]) & amask[:n, None]
     shg = img.shift.to(pos.dtype)[idx]
-    dr = (pos[:, None, :] - _take(pos, oj)
+    dr = (pos[:n, None, :] - _take(pos, oj)
           - torch.einsum("nka,ba->nkb", shg, H))
     spose_r = _take(spos, oj)
     dr2 = torch.sum(dr * dr, dim=-1)
     mask = mask & (dr2 <= ffd.rctap2)
-    b = ffd.inxn2[types[:, None], types[oj]]
+    tr = types[:n]
+    b = ffd.inxn2[tr[:, None], types[oj]]
     bc = torch.where(b >= 0, b, 0)
     pevdw = _table_lerp(ffd.tbl_evdw, bc, dr2, ffd.udr, ffd.udri, mask)
     evdw = torch.sum(torch.where(mask, pevdw, 0.0))
 
-    ti = types[:, None]
+    ti = tr[:, None]
     tj = types[oj]
-    zi = pq.Z[types][:, None]
+    zi = pq.Z[tr][:, None]
     zj = pq.Z[tj]
-    qic = q[:, None] + zi
+    qic = q[:n, None] + zi
     qjc = torch.where(mask, q[oj], 0.0) + zj
-    polar_i = pq.is_polar[types][:, None]
+    polar_i = pq.is_polar[tr][:, None]
     polar_j = pq.is_polar[tj]
     C0 = units.CCLMB0
     ecc = C0 * pqeq_kernels(pq, pq.pcc, ti, tj, dr, mask) * qic * qjc
-    drsc = dr + spos[:, None, :]
+    drsc = dr + spos[:n, None, :]
     esc = torch.where(mask & polar_i,
                       -C0 * pqeq_kernels(pq, pq.psc, ti, tj, drsc, mask)
                       * zi * qjc, 0.0)

@@ -297,14 +297,27 @@ def test_unknown_rxmd_in_key(tmp_path):
 
 
 def test_sharded_runs_raise(tmp_path, monkeypatch):
+    """A domain grid needs one process per domain: without the RXMD_*
+    launch, with an incomplete one, or with another process count, main
+    raises naming the launch."""
+    from rxmd_tpu_torch.parallel import dryrun
     rxmdin = tmp_path / "rxmd.in"
     rxmdin.write_text(RXMD_IN)
     argv = _argv(rxmdin, tmp_path / "DAT", "--run_from_xyz", CELL)
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    with pytest.raises(RuntimeError, match="launch 2 processes .*"
+                       "RXMD_COORDINATOR=host:port RXMD_NUM_PROCESSES=2"):
         tmain.main(argv + ["--vprocs", "2", "1", "1"], device="cpu")
     monkeypatch.setenv("RXMD_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    with pytest.raises(RuntimeError, match="RXMD_NUM_PROCESSES"):
         tmain.main(argv, device="cpu")
+    monkeypatch.setenv("RXMD_COORDINATOR",
+                       f"127.0.0.1:{dryrun.free_port()}")
+    monkeypatch.setenv("RXMD_NUM_PROCESSES", "1")
+    monkeypatch.setenv("RXMD_PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="2 domain.* 1 processes were "
+                       "launched: launch one process per domain"):
+        tmain.main(argv + ["--vprocs", "2", "1", "1"], device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_default_device_needs_a_card(tmp_path):
