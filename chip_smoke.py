@@ -19,10 +19,13 @@ first failure ends the run with a non-zero exit code and no result line.
      version and its bound, and the QEq apply beside torch.sparse.mm over
      the same list;
   4. slice: prepare + --steps NVE steps with full-CG QEq (isQEq=1), PRINTE
-     lines; launch counts: nonbond once a step, qeq_build once per QEq
-     solve, qeq_apply once per matvec; total energy against the same steps
-     run with the plain versions; and on the 168-atom cell, 5 steps on the
-     card against the float64 CPU run of the plain versions;
+     lines (every step, so each step is a single-step dispatch, a CUDA
+     graph after its key's first use); launch counts: nonbond once a step,
+     qeq_build once per QEq solve, qeq_apply once per matvec (the
+     gradient's and qeq.CG_CHUNK per chunk of CG iterations); total energy
+     against the same steps run with the plain versions; and on the
+     168-atom cell, 5 steps on the card against the float64 CPU run of the
+     plain versions;
   5. timing, printed and never checked: atom-steps/s for isQEq=1 and 2, ms
      per step by phase (CUDA events);
   6. program: the port as users run it, at --mc: tools.geninit writes DAT/,
@@ -62,7 +65,17 @@ first failure ends the run with a non-zero exit code and no result line.
      memory; after the isQEq=1 run the engine's rows against rxmd_tpu's
      every-row layout on the same domain (row_layout_cost); with two
      or more cards, dryrun.run over min(count, 8) NCCL ranks at --mc held
-     the same way, else one line saying that needs a second card.
+     the same way, else one line saying that needs a second card;
+ 10. graphs: the step program (md.Engine's blocks and single steps as
+     CUDA graphs, graphs.py) at --mc in float32 on the sweep, NVE,
+     isQEq=2 then 1, GRAPH_STEPS steps in blocks of GRAPH_BLOCK with
+     graphs (the default) and eagerly (Engine.graphs off) from one start:
+     the same block, step and rebuild counts with a block or more, each
+     PRINTE's total PE within TOL_GRAPH_PE, the launch counts as in phase
+     4, and one step replayed right after a rebuild against the eager
+     step; printed, never checked: ms/step and atom-steps/s of both,
+     captures and capture ms, steps in blocks, peak memory, and the device
+     idle share of 10 more steps by torch.profiler.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -135,6 +148,17 @@ TOL_SPOS = 1e-10
 # lattice angles (alpha, beta, gamma) of the triclinic deck: the CHON
 # cell's fractional coordinates in a sheared cell
 TRICLINIC = (95.0, 100.0, 105.0)
+# phase 10: the steps run as CUDA graphs against the same steps run
+# eagerly from one start (float32; the same kernels, but index_add_'s
+# atomics sum in another order each run, which the CG carries into the
+# charges): each PRINTE's total PE within TOL_GRAPH_PE of |PE|, and one
+# step replayed right after a rebuild within TOL_GRAPH_PE of the eager
+# step's PE and TOL_GRAPH_POS [A] of its positions
+TOL_GRAPH_PE = 1e-5
+TOL_GRAPH_POS = 1e-5
+GRAPH_STEPS = 40
+GRAPH_BLOCK = 4          # steps per block: the hot deck's drift budget
+                         # leaves room for blocks this short
 DEVICE = "cuda"          # the slice's device; main() requires a card
 
 
@@ -199,23 +223,6 @@ def bound(nbytes, nops):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def walk_candidates(grid, walk):
-    """Filled slots the walk tests: per target and stencil column, the
-    filled slots of the column's reach around the target's z-cell."""
-    from rxmd_tpu_torch.ops import pairsweep as ps
-    dev = walk.tslot.device
-    ccap, nz = grid.ccap, grid.nc[2]
-    coloffs = torch.as_tensor(ps._target_tables(grid)[1], device=dev).long()
-    zr = torch.as_tensor(ps._reach_table(grid), device=dev).long()
-    start = walk.cell_start.long()
-    ts = walk.tslot.long()
-    tz = (ts % (nz * ccap)) // ccap
-    cb = ((ts - ts % (nz * ccap))[:, None] + coloffs) // ccap
-    z0 = torch.clamp(tz[:, None] - zr, min=0)
-    z1 = torch.clamp(tz[:, None] + zr, max=nz - 1)
-    return int((start[cb + z1 + 1] - start[cb + z0]).sum())
-
-
 def max_rel(got, ref):
     """Largest |got - ref| of each row over that row's max(1, max|ref|)."""
     err = (got.double() - ref.double()).abs().amax(dim=1)
@@ -277,7 +284,7 @@ def phase_kernels(engine, seed):
     blocks = grid.tc_n[0] * grid.tc_n[1] * grid.n_zb
     old = blocks * grid.C * len(grid.cols) * (
         grid.block_zc + 2 * grid.zreach) * grid.ccap
-    cand = walk_candidates(grid, walk)
+    cand = ps.walk_candidates(grid, walk)
     i, tsl, src = ps.walk_pairs_plain(grid, walk, qeq_planes[:3], qeq_fn.rc2)
     d, ok, *_ = ps._pair_geometry(nb_fn, nb_planes[:, tsl], nb_planes[:, src])
     n_nb = int((ok & (nb_planes[4, tsl] != nb_planes[4, src])).sum())
@@ -311,29 +318,32 @@ def phase_kernels(engine, seed):
     res["nonbond"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, library_ms=None)
 
-    # qeq_build: the kernel's list against qeq_build_plain's
-    lst = ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n)
+    # qeq_build: the kernel's list against qeq_build_plain's, both at the
+    # engine's fixed capacity (the main path's form: no host read)
+    cap = e._qcap
+    lst = ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n, cap)
     torch.cuda.synchronize()
-    ref = ps.qeq_build_plain(grid, walk, qeq_planes, qeq_fn, own, n)
-    E = int(lst.rowptr[-1])
-    check(torch.equal(lst.rowptr, ref.rowptr),
+    ref = ps.qeq_build_plain(grid, walk, qeq_planes, qeq_fn, own, n, cap)
+    E = int(lst.need)
+    check(torch.equal(lst.rowptr, ref.rowptr) and E == int(ref.need) <= cap,
           f"qeq_build: entries per row (kernel {E}, plain "
-          f"{int(ref.rowptr[-1])})")
-    check(torch.equal(lst.src, ref.src), "qeq_build: the same sources")
-    hmax = float(ref.h.abs().max())
-    err = float((lst.h - ref.h).abs().max())
-    check(bool(torch.isfinite(lst.h).all()) and err <= TOL_H * hmax,
+          f"{int(ref.need)}, capacity {cap})")
+    check(torch.equal(lst.src[:E], ref.src[:E]), "qeq_build: the same sources")
+    hmax = float(ref.h[:E].abs().max())
+    err = float((lst.h[:E] - ref.h[:E]).abs().max())
+    check(bool(torch.isfinite(lst.h[:E]).all()) and err <= TOL_H * hmax,
           f"qeq_build: h within {TOL_H} of max|h| ({err:.3e} of {hmax:.3e})")
-    ms = cuda_ms(lambda: ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n),
-                 20)
+    ms = cuda_ms(lambda: ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n,
+                                      cap), 20)
     plain_ms = cuda_ms(lambda: ps.qeq_build_plain(grid, walk, qeq_planes,
-                                                  qeq_fn, own, n), 3)
+                                                  qeq_fn, own, n, cap), 3)
     # 5 planes and the owners in, the row pointers and the list out
     nbytes = 4 * 6 * M + walk_bytes + 4 * (T + 1) + 8 * E
     bms, by = bound(nbytes, E * OPS_QEQ_BUILD)
     res["qeq_build"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bms, bound_by=by, library_ms=None)
-    log(f"QEq list: {E} entries, {8 * E / 1e6:.1f} MB")
+    log(f"QEq list: {E} entries, {8 * E / 1e6:.1f} MB, of a capacity of "
+        f"{cap} (the walk's candidates, padded)")
 
     # qeq_apply: the kernel against qeq_apply_plain on the kernel's list,
     # hs and ht the columns of an (n, 2) state, as the CG passes them
@@ -389,11 +399,12 @@ def phase_kernels(engine, seed):
 def library_apply_ms(lst, walk, hs, ht):
     """ms of torch.sparse.mm over the same list as a CSR matrix (h only:
     H·[hs, ht]), the yardstick of the QEq apply; None if it does not run."""
-    code = lst.src
+    E = int(lst.need)
+    code = lst.src[:E]
     col = torch.where(code >= 0, code, ~code)
     x = torch.stack([hs, ht], dim=1)
     try:
-        H = torch.sparse_csr_tensor(lst.rowptr, col, lst.h,
+        H = torch.sparse_csr_tensor(lst.rowptr, col, lst.h[:E],
                                     size=(walk.tslot.shape[0], lst.nown))
         return cuda_ms(lambda: torch.sparse.mm(H, x), 50)
     except RuntimeError as exc:
@@ -432,9 +443,8 @@ def phase_slice(mc, steps, seed):
 
     e = make_engine(mc, DEVICE)
     zero_launches()
-    with QeqCounter() as qc:
-        lines = drive(e, steps, seed, echo=True)
-    launches = read_launches("slice", qc)
+    lines = drive(e, steps, seed, echo=True)
+    launches = read_launches("slice", e)
     te = total_energies(lines)
     check(len(te) == steps + 1 and np.isfinite(te).all(),
           f"{steps + 1} finite PRINTE lines")
@@ -443,8 +453,8 @@ def phase_slice(mc, steps, seed):
     check(e.state.pos.shape == (e.state.n, 3), "position shape")
     check(launches["nonbond"] == steps + 1,
           f"nonbond launches {launches['nonbond']} == steps + 1")
-    log(f"launches: {launches}; {qc.solves} QEq solves, {qc.matvecs} "
-        f"matvecs; CG iterations summed {e.cg_iters}")
+    log(f"launches: {launches}; {e.qeq_solves} QEq solves, CG iterations "
+        f"summed {int(e.cg_iters)}; {e.describe()}")
 
     ref = make_engine(mc, DEVICE)
     ref.plain_sweeps = True
@@ -489,11 +499,11 @@ def phase_timing(e, mc, steps, seed):
             eng.init_velocity(seed=seed)
             eng.prepare()
             eng.run(2, log=None)
-        it0 = eng.cg_iters
+        it0 = int(eng.cg_iters)
         wall = eng.run(steps, log=None)
         log(f"isQEq={isq}: {n * steps / wall:.4e} atom-steps/s "
             f"({wall / steps * 1e3:.2f} ms/step over {steps} steps, "
-            f"{(eng.cg_iters - it0) / steps:.1f} CG iterations/step)")
+            f"{(int(eng.cg_iters) - it0) / steps:.1f} CG iterations/step)")
         eng.phases = md.PhaseTimer()
         eng._rebuild(eng.state)
         t0 = time.perf_counter()
@@ -528,7 +538,7 @@ def path_run(mc, device, steps, seed, dtype="float32", angles=None,
     t0 = time.perf_counter()
     comps = [e.prepare().double().cpu().numpy()]
     prep_s = time.perf_counter() - t0
-    it0 = e.cg_iters
+    it0 = int(e.cg_iters)
     if timed:
         e.phases = md.PhaseTimer()
     t0 = time.perf_counter()
@@ -540,7 +550,7 @@ def path_run(mc, device, steps, seed, dtype="float32", angles=None,
     res = dict(engine=e, comps=np.array(comps), n=e.state.n,
                pos=e.state.pos.double().cpu().numpy(), prep_s=prep_s,
                spos=e.state.spos.double().cpu().numpy(),
-               cg=(e.cg_iters - it0) / steps)
+               cg=(int(e.cg_iters) - it0) / steps)
     if timed:
         ph = e.phases.ms()
         e.phases = md.PhaseTimer()
@@ -775,7 +785,7 @@ def phase_pqeq_lg_program(mc):
               and all(np.isfinite(p) for _, p in pe), "PQEq main: PRINTE")
         wall = [x for x in out.splitlines() if x.startswith("total (sec)")]
         log(f"(d) PQEq main: {n} atoms, {wall[0] if wall else ''}, CG "
-            f"iterations {eng.cg_iters}")
+            f"iterations {int(eng.cg_iters)}")
         st = checkpoint.load(os.path.join(dat, "rxff.npz"), torch.float32)
         smax = float(st.spos.abs().max())
         check(st.step == 10 and smax > 0,
@@ -842,7 +852,7 @@ def phase_sharded(mc, seed, steps=5):
             comps = [e.prepare().double().cpu().numpy()]
             prep_s = time.perf_counter() - t0
             e.phases = md.PhaseTimer()
-            it0 = e.cg_iters
+            it0 = int(e.cg_iters)
             t0 = time.perf_counter()
             for _ in range(steps):
                 e.run(1, log=None)
@@ -859,7 +869,7 @@ def phase_sharded(mc, seed, steps=5):
             comps = np.array(comps)
             sizes = (f"ncap {e.ncap}, bcap {e.bcap}, rows "
                      f"{e._block.keep.shape[0]} of {e.mext}")
-            cg = (e.cg_iters - it0) / steps
+            cg = (int(e.cg_iters) - it0) / steps
             if isq == 1:
                 log(f"sharded | {row_layout_cost(e)} | {smi}")
             del e
@@ -1030,48 +1040,162 @@ def row_layout_cost(e):
             f"{e_err:.2e}, forces {f_err:.2e}, charges {q_err:.2e} apart")
 
 
+def idle_share(fn):
+    """(device ms, wall ms, idle share) of fn() under torch.profiler
+    (CUDA activity only): the summed device time of its kernels, copies
+    and fills against the host wall of the window, which ends in a
+    synchronize; the share is None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages()) / 1e3
+    return busy, wall, (max(0.0, 1.0 - busy / wall) if busy > 0 else None)
+
+
+def replay_after_rebuild(e):
+    """One step right after a rebuild, as a replay of a captured graph
+    (the lists rebuilt, so rebound, at the same positions each time; the
+    first two calls warm the program up and capture it), against the
+    same step run eagerly: (PE difference over |PE|, max position
+    difference)."""
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    s0, f0, a0 = e.state, e.force, e._astr
+
+    def one(graphs):
+        e.graphs = graphs
+        e.state, e.force, e._astr = s0, f0, a0
+        e._rebuild(e.state)
+        e._advance(1)
+        torch.cuda.synchronize()
+        return (e.comps.double().cpu().numpy(),
+                e.state.pos.double().cpu().numpy())
+    one(True)
+    one(True)
+    g = e._graphs
+    reps, nb = g.replays, ps.launches["nonbond"]
+    got = one(True)
+    check(g.replays == reps + 1 and ps.launches["nonbond"] == nb + 1,
+          "the step right after a rebuild replayed a captured graph")
+    ref = one(False)
+    e.graphs = True
+    return (abs(got[0][0] - ref[0][0]) / abs(ref[0][0]),
+            float(np.abs(got[1] - ref[1]).max()))
+
+
+def phase_graphs(mc, seed, steps=GRAPH_STEPS):
+    """The step program as CUDA graphs (see the module docstring, phase
+    10): at --mc, float32, the sweep, NVE, isQEq=2 then 1, the same
+    `steps` run with graphs (the default) and eagerly (Engine.graphs off)
+    from one start under the same schedule."""
+    from rxmd_tpu_torch import qeq
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    cg = torch.cuda.CUDAGraph
+    log(f"graphs: torch {torch.__version__}: CUDAGraph has a conditional "
+        f"while node: {hasattr(cg, 'begin_capture_to_while_node')}, an if "
+        f"node: {hasattr(cg, 'begin_capture_to_if_node')}; the CG reads one "
+        f"finished flag per chunk of {qeq.CG_CHUNK} iterations")
+    names = ("MD block (dispatch)", "MD step (dispatch)", "neighbor rebuild")
+    for isq in (2, 1):
+        runs = {}
+        for mode in ("graphs", "eager"):
+            e = make_engine(mc, DEVICE, isQEq=isq, pstep=10,
+                            block_steps=GRAPH_BLOCK)
+            e.graphs = mode == "graphs"
+            check(e.pair_engine == "sweep" and e.uses_graphs() == e.graphs,
+                  f"graphs: the sweep, graphs {e.graphs}")
+            e.init_velocity(seed=seed)
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            printed = []
+            wall = e.run(steps, log=lambda line, e=e: printed.append(
+                (e.state.step, float(e.comps[0]))))
+            got = read_launches(f"graphs isQEq={isq} {mode}", e)
+            iters = int(e.cg_iters)
+            check(got["nonbond"] == steps + 1,
+                  f"graphs: nonbond launches {got['nonbond']} == steps + 1")
+            tm = e.timers
+            counts = [tm.ncalls.get(k, 0) for k in names] + [
+                tm.counters.get("drift-triggered rebuilds", 0)]
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            busy, pwall, idle = idle_share(lambda e=e: e.run(10, log=None))
+            runs[mode] = dict(e=e, printed=printed, wall=wall, counts=counts,
+                              peak=peak, busy=busy, pwall=pwall, idle=idle,
+                              launches=got, iters=iters,
+                              caps=tm.counters.get("graph captures", 0),
+                              reps=tm.counters.get("graph replays", 0),
+                              cap_ms=tm.acc.get("graph capture", 0.0) * 1e3,
+                              inblk=tm.counters.get("MD steps in blocks", 0))
+        a, b = runs["graphs"], runs["eager"]
+        check(a["counts"] == b["counts"] and a["counts"][0] >= 1,
+              f"graphs isQEq={isq}: the same blocks, steps, rebuilds and "
+              f"drift rebuilds, one block or more ({a['counts']} against "
+              f"{b['counts']})")
+        check([s for s, _ in a["printed"]] == [s for s, _ in b["printed"]],
+              "graphs: the same PRINTE steps")
+        err = max(abs(x - y) / abs(y) for (_, x), (_, y)
+                  in zip(a["printed"], b["printed"]))
+        check(np.isfinite(err) and err <= TOL_GRAPH_PE,
+              f"graphs isQEq={isq}: PRINTE PE within {TOL_GRAPH_PE} of the "
+              f"eager run ({err:.3e})")
+        pe_err, pos_err = replay_after_rebuild(a["e"])
+        check(pe_err <= TOL_GRAPH_PE and pos_err <= TOL_GRAPH_POS,
+              f"graphs isQEq={isq}: the replay after a rebuild against the "
+              f"eager step (PE {pe_err:.3e}, positions {pos_err:.3e} A)")
+        n = a["e"].state.n
+        for mode, r in runs.items():
+            idle = ("not measured" if r["idle"] is None
+                    else f"{r['idle']:.3f}")
+            log(f"graphs | isQEq={isq} {mode} | {n} atoms, {steps} steps: "
+                f"{r['wall'] / steps * 1e3:.2f} ms/step wall, "
+                f"{n * steps / r['wall']:.4e} atom-steps/s; blocks / steps "
+                f"/ rebuilds / drift rebuilds {r['counts']}, steps in blocks "
+                f"{r['inblk']:.0f}; captures {r['caps']:.0f} in "
+                f"{r['cap_ms']:.1f} ms, replays {r['reps']:.0f}; CG "
+                f"iterations {r['iters']}, launches "
+                f"{r['launches']}; peak {r['peak']:.1f} MB; 10 more steps "
+                f"under torch.profiler: device {r['busy']:.2f} of "
+                f"{r['pwall']:.2f} ms, idle share {idle} | {smi}")
+        log(f"graphs | isQEq={isq}: PRINTE PE graphs vs eager max rel diff "
+            f"{err:.3e} (bound {TOL_GRAPH_PE}); replay after a rebuild vs "
+            f"eager: PE {pe_err:.3e}, positions {pos_err:.3e} A")
+        del runs, a, b
+    log(f"graphs: phase took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
 def zero_launches():
     from rxmd_tpu_torch.ops import pairsweep as ps
     for k in ps.launches:
         ps.launches[k] = 0
 
 
-class QeqCounter:
-    """Counts, inside a `with` block, the QEq solves and the matvecs each
-    made: the gradient's, one per CG update, and the stop test's own unless
-    the solve ended at nmax (qeq._cg)."""
-
-    def __enter__(self):
-        from rxmd_tpu_torch import qeq
-        self.solves = self.matvecs = 0
-        self._qeq, self._solve = qeq, qeq.solve
-
-        def solve(*a, **k):
-            res = self._solve(*a, **k)
-            nmax = 1 if k.get("isqeq", 1) == 2 else k.get("nmax", 500)
-            self.solves += 1
-            self.matvecs += 1 + res.iters + (res.iters < nmax)
-            return res
-        qeq.solve = solve
-        return self
-
-    def __exit__(self, *exc):
-        self._qeq.solve = self._solve
-
-
-def read_launches(what, qc):
-    """The launch counts of the run just ended: nonbond ran, qeq_build once
-    per QEq solve and qeq_apply once per matvec of `qc`, a QeqCounter."""
+def read_launches(what, engine):
+    """The launch counts of the run just ended on `engine`, which began at
+    its construction with the counts at 0: nonbond ran, qeq_build once per
+    QEq solve, and qeq_apply once per matvec: the gradient's and
+    qeq.CG_CHUNK per chunk of CG iterations run, so per solve from its
+    iterations + 1 to its iterations + 1 + CG_CHUNK (under graphs too: a
+    replay adds the launches its graphs hold)."""
+    from rxmd_tpu_torch import qeq
     from rxmd_tpu_torch.ops import pairsweep as ps
     torch.cuda.synchronize()
     got = dict(ps.launches)
+    solves, iters = engine.qeq_solves, int(engine.cg_iters)
     check(got["nonbond"] > 0, f"{what}: nonbond launched ({got})")
-    check(got["qeq_build"] == qc.solves > 0,
+    check(got["qeq_build"] == solves > 0,
           f"{what}: qeq_build launches {got['qeq_build']} == QEq solves "
-          f"{qc.solves}")
-    check(got["qeq_apply"] == qc.matvecs,
-          f"{what}: qeq_apply launches {got['qeq_apply']} == matvecs "
-          f"{qc.matvecs}")
+          f"{solves}")
+    check(iters + solves <= got["qeq_apply"]
+          <= iters + solves * (1 + qeq.CG_CHUNK),
+          f"{what}: qeq_apply launches {got['qeq_apply']} within CG "
+          f"iterations + solves {iters + solves} and + {qeq.CG_CHUNK} a "
+          "solve")
     return got
 
 
@@ -1141,12 +1265,11 @@ def phase_program(mc, steps):
         # 1. main from rxff.bin: mdmode 5 every 10 steps, PRINTE every 5,
         #    frames in all four formats every 10
         zero_launches()
-        with QeqCounter() as qc:
-            out, eng = run_main(base + [
-                "--mdmode", "5", "--sstep", "10", "--ntime_step", str(steps),
-                "--pstep", "5", "--fstep", "10", "--isBinary",
-                "--isBondFile", "--isPDB", "--isXYZ"])
-        got = read_launches("main", qc)
+        out, eng = run_main(base + [
+            "--mdmode", "5", "--sstep", "10", "--ntime_step", str(steps),
+            "--pstep", "5", "--fstep", "10", "--isBinary",
+            "--isBondFile", "--isPDB", "--isXYZ"])
+        got = read_launches("main", eng)
         check(got["nonbond"] == steps + 1,
               f"main: nonbond launches {got['nonbond']} == steps + 1")
         pe = printe_pe(out)
@@ -1170,7 +1293,7 @@ def phase_program(mc, steps):
         with np.load(os.path.join(dat, "rxff.npz")) as z:
             check(int(z["step"]) == steps, "rxff.npz step")
         log(f"program: {n} atoms, launches {got}, CG iterations "
-            f"{eng.cg_iters}")
+            f"{int(eng.cg_iters)}")
         # the last PRINTE line's PE comes from the term lists cached at the
         # last rebuild; a restart builds them anew, so hold it to the same
         # state evaluated on fresh lists (prepare, as the restart does)
@@ -1182,10 +1305,9 @@ def phase_program(mc, steps):
 
         # 2. restart from rxff.npz, NVE
         zero_launches()
-        with QeqCounter() as qc:
-            out2, eng2 = run_main(base + ["--mdmode", "1", "--ntime_step",
-                                          "10", "--pstep", "5"])
-        got = read_launches("restart", qc)
+        out2, eng2 = run_main(base + ["--mdmode", "1", "--ntime_step",
+                                      "10", "--pstep", "5"])
+        got = read_launches("restart", eng2)
         head = [x for x in out2.splitlines() if "CURRENTSTEP" in x]
         check(head and head[0].split()[-2] == str(steps),
               f"restart header CURRENTSTEP {steps}: {head}")
@@ -1198,12 +1320,11 @@ def phase_program(mc, steps):
 
         # 3. mdmode 7 with a field along z and springs on C and O
         zero_launches()
-        with QeqCounter() as qc:
-            out3, eng3 = run_main(base + [
-                "--mdmode", "7", "--sstep", "5", "--ntime_step", "10",
-                "--pstep", "5", "--efield", "3", "0.05", "--spring", "2.0",
-                "1", "3"])
-        got = read_launches("mdmode 7", qc)
+        out3, eng3 = run_main(base + [
+            "--mdmode", "7", "--sstep", "5", "--ntime_step", "10",
+            "--pstep", "5", "--efield", "3", "0.05", "--spring", "2.0",
+            "1", "3"])
+        got = read_launches("mdmode 7", eng3)
         pe3 = printe_pe(out3)
         check(len(pe3) == 3 and all(np.isfinite(p) for _, p in pe3)
               and bool(torch.isfinite(eng3.state.vel).all()),
@@ -1226,11 +1347,10 @@ def phase_program(mc, steps):
             log(x)
         zero_launches()
         t0 = time.perf_counter()
-        with QeqCounter() as qc:
-            pe_end = opt.conjugate_gradient(
-                e, max_iter=2, log=sink,
-                writer=lambda it, pos, p: pes.append((p, time.perf_counter())))
-        got = read_launches("optimizer", qc)
+        pe_end = opt.conjugate_gradient(
+            e, max_iter=2, log=sink,
+            writer=lambda it, pos, p: pes.append((p, time.perf_counter())))
+        got = read_launches("optimizer", e)
         seq = [float(lines[0].split("PE0=")[1])] + [p for p, _ in pes]
         ts = [t0] + [t for _, t in pes]
         per_it = [b - a for a, b in zip(ts, ts[1:])]
@@ -1275,6 +1395,7 @@ def main():
     phase_pair_paths(mc, args.seed)
     phase_pqeq_lg(mc, args.seed)
     phase_sharded(mc, args.seed)
+    phase_graphs(mc, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -103,11 +103,12 @@ class RunConfig:
                                  # pair list (md.Engine.pair_engine says
                                  # which); True: the sweep, raising where
                                  # it cannot run; False: never the sweep.
-    block_steps: int = 10        # rxmd_tpu: MD steps fused into one
-                                 # dispatched XLA program (lax.scan).  The
-                                 # port accepts it and steps one at a time;
-                                 # K steps captured in one CUDA graph is
-                                 # ROADMAP item 1.2.
+    block_steps: int = 10        # MD steps per block dispatch, as
+                                 # rxmd_tpu's lax.scan blocks: blocks end on
+                                 # print/write/thermostat/rebuild boundaries
+                                 # and within the drift budget (md.Engine.
+                                 # run); one CUDA graph on a card for the
+                                 # sweep engine.  1 disables.
     dense_direct_max: int = 12288
                                  # the dense minimum-image engine for the
                                  # QEq hessian and nonbond ((n, n) pair

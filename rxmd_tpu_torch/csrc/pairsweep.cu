@@ -263,8 +263,10 @@ __device__ __forceinline__ QeqGate qeq_gate(const WalkGeom& g,
 // The QEq body (rxmd_tpu/ops/pairsweep.py:439-475), split: its hessian is
 // built once per QEq solve by the two passes below and applied once per CG
 // iteration by qeq_apply_kernel.  The build is bound by the list it writes
-// (8 bytes a pair) and by the walk's slot tests; counting first and filling
-// at the prefix sums needs no capacity guess and cannot overflow.
+// (8 bytes a pair) and by the walk's slot tests.  It counts first and fills
+// at the prefix sums (a device cumsum between the passes), into a list of a
+// capacity the host fixed at the rebuild: no host read between the passes,
+// so a CUDA graph can hold the build.
 // First pass of the build: the number of entries of each target.
 __global__ void __launch_bounds__(kWarps * 32) qeq_count_kernel(
     WalkGeom g, int* __restrict__ cnt) {
@@ -279,20 +281,24 @@ __global__ void __launch_bounds__(kWarps * 32) qeq_count_kernel(
 }
 
 // Second pass: entries rowptr[i]..rowptr[i+1] of target i, in walk order:
-// src = the source's owner (~owner for an image), h = the hessian element.
+// src = the source's owner (~owner for an image), h = the hessian element;
+// entries at or past `cap` are not written, and *need = rowptr[T], the
+// entries the walk found, tells the host whether the capacity sufficed.
 __global__ void __launch_bounds__(kWarps * 32) qeq_fill_kernel(
     WalkGeom g, const int* __restrict__ own, const int* __restrict__ rowptr,
-    int* __restrict__ src, float* __restrict__ h, float cclmb_qeq) {
+    int* __restrict__ src, float* __restrict__ h, int cap,
+    int* __restrict__ need, float cclmb_qeq) {
   extern __shared__ float smem[];
   int* q = load_consts(g, 2, smem);
   const float* ct = smem + g.nso * g.nso * 2;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i == 0 && lane == 0) *need = rowptr[g.T];
   if (i >= g.T) return;
   const int ts = g.tslot[i];
   const QeqGate gate = qeq_gate(g, smem, ts);
   const float* PRIM = g.planes + 4 * static_cast<size_t>(g.nslots);
-  const int e0 = rowptr[i], e1 = rowptr[i + 1];
+  const int e0 = rowptr[i], e1 = min(rowptr[i + 1], cap);
   walk(g, ts, lane, q, gate, [&](int j, int k) {
     const int e = e0 + k;
     if (e >= e1) return;
@@ -313,18 +319,19 @@ __global__ void __launch_bounds__(kWarps * 32) qeq_fill_kernel(
 // Bound by bytes: the list, read once per CG iteration in coalesced 32-entry
 // strides (the gathered (n,) vectors sit in L1/L2); it can stay in the 50 MB
 // L2 between iterations.  hs, ht and q are read with their element strides,
-// so the CG's (n, 2) state goes in as two column views, uncopied.
+// so the CG's (n, 2) state goes in as two column views, uncopied.  Entries at
+// or past `cap` (an overflowed list, which the host raises on) are skipped.
 __global__ void __launch_bounds__(kWarps * 32) qeq_apply_kernel(
     const int* __restrict__ rowptr, const int* __restrict__ src,
     const float* __restrict__ h, const int* __restrict__ trow,
     const float* __restrict__ hs, const float* __restrict__ ht,
     const float* __restrict__ qv, long long shs, long long sht, long long sq,
-    float* __restrict__ out, int T, int nrows) {
+    float* __restrict__ out, int T, int nrows, int cap) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (i >= T) return;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  const int e1 = rowptr[i + 1];
+  const int e1 = min(rowptr[i + 1], cap);
   for (int e = rowptr[i] + lane; e < e1; e += 32) {
     const int c = src[e];
     const float hv = h[e];
@@ -394,10 +401,11 @@ extern "C" int pairsweep_qeq_count(WALK_ARGS, int* cnt, void* stream) {
 
 extern "C" int pairsweep_qeq_fill(WALK_ARGS, const int* own,
                                   const int* rowptr, int* src, float* h,
-                                  float cclmb_qeq, void* stream) {
+                                  int cap, int* need, float cclmb_qeq,
+                                  void* stream) {
   qeq_fill_kernel<<<blocks_of(T), kWarps * 32, walk_smem(nso, 2),
                     static_cast<cudaStream_t>(stream)>>>(
-      WALK_GEOM, own, rowptr, src, h, cclmb_qeq);
+      WALK_GEOM, own, rowptr, src, h, cap, need, cclmb_qeq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -406,10 +414,10 @@ extern "C" int pairsweep_qeq_apply(const int* rowptr, const int* src,
                                    const float* hs, const float* ht,
                                    const float* q, long long shs,
                                    long long sht, long long sq, float* out,
-                                   int T, int nrows, void* stream) {
+                                   int T, int nrows, int cap, void* stream) {
   qeq_apply_kernel<<<blocks_of(T), kWarps * 32, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      rowptr, src, h, trow, hs, ht, q, shs, sht, sq, out, T, nrows);
+      rowptr, src, h, trow, hs, ht, q, shs, sht, sq, out, T, nrows, cap);
   return static_cast<int>(cudaGetLastError());
 }
 

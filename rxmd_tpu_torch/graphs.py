@@ -1,0 +1,216 @@
+"""The MD step as a device program: CUDA graphs of single steps and K-step
+blocks (counterpart of rxmd_tpu's jitted step and its `lax.scan` blocks,
+rxmd_tpu/md.py:298-299, 717-738).
+
+rxmd_tpu compiles a step, or K steps, into one XLA program that the host
+dispatches with one call.  Here a program is a Python function of tensors
+(`md.Engine._block_fn`) recorded into CUDA graphs over static input
+tensors and replayed after `copy_`-ing the current inputs into them.  The
+kernels take raw pointers (ops/pairsweep.py), so a graph holds the
+addresses of its inputs: every input is copied, never rebound.
+
+A program's inputs come in two parts: the rebuild window's (neighbor and
+term lists, slot map, reference positions), copied once after each
+rebuild, and the step's carry (state, forces, stress), copied at every
+replay.  Its outputs are cloned out of the graph's memory after each
+replay.  Programs are cached under their step pattern and the shapes of
+both parts; the window's list lengths are padded to sizes that only grow
+(md.Engine._size), so after a few rebuilds every window has the same
+shapes and reuses the same programs.
+
+The CG of a full QEq solve (isQEq=1) ends on a host read of its finished
+flag between chunks of iterations (qeq.eager_loop): PyTorch exposes no
+conditional `while` node to Python (2.13 has `if` nodes,
+CUDAGraph.begin_capture_to_if_node; 2.11 has none).  So a program is a
+list of parts: plain graph segments,
+and between them the CG's chunk graph, which updates the CG's carry in
+place and is replayed until the flag is set.  A program with no such loop
+(the extended Lagrangian's one iteration, or no QEq) is one graph.
+
+The first call of a key runs the function eagerly on the cache's stream
+(the warm-up: lazy initialization, cached tables, autograd's streams), the
+second captures and replays it.  A failed capture raises; nothing falls
+back to eager mode.  Each part records the kernel launches it holds
+(ops/pairsweep.launches counts them at capture) and adds them to the
+counts at every replay.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from .ops import pairsweep
+
+def leaves(x):
+    """The tensors of a nest of tuples, NamedTuples and dataclasses."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for e in x for t in leaves(e)]
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x)
+                for t in leaves(getattr(x, f.name))]
+    return []
+
+
+def signature(x):
+    """A hashable key of a nest: shape and dtype of each tensor, the value
+    of every other leaf."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    if isinstance(x, tuple):
+        return tuple(signature(e) for e in x)
+    if dataclasses.is_dataclass(x):
+        return tuple(signature(getattr(x, f.name))
+                     for f in dataclasses.fields(x))
+    return x
+
+
+def fill(x, tensors):
+    """The nest `x` with its tensors replaced, in order, from the iterator
+    `tensors`."""
+    if isinstance(x, torch.Tensor):
+        return next(tensors)
+    if isinstance(x, tuple):
+        vals = [fill(e, tensors) for e in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: fill(getattr(x, f.name), tensors)
+            for f in dataclasses.fields(x)})
+    return x
+
+
+@dataclasses.dataclass
+class Part:
+    """One captured graph and the launches it holds; with `fin` a CG loop:
+    replayed up to `extra` times while the flag `fin` is unset."""
+    graph: torch.cuda.CUDAGraph
+    launches: dict
+    fin: torch.Tensor = None
+    extra: int = 0
+
+
+class Program:
+    """A captured program: its parts and its static outputs."""
+
+    def __init__(self):
+        self.parts = []
+        self.out = None
+
+    def replay(self):
+        counts = pairsweep.launches
+        for p in self.parts:
+            for _ in range(max(p.extra, 1)):
+                if p.fin is not None and bool(p.fin):   # one read a chunk
+                    break
+                p.graph.replay()
+                for k, v in p.launches.items():
+                    counts[k] += v
+
+
+class _Recorder:
+    """Captures a function into a Program's parts, ending a segment at each
+    CG loop (`loop`, qeq.solve's hook)."""
+
+    def __init__(self, prog, pool):
+        self.prog, self.pool = prog, pool
+
+    def begin(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.held = dict(pairsweep.launches)
+        self.graph.capture_begin(pool=self.pool)
+
+    def end(self, **loop):
+        self.graph.capture_end()
+        counts = pairsweep.launches
+        self.prog.parts.append(Part(self.graph, {
+            k: counts[k] - self.held[k] for k in counts}, **loop))
+        counts.update(self.held)          # a capture launches nothing
+
+    def loop(self, chunk, carry, nchunks):
+        carry = chunk(carry)              # the first chunk, in this segment
+        if nchunks == 1:
+            return carry
+        self.end()
+        self.begin()
+        for a, b in zip(carry, chunk(carry)):
+            a.copy_(b)
+        self.end(fin=carry.fin, extra=nchunks - 1)
+        self.begin()
+        return carry
+
+
+class GraphCache:
+    """The engine's programs on one side stream, sharing one memory pool
+    per rebuild window (their replays never overlap: one stream), keyed as
+    the module docstring says."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.pool = None
+        self.programs = {}     # key -> Program
+        self.seen = set()      # keys run once (eagerly)
+        self.window = (None, None, None)   # signature, buffers, window id
+        self.carries = {}      # carry signature -> buffers
+        self.captures = self.replays = 0
+        self.capture_s = 0.0
+
+    def run(self, key, fn, window, carry, window_id):
+        """fn(window, carry, loop) through the program of `key` (see the
+        module docstring); `window_id` changes when the window's tensors
+        do."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = self._run(key, fn, window, carry, window_id)
+        cur.wait_stream(self.stream)
+        return out
+
+    def _run(self, key, fn, window, carry, window_id):
+        wkey, ckey = signature(window), signature(carry)
+        key = (key, wkey, ckey)
+        prog = self.programs.get(key)
+        if prog is None and key not in self.seen:
+            self.seen.add(key)
+            return fn(window, carry, None)
+        wbuf = self._window(wkey, window, window_id)
+        cbuf = self.carries.get(ckey)
+        if cbuf is None:
+            cbuf = self.carries[ckey] = [t.clone() for t in leaves(carry)]
+        for b, t in zip(cbuf, leaves(carry)):
+            b.copy_(t)
+        if prog is None:
+            t0 = time.perf_counter()
+            prog = Program()
+            rec = _Recorder(prog, self.pool)
+            rec.begin()
+            prog.out = fn(fill(window, iter(wbuf)), fill(carry, iter(cbuf)),
+                          rec.loop)
+            rec.end()
+            self.programs[key] = prog
+            self.captures += 1
+            self.capture_s += time.perf_counter() - t0
+        prog.replay()
+        self.replays += 1
+        return fill(prog.out, (t.clone() for t in leaves(prog.out)))
+
+    def _window(self, wkey, window, window_id):
+        """The static copy of the window's tensors, refreshed once per
+        window.  A window of other shapes replaces it, and the programs
+        captured over it go with their memory pool (a pool whose graphs
+        are all gone takes no capture): the window's sizes only grow
+        (md.Engine._size), so those shapes do not come back."""
+        key, buf, wid = self.window
+        if key != wkey:
+            self.programs = {}
+            self.pool = torch.cuda.graph_pool_handle()
+            buf = [t.clone() for t in leaves(window)]
+        elif wid != window_id:
+            for b, t in zip(buf, leaves(window)):
+                b.copy_(t)
+        self.window = (wkey, buf, window_id)
+        return buf

@@ -30,19 +30,28 @@ Lagrangian (isQEq=2), or PQEq (`PQEqParm`: core/shell charges, taper
 12.5 A, the shells relaxed one capped step per solve, the nonbond and its
 forces by autograd); the ReaxFF-lg dispersion and inner-core terms of an
 LG force field (closed form or tables); the electric field (on shells
-too) and spring restraints.  Steps run one per host iteration
-(`block_steps` is accepted and not used).
+too) and spring restraints.
+
+The host schedule is rxmd_tpu's (`Engine.run`): single steps, and blocks
+of `block_steps` steps between the host's boundaries and within the drift
+budget.  A step is a function of its inputs (`_step_fn`, a block
+`_multi_step`), which on a card the sweep engine runs as CUDA graphs
+(graphs.py; `uses_graphs`), the CG's chunks read by the host in between
+(qeq.py); every other engine, the CPU, and runs with `graphs` off or a
+PhaseTimer run the same functions eagerly.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import neighbors, pqeq, qeq, reax, units
+from . import graphs, neighbors, pqeq, qeq, reax, units
 from .config import RunConfig
 from .ffield import ForceField, effective_maxrc
 from .io import refbin, traj
@@ -93,11 +102,21 @@ def _build(state, img, grid, rc2b, rctap2, kb, knb):
                                            img, rc2b, rctap2, kb, knb)
 
 
-def _trim(lst):
-    """A flat term list cut to its `cnt` entries: the builders pack the
-    valid ones to the front, and eager tensors need no fixed capacity."""
-    cnt = int(lst.cnt)
-    return lst._replace(**{f: getattr(lst, f)[:cnt] for f in lst._fields
+def _bucket(n, cap=None):
+    """n rounded up to one of a few sizes per octave (steps of 1/16 to 1/8
+    of n), at most `cap`."""
+    n = max(int(n), 1)
+    step = 1 << max(n.bit_length() - 4, 0)
+    n = -(-n // step) * step
+    return n if cap is None else min(n, cap)
+
+
+def _trim(lst, size=None):
+    """A flat term list cut to `size` >= its `cnt` entries (None: `cnt`):
+    the lists hold their valid entries first, so the padding entries are
+    invalid, and the terms skip them."""
+    size = int(lst.cnt) if size is None else size
+    return lst._replace(**{f: getattr(lst, f)[:size] for f in lst._fields
                            if f != "cnt"})
 
 
@@ -119,6 +138,24 @@ def _bond_table_from(bo, nbrs, gid, img, bo_cutoff):
     gids = torch.gather(gids, 1, order)
     bos = torch.gather(torch.where(keep, bo.bo[..., 0], 0.0), 1, order)
     return gids, bos, keep.sum(dim=1)
+
+
+# the pair engines whose dispatches run as CUDA graphs on a card
+GRAPH_ENGINES = ("sweep",)
+
+
+class StepOut(NamedTuple):
+    """What a step or a block of steps returns (rxmd_tpu md.py:714, 736)."""
+    state: State          # the state after the (last) step
+    force: torch.Tensor   # its forces
+    comps: torch.Tensor   # (14,) PE components of the last step
+    nq: torch.Tensor      # () CG iterations of the last step
+    nq_sum: torch.Tensor  # () CG iterations summed over the steps
+    ke: torch.Tensor      # () kinetic energy after the last step
+    maxdr2: torch.Tensor  # () max squared drift since the rebuild
+    astr: torch.Tensor    # (6,) accumulated stress
+    need: torch.Tensor    # () max QEq list entries of the steps, or None
+    vmax2: torch.Tensor   # () final max v^2 of a block, None for a step
 
 
 # mdmodes of the reference main loop (ref: main.F90:25,45-61): 1 NVE, 0 and
@@ -322,7 +359,21 @@ class Engine:
         # versions for CPU tensors); a reference run may set this to run the
         # plain versions on any device
         self.plain_sweeps = False
-        self.cg_iters = 0          # CG iterations summed over every QEq solve
+        # QEq solves, and CG iterations summed over them (on the device)
+        self.qeq_solves = 0
+        self.cg_iters = torch.zeros((), dtype=torch.int64, device=device)
+        # dispatches as CUDA graphs on a card (uses_graphs); a reference
+        # run may turn this off to run them eagerly
+        self.graphs = True
+        self._graphs = None
+        # steps per block dispatch (rxmd_tpu md.py:308), the schedule's
+        # velocity bound and last block drift, the rebuild window's id,
+        # the QEq list's capacity and its entries since the last check
+        self.block_steps = max(int(cfg.block_steps), 1)
+        self._vmax = self._last_maxdr = None
+        self._window_id = 0
+        self._sizes = {}
+        self._qcap = self._qeq_need = None
 
         # rebuild trigger: pair lists are valid while drift < skin/2, cached
         # term lists while drift < term_margin/2 (0 without a cache)
@@ -372,15 +423,17 @@ class Engine:
         neighbors.check_overflow(tight)
         return tight
 
-    def _pair_data(self, pos, s: State, nbrs, sm):
+    def _pair_data(self, pos, s: State, nbrs, sm, qcap=None):
         """This step's pair data, shared by QEq and the nonbond term: the
-        sweep's PairOps over the slot map `sm`; for the pair-list engine
-        the pair context and, with the tables, its table rows (as
-        reax.pair_rows gives them); nothing for the dense forms or PQEq,
-        whose pair terms walk the list themselves."""
+        sweep's PairOps over the slot map `sm` (`qcap` the QEq list's
+        capacity, None for a list of exactly its entries); for the
+        pair-list engine the pair context and, with the tables, its table
+        rows (as reax.pair_rows gives them); nothing for the dense forms
+        or PQEq, whose pair terms walk the list themselves."""
         with self._phase("pairs"):
             if self.pair_engine == "sweep":
-                return self._make_pair_ops(pos, s.H, s.types, sm)
+                return self._make_pair_ops(pos, s.H, s.types, sm, qcap,
+                                           s.gid)
             if self.pair_engine == "dense" or self.pq is not None:
                 return None
             amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
@@ -397,12 +450,15 @@ class Engine:
                            device=pose.device)
         return pairsweep.bin_slots(pose, valid, self.pairk, pos.shape[0])
 
-    def _make_pair_ops(self, pos, H, types, sm):
+    def _make_pair_ops(self, pos, H, types, sm, qcap=None, gid=None):
         """Closures running the pair kernels for this step's positions over
         the slot map's walk (the primary atoms in slot order): sweep3 (QEq
-        matvec + Est rows; the hessian list is built at its first call, once
-        per QEq solve, and applied at every call) and nonbond (energy/force/
-        virial rows), each (rows, n) per primary atom."""
+        matvec + Est rows; the hessian list, of capacity `qcap` (None: its
+        exact size, one host read), is built at its first call, once per
+        QEq solve, and applied at every call) and nonbond (energy/force/
+        virial rows), each (rows, n) per primary atom; `need()` the list's
+        entries (QeqList.need) once built.  `gid` defaults to the engine
+        state's; a step passes its own, which a CUDA graph copies in."""
         ps = pairsweep
         pg = self.pairk
         n = pos.shape[0]
@@ -414,7 +470,8 @@ class Engine:
         own = srcc % n if S > 1 else srcc
         pos3 = torch.where(ok[:, None], pose[srcc], ps.FAR).T     # (3, ns)
         tslot = torch.where(ok, types[own].to(pos.dtype), 0.0)
-        gidf = torch.where(ok, self.state.gid[own].to(pos.dtype), -1.0)
+        gid = self.state.gid if gid is None else gid
+        gidf = torch.where(ok, gid[own].to(pos.dtype), -1.0)
         isprim = ((src < n) & ok).to(pos.dtype)
         walk = ps.atom_walk(sm)
         own32 = own.to(torch.int32)
@@ -442,7 +499,7 @@ class Engine:
             def sweep3(hs, ht, qc):
                 if not hessian:
                     hessian.append(build(pg, walk, PairOps.qeq_planes(),
-                                         qeq_fn, own32, n))
+                                         qeq_fn, own32, n, qcap))
                 # hs and ht are the columns of the CG's (n, 2) state
                 rows = apply(hessian[0], walk, hs, ht, qc)
                 return rows[0], rows[1], rows[2]
@@ -450,6 +507,10 @@ class Engine:
             @staticmethod
             def nonbond(q):
                 return nb_rows(pg, walk, PairOps.nonbond_planes(q), nb_fn)
+
+            @staticmethod
+            def need():
+                return hessian[0].need if hessian else None
 
         PairOps.walk, PairOps.own = walk, own32
         return PairOps
@@ -490,9 +551,11 @@ class Engine:
         return frac @ H.T
 
     def _qeq_step(self, pos, q, qsfp, qsfv, s: State, nbrs, pairs,
-                  isqeq=None, spos=None):
+                  isqeq=None, spos=None, loop=None):
         """(q, qsfp, qsfv, CG iterations, spos) after a QEq solve, or under
-        PQEq a PQEq solve and its shell step from `spos`."""
+        PQEq a PQEq solve and its shell step from `spos`; `loop` drives
+        the CG's chunks (qeq.solve).  Mutates nothing: a CUDA graph holds
+        it."""
         cfg = self.cfg
         isqeq = cfg.isQEq if isqeq is None else isqeq
         if isqeq == 0:
@@ -505,7 +568,6 @@ class Engine:
                     tol=cfg.QEq_tol, lex_fqs=cfg.Lex_fqs,
                     efield_dir=cfg.eFieldDir if cfg.isEfield else None,
                     efield_strength=cfg.eFieldStrength)
-            self.cg_iters += iters
             if isqeq == 1:
                 return qn, q, torch.zeros_like(qsfv), iters, spos_n
             return qn, qsfp, qsfv, iters, spos_n
@@ -520,8 +582,7 @@ class Engine:
                             nmax=cfg.NMAXQEq, tol=cfg.QEq_tol,
                             lex_fqs=cfg.Lex_fqs, H=s.H, img=self.img,
                             nbrs=nbrs, pre=pre, dense_max=cfg.qeq_dense_max,
-                            direct=self.pair_engine == "dense")
-        self.cg_iters += res.iters
+                            direct=self.pair_engine == "dense", loop=loop)
         if isqeq == 1:
             # fictitious charges re-seeded from pre-QEq q (ref: qeq.F90:42-43)
             return res.q, q, torch.zeros_like(qsfv), res.iters, spos
@@ -543,14 +604,16 @@ class Engine:
                 lists, with_virial=with_virial, external_nonbond=ext_nb,
                 caps=self.caps, ctx=ctx, pq=self.pq, spos=spos)
 
-    def _external_forces(self, pos, q):
+    def _external_forces(self, pos, q, types=None):
         """Electric-field and spring forces, or None without either."""
         cfg = self.cfg
         f_extra = None
         if cfg.isEfield:
             # constant-field force on the core charges, q + Z under PQEq
             # (ref: EEfield module.F90:359-383)
-            qc = q if self.pq is None else q + self.pq.Z[self.state.types]
+            if types is None:
+                types = self.state.types
+            qc = q if self.pq is None else q + self.pq.Z[types]
             f_extra = torch.zeros_like(pos)
             f_extra[:, cfg.eFieldDir] = (-qc * cfg.eFieldStrength
                                          * units.EEV_KCAL)
@@ -566,7 +629,7 @@ class Engine:
                 spos=None):
         out = self._potential(pos, q, s, nbrs, lists, pairs, with_virial,
                               spos)
-        f_extra = self._external_forces(pos, q)
+        f_extra = self._external_forces(pos, q, s.types)
         if f_extra is None:
             return out
         f = out[1] + f_extra
@@ -680,24 +743,59 @@ class Engine:
         self.timers.peak("nonbonded nbr list", mnb, self.knb)
         if lists is not None:
             self._check_list_overflow(lists)
-            lists = tuple(_trim(lst) for lst in lists)
+            lists = tuple(
+                _trim(lst, self._size(nm, lst.cnt, lst.valid.shape[0]))
+                for nm, lst in zip(("ang", "tor", "hbf"), lists))
         if sm is not None:
             self._check_slot_overflow(sm)
+            # the filled slots padded (`_size`; the walk reads only the
+            # cells' ranges, so the padding is never read)
+            m = sm.filled.shape[0]
+            sm = sm._replace(filled=torch.cat([
+                sm.filled, sm.filled.new_zeros(self._size("filled", m) - m)]))
         return nbrs, lists, sm
 
     @torch.no_grad()
     def _rebuild(self, s: State):
         """Wrap positions into the box, rebuild the skinned neighbor lists,
         the cached many-body lists (slackened gates; none for uncached
-        terms) and the sweep's slot layout."""
+        terms) and the sweep's slot layout with its QEq list capacity:
+        the walk's candidates (pairsweep.walk_candidates), padded as the
+        window's lists are (`_size`)."""
+        self._check_qeq_list()
         pos = self._wrap(s.pos, s.H)
         self.nbrs, self.tlists, self._slotmap = self._build_lists(
             pos, s, self.term_slack, self.term_margin,
             term_lists=self.term_cache)
+        if self._slotmap is not None:
+            self._qcap = self._size("qeq list", pairsweep.walk_candidates(
+                self.pairk, pairsweep.atom_walk(self._slotmap)))
         self.state = dataclasses.replace(s, pos=pos)
         self._pos_ref = pos
         self._steps_since_rebuild = 0
         self._maxdr2_dev = None
+        self._window_id += 1
+
+    def _size(self, name, n, cap=None):
+        """The padded length of the rebuild window's list `name` for `n`
+        entries: the largest bucket (`_bucket`) it has needed so far, so
+        the window's shapes stop changing after a few rebuilds and a CUDA
+        graph captured over them serves every later window."""
+        size = max(self._sizes.get(name, 0), _bucket(n, cap))
+        self._sizes[name] = size
+        return size
+
+    def _check_qeq_list(self, need=None):
+        """Raise if a QEq list of the steps since the last check overflowed
+        its capacity (one host read, none if `need` was read already; as
+        _check_list_overflow does for the term lists)."""
+        if need is None:
+            need = self._qeq_need
+        self._qeq_need = None
+        if need is not None and int(need) > self._qcap:
+            raise RuntimeError(
+                f"QEq list overflow: {int(need)} entries > capacity "
+                f"{self._qcap} (pairsweep.walk_candidates bounds them)")
 
     def _check_list_overflow(self, lists):
         """Abort on interaction-list overflow like the reference
@@ -737,7 +835,7 @@ class Engine:
         self._rebuild(self.state)
         s = self.state
         nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
-        pairs = self._pair_data(s.pos, s, nbrs, self._slotmap)
+        pairs = self._pair_data(s.pos, s, nbrs, self._slotmap, self._qcap)
         # cold-start extended Lagrangian: one full CG solve seeds the
         # fictitious charge DOF
         isq = 1 if self.cfg.isQEq == 2 else None
@@ -753,17 +851,25 @@ class Engine:
         self.force = f
         self.comps = comps
         self.nqeq = nq
+        self.cg_iters = self.cg_iters + nq
+        self.qeq_solves += bool(self.cfg.isQEq)
+        if self.pair_engine == "sweep" and self.cfg.isQEq:
+            self._qeq_need = pairs.need()
+            self._check_qeq_list()
         self._astr = torch.zeros((6,), dtype=self.dtype, device=self.device)
         self._astr_steps = 0
         return comps
 
-    @torch.no_grad()
-    def step(self):
-        """One velocity-Verlet MD step on the engine state."""
+    def _step_fn(self, s: State, f, nbrs, lists, sm, qcap, pos_ref, astr,
+                 do_scale, do_qeq, loop=None):
+        """One velocity-Verlet step as a function of its inputs (rxmd_tpu's
+        `_step_fn`, md.py:637-714): a StepOut.  It reads the engine's
+        constants and mutates nothing, so a CUDA graph can hold it;
+        `do_scale` and `do_qeq` are the host's decisions for this step,
+        `qcap` the QEq list's capacity, `loop` runs the CG's chunks."""
         cfg = self.cfg
         dt = self.dt
-        s = self._thermostat(self.state, self.state.step % cfg.sstep == 0)
-        f = self.force
+        s = self._thermostat(s, do_scale)
         dthm = self.dthm[s.types][:, None]
         # first half kick (ref: main.F90:64, vkick main.F90:192-207)
         v = s.vel + dthm * f
@@ -777,43 +883,143 @@ class Engine:
         # drift (ref: main.F90:72); wrapping happens at list rebuilds
         pos = s.pos + dt * v
 
-        nbrs = self._tight_nbrs(pos, s.H, s.types, self.nbrs)
-        pairs = self._pair_data(pos, s, nbrs, self._slotmap)
-        if s.step % cfg.qstep == 0:
+        nbrs = self._tight_nbrs(pos, s.H, s.types, nbrs)
+        pairs = self._pair_data(pos, s, nbrs, sm, qcap)
+        need = None
+        if do_qeq:
             q, qsfp, qsfv, nq, spos = self._qeq_step(
-                pos, s.q, qsfp, qsfv, s, nbrs, pairs, spos=s.spos)
+                pos, s.q, qsfp, qsfv, s, nbrs, pairs, spos=s.spos,
+                loop=loop)
+            if self.pair_engine == "sweep":
+                need = pairs.need()
         else:
             q, nq, spos = s.q, 0, s.spos
-        comps, f2, w = self._forces(pos, q, s, nbrs, self.tlists, pairs,
-                                    True, spos)
+        if not isinstance(nq, torch.Tensor):
+            nq = torch.full((), nq, dtype=torch.int32, device=pos.device)
+        comps, f2, w = self._forces(pos, q, s, nbrs, lists, pairs, True,
+                                    spos)
 
         # per-step stress accumulation: kinetic m v_a v_b with the
         # half-kicked velocity + potential virial (ref: main.F90:86-94)
         m = (2.0 * self.hmas)[s.types]
         kin = torch.einsum("i,ia,ib->ab", m, v, v)
         sw = kin + 0.5 * (w + w.T)
-        self._astr = self._astr + torch.stack(
+        astr = astr + torch.stack(
             [sw[0, 0], sw[1, 1], sw[2, 2], sw[1, 2], sw[2, 0], sw[0, 1]])
-        self._astr_steps += 1
 
         # second half kick (ref: main.F90:97-98)
         v = v + dthm * f2
         qsfv = qsfv + 0.5 * dt * self.lex_w2 * (q - qsfp)
+        ke = torch.sum(self.hmas[s.types] * torch.sum(v * v, dim=1))
         # Verlet-drift monitor: max displacement since the last rebuild
-        self._maxdr2_dev = torch.max(torch.sum((pos - self._pos_ref) ** 2,
-                                               dim=1))
-        self.state = dataclasses.replace(s, pos=pos, vel=v, q=q, qsfp=qsfp,
-                                         qsfv=qsfv, spos=spos,
-                                         step=s.step + 1)
-        self.force, self.comps, self.nqeq = f2, comps, nq
-        self._steps_since_rebuild += 1
+        maxdr2 = torch.max(torch.sum((pos - pos_ref) ** 2, dim=1))
+        s2 = dataclasses.replace(s, pos=pos, vel=v, q=q, qsfp=qsfp,
+                                 qsfv=qsfv, spos=spos, step=s.step + 1)
+        return StepOut(s2, f2, comps, nq, nq, ke, maxdr2, astr, need, None)
+
+    def _multi_step(self, pattern, s: State, f, nbrs, lists, sm, qcap,
+                    pos_ref, astr, loop=None):
+        """len(pattern) steps, (do_scale, do_qeq) each (rxmd_tpu's
+        `_make_multi_step`, md.py:717-738): the last step's StepOut with
+        the CG iterations summed over the steps (`nq_sum`), the block's
+        running maximum of the drift (`maxdr2`) and of the QEq list's
+        entries, and the final max v^2 (`vmax2`)."""
+        out = None
+        for do_scale, do_qeq in pattern:
+            o = self._step_fn(s, f, nbrs, lists, sm, qcap, pos_ref, astr,
+                              do_scale, do_qeq, loop)
+            if out is not None:
+                need = (o.need if out.need is None or o.need is None
+                        else torch.maximum(out.need, o.need))
+                o = o._replace(nq_sum=out.nq_sum + o.nq,
+                               maxdr2=torch.maximum(out.maxdr2, o.maxdr2),
+                               need=o.need if need is None else need)
+            out = o
+            s, f, astr = o.state, o.force, o.astr
+        return out._replace(vmax2=torch.max(torch.sum(s.vel * s.vel, dim=1)))
+
+    def _block_fn(self, pattern, qcap, window, carry, loop):
+        """The program a dispatch runs, as graphs.GraphCache takes it: a
+        single step for one entry of `pattern`, else a block.  window =
+        (nbrs, lists, slot map, pos_ref); carry = (state, force, astr)."""
+        nbrs, lists, sm, pos_ref = window
+        s, f, astr = carry
+        if len(pattern) == 1:
+            return self._step_fn(s, f, nbrs, lists, sm, qcap, pos_ref, astr,
+                                 *pattern[0], loop)
+        return self._multi_step(pattern, s, f, nbrs, lists, sm, qcap,
+                                pos_ref, astr, loop)
+
+    def uses_graphs(self):
+        """Whether dispatches run as CUDA graphs: on a card, for the sweep
+        engine (GRAPH_ENGINES), unless `graphs` is off, a PhaseTimer is
+        set (its events cannot time the inside of a graph) or the plain
+        versions run (they read counts on the host)."""
+        return (self.graphs and self.device.type == "cuda"
+                and self.pair_engine in GRAPH_ENGINES
+                and self.phases is None and not self.plain_sweeps)
+
+    @torch.no_grad()
+    def _advance(self, K):
+        """Dispatch K steps (one, or a block of K), as a CUDA graph where
+        `uses_graphs()`, and keep the host's bookkeeping; returns the
+        StepOut."""
+        cfg = self.cfg
+        s0 = self.state.step
+        scale = cfg.mdmode in (4, 5, 7, 8)
+        pattern = tuple((scale and (s0 + i) % cfg.sstep == 0,
+                         bool(cfg.isQEq) and (s0 + i) % cfg.qstep == 0)
+                        for i in range(K))
+        window = (self.nbrs, self.tlists, self._slotmap, self._pos_ref)
+        # the host's step count stays out of the program (and its key)
+        carry = (dataclasses.replace(self.state, step=0), self.force,
+                 self._astr)
+        if self.uses_graphs():
+            if self._graphs is None:
+                self._graphs = graphs.GraphCache(self.device)
+            g = self._graphs
+            caps, secs, reps = g.captures, g.capture_s, g.replays
+            out = g.run((pattern, self._qcap), functools.partial(
+                self._block_fn, pattern, self._qcap), window, carry,
+                self._window_id)
+            self.timers.count("graph replays", g.replays - reps)
+            if g.captures > caps:
+                self.timers.count("graph captures", g.captures - caps)
+                self.timers.add("graph capture", g.capture_s - secs,
+                                g.captures - caps)
+        else:
+            out = self._block_fn(pattern, self._qcap, window, carry, None)
+        self.state = dataclasses.replace(out.state, step=s0 + K)
+        self.force, self.comps, self.nqeq, self._ke = (
+            out.force, out.comps, out.nq, out.ke)
+        self._astr = out.astr
+        self.cg_iters = self.cg_iters + out.nq_sum
+        self.qeq_solves += sum(do_qeq for _, do_qeq in pattern)
+        if out.need is not None:
+            self._qeq_need = (out.need if self._qeq_need is None
+                              else torch.maximum(self._qeq_need, out.need))
+        self._maxdr2_dev = out.maxdr2 if K == 1 else None
+        self._astr_steps += K
+        self._steps_since_rebuild += K
+        return out
+
+    def step(self):
+        """One velocity-Verlet MD step on the engine state (after
+        `prepare`)."""
+        self._advance(1)
 
     def run(self, nsteps=None, log=print, writer=None):
-        """Host driver loop (ref: main.F90:37-103): one step per
-        iteration; velocity redraws (mdmodes 0 and 6), PRINTE every pstep,
-        `writer(state, comps)` every fstep, and a rebuild on the cadence or
-        when the drift monitor (polled every `drift_check_every` steps)
-        trips.  Returns the loop's wall seconds."""
+        """The host loop, rxmd_tpu's schedule line for line (ref:
+        main.F90:37-103; rxmd_tpu md.py:892-1020): velocity redraws
+        (mdmodes 0 and 6), PRINTE every pstep, `writer(state, comps)`
+        every fstep, a rebuild on the cadence or when the drift monitor
+        trips, then a block of `block_steps` steps where the steps to the
+        next boundary and the drift budget allow it, else one step.  The
+        budget: room / (1.25 vmax dt) steps, vmax read once after a start
+        or a redraw and then from each block's end; a block's running
+        maximum drift replaces the single steps' lazy poll (every
+        `drift_check_every` steps from `drift_check_from` on).  Returns
+        the loop's wall seconds."""
         cfg = self.cfg
         tm = self.timers
         nsteps = nsteps if nsteps is not None else cfg.ntime_step
@@ -825,11 +1031,14 @@ class Engine:
         profile = (RunProfile(cfg.run_profile_path, self.state.n)
                    if cfg.save_run_profile else None)
         t0 = time.perf_counter()
-        for k in range(nsteps):
+        trig = 0.8 * self.drift_trigger
+        k = 0
+        while k < nsteps:
             stepno = self.state.step
             if cfg.mdmode in (0, 6) and stepno % cfg.sstep == 0 and k > 0:
                 # periodic Maxwell-Boltzmann redraw (ref: main.F90:53-54)
                 self.init_velocity(seed=stepno)
+                self._vmax = None
             if stepno % cfg.pstep == 0:
                 nq = int(self.nqeq)
                 tm.count("QEq iterations", nq)
@@ -841,20 +1050,61 @@ class Engine:
             if writer is not None and stepno % cfg.fstep == 0:
                 with tm("trajectory output"):
                     writer(self.state, self.comps)
+            # drift check: a block's running maximum (read at its end), or
+            # the single steps' lazy poll
             ssr = self._steps_since_rebuild
             drifted = (self._maxdr2_dev is not None
                        and ssr >= self.drift_check_from
                        and ssr % self.drift_check_every == 0
-                       and float(self._maxdr2_dev) ** 0.5
-                       > 0.8 * self.drift_trigger)
+                       and float(self._maxdr2_dev) ** 0.5 > trig)
+            if self._last_maxdr is not None and self._last_maxdr > trig:
+                drifted = True
             if ssr >= self.rebuild_every or drifted:
                 if drifted:
                     tm.count("drift-triggered rebuilds", 1)
                 with tm("neighbor rebuild"):
                     self._rebuild(self.state)
-            with tm("MD step (dispatch)"):
-                self.step()
-            tm.count("MD steps", 1)
+                self._last_maxdr = None
+
+            # steps to the next host boundary (print, frame, redraw,
+            # rebuild cadence, run end), then the drift budget
+            nb = nsteps - k
+            nb = min(nb, cfg.pstep - stepno % cfg.pstep)
+            if writer is not None:
+                nb = min(nb, cfg.fstep - stepno % cfg.fstep)
+            if cfg.mdmode in (0, 6):
+                nb = min(nb, cfg.sstep - stepno % cfg.sstep)
+            nb = min(nb, self.rebuild_every - self._steps_since_rebuild)
+            if self._vmax is None and nb >= self.block_steps > 1:
+                # no velocity bound yet (start or redraw): one read
+                self._vmax = float(torch.max(torch.sum(
+                    self.state.vel * self.state.vel, dim=1))) ** 0.5
+            if self._vmax is not None and self._vmax > 0.0:
+                room = trig - (self._last_maxdr or 0.0)
+                budget = int(room / (1.25 * self._vmax * self.dt))
+                nb = min(nb, max(budget, 1))
+
+            if nb >= self.block_steps > 1:
+                with tm("MD block (dispatch)"):
+                    out = self._advance(self.block_steps)
+                    # one read: the block's drift, max v^2 and QEq list
+                    vals = [out.maxdr2, out.vmax2] + (
+                        [] if self._qeq_need is None else [self._qeq_need])
+                    mdr, vmax2, *need = torch.stack(
+                        [v.double() for v in vals]).tolist()
+                    if need:
+                        self._check_qeq_list(need[0])
+                self._last_maxdr = mdr ** 0.5
+                self._vmax = vmax2 ** 0.5
+                nadv = self.block_steps
+                tm.count("MD steps in blocks", nadv)
+            else:
+                with tm("MD step (dispatch)"):
+                    self._advance(1)
+                nadv = 1
+            k += nadv
+            tm.count("MD steps", nadv)
+        self._check_qeq_list()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -877,7 +1127,10 @@ class Engine:
                 f"{'closed form' if self.closed_form else 'tables'}, "
                 f"{str(self.dtype)[6:]} on {self.device}; charges {charges}"
                 f"{'; LG dispersion' if self.ff.is_lg else ''}; taper "
-                f"{self.rctap} A")
+                f"{self.rctap} A; blocks of {self.block_steps} steps, "
+                f"{'as CUDA graphs' if self.uses_graphs() else 'eager'} "
+                f"(CUDA graphs for the {', '.join(GRAPH_ENGINES)} engine on "
+                "a card)")
 
     def summary(self):
         """What runs (`describe`), then the end-of-run per-phase timing /

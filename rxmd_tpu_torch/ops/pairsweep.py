@@ -25,6 +25,7 @@ PyTorch version here:
 
   nonbond    the 11 nonbond rows of each target          nonbond_plain
   qeq_build  the QEq hessian of one solve as a CSR list  qeq_build_plain
+             (of a fixed capacity, with an overflow count)
   qeq_apply  that list applied to hs, ht and q           qeq_apply_plain
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
@@ -570,22 +571,46 @@ def nonbond_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn,
 
 
 class QeqList(NamedTuple):
-    """The QEq hessian of one solve: a CSR list over a walk's targets."""
+    """The QEq hessian of one solve: a CSR list over a walk's targets.
+    With a fixed capacity (`cap` of the build functions) src and h hold `cap`
+    entries, the rows' entries rowptr[i]:rowptr[i+1] cut at `cap`, and
+    `need` > `cap` flags an overflow, for the host to read and raise on."""
     rowptr: torch.Tensor   # (T+1,) int32: entries rowptr[i]:rowptr[i+1]
     src: torch.Tensor      # (E,) int32 source's owner; ~owner for an image
     h: torch.Tensor        # (E,) hessian element
     nown: int              # length of the vectors the list is applied to
+    need: torch.Tensor     # () int32 the walk's entries, rowptr[-1]
+
+
+def walk_candidates(grid: PairGrid, walk: Walk) -> int:
+    """Filled slots the walk tests: per target and stencil column, the
+    filled slots of the column's reach around the target's z-cell.  Every
+    QEq list entry is one of them, and they depend on the slot map alone,
+    so their count bounds the list of every solve over that map (one host
+    read)."""
+    dev = walk.tslot.device
+    ccap, nz = grid.ccap, grid.nc[2]
+    coloffs = torch.as_tensor(_target_tables(grid)[1], device=dev).long()
+    zr = torch.as_tensor(_reach_table(grid), device=dev).long()
+    start = walk.cell_start.long()
+    ts = walk.tslot.long()
+    tz = (ts % (nz * ccap)) // ccap
+    cb = ((ts - ts % (nz * ccap))[:, None] + coloffs) // ccap
+    z0 = torch.clamp(tz[:, None] - zr, min=0)
+    z1 = torch.clamp(tz[:, None] + zr, max=nz - 1)
+    return int((start[cb + z1 + 1] - start[cb + z0]).sum())
 
 
 def qeq_build_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
-                    nown: int, chunk: int = None) -> QeqList:
+                    nown: int, cap: int = None, chunk: int = None) -> QeqList:
     """The QEq build kernel's function in plain PyTorch: per target, the
     walk's pairs that pass every gate, in the walk's order, each with its
     hessian element cclmb_qeq * tap(r) * (r^3 + gamma^-3)^(-1/3) and its
     source's owner, flagged (~owner) when the source is an image.
     planes: (5, nslots) x, y, z, type, is_primary; own: (nslots,) integer
     owner of each slot, the index into the (nown,) vectors the list is
-    applied to."""
+    applied to.  With `cap` the list has that fixed capacity (QeqList);
+    without, exactly its entries."""
     chunk = chunk or _chunk(planes.device)
     i, tsl, src = walk_pairs_plain(grid, walk, planes[:3], fn.rc2, chunk)
     per = max(1, chunk // 16)
@@ -601,21 +626,35 @@ def qeq_build_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
                          device=planes.device)
     rowptr[1:] = torch.cumsum(torch.bincount(
         i[ok], minlength=walk.tslot.shape[0]), 0)
-    return QeqList(rowptr=rowptr, src=code[ok], h=h[ok], nown=nown)
+    code, h = code[ok], h[ok]
+    if cap is not None:
+        code = torch.cat([code, code.new_zeros(cap)])[:cap]
+        h = torch.cat([h, h.new_zeros(cap)])[:cap]
+    return QeqList(rowptr=rowptr, src=code, h=h, nown=nown,
+                   need=rowptr[-1].clone())
 
 
 def qeq_apply_plain(lst: QeqList, walk: Walk, hs, ht, q):
     """The QEq apply kernel's function in plain PyTorch: (3, walk.nrows)
     rows sum h*hs[o], sum h*ht[o] and sum h*w*q[o] over each target's
     entries (o the source's owner, w 1 for a primary source and 0.5 for an
-    image); rows no target writes are 0."""
-    code = lst.src.to(torch.int64)
+    image), entries past the list's capacity left out; rows no target
+    writes are 0."""
+    # each entry's row: the rows' entries end at rowptr[1:]; entries past
+    # the last row's end are the capacity's padding, which may hold
+    # anything
+    T = walk.tslot.shape[0]
+    e = torch.arange(lst.src.shape[0], device=lst.src.device,
+                     dtype=torch.int32)
+    row = torch.searchsorted(lst.rowptr[1:], e, right=True)
+    live = row < T
+    code = torch.where(live, lst.src, 0).to(torch.int64)
     prim = code >= 0
     o = torch.where(prim, code, ~code)
     qo = q[o]
-    vals = lst.h * torch.stack([hs[o], ht[o], torch.where(prim, qo, 0.5 * qo)])
-    tgt = torch.repeat_interleave(walk.trow.to(torch.int64),
-                                  torch.diff(lst.rowptr).to(torch.int64))
+    vals = torch.where(live, lst.h, 0.0) * torch.stack(
+        [hs[o], ht[o], torch.where(prim, qo, 0.5 * qo)])
+    tgt = walk.trow.to(torch.int64)[torch.clamp(row, max=max(T - 1, 0))]
     out = torch.zeros((3, walk.nrows), dtype=vals.dtype, device=vals.device)
     return out.index_add_(1, tgt, vals)
 
@@ -677,9 +716,9 @@ def _library():
         walk = [vp] * 8 + [ci] * 6 + [cf]
         lib.pairsweep_nonbond.argtypes = walk + [vp, vp, ci] + [cf] * 3 + [vp]
         lib.pairsweep_qeq_count.argtypes = walk + [vp, vp]
-        lib.pairsweep_qeq_fill.argtypes = walk + [vp, vp, vp, vp, cf, vp]
+        lib.pairsweep_qeq_fill.argtypes = walk + [vp] * 4 + [ci, vp, cf, vp]
         lib.pairsweep_qeq_apply.argtypes = (
-            [vp] * 7 + [ctypes.c_longlong] * 3 + [vp, ci, ci, vp])
+            [vp] * 7 + [ctypes.c_longlong] * 3 + [vp, ci, ci, ci, vp])
         for f in ("nonbond", "qeq_count", "qeq_fill", "qeq_apply"):
             getattr(lib, f"pairsweep_{f}").restype = ci
         lib.pairsweep_error_string.argtypes = [ci]
@@ -775,13 +814,15 @@ def nonbond(grid: PairGrid, walk: Walk, planes, fn: PairFn):
 
 
 def qeq_build(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
-              nown: int) -> QeqList:
+              nown: int, cap: int = None) -> QeqList:
     """The QEq hessian list of the walk (once per QEq solve): the CUDA
     kernel's two passes for a CUDA tensor (or raises), `qeq_build_plain`
-    for a CPU tensor.  The first pass counts each target's entries, the
-    host reads their total, and the second writes them in place."""
+    for a CPU tensor.  The first pass counts each target's entries, a
+    device cumsum makes the row pointers, and the second writes the entries
+    in place, up to `cap` of them, and sets `need` (QeqList): no host read.
+    Without `cap` the host reads the total and the list holds exactly it."""
     if _device_kind(planes, "qeq_build") == "cpu":
-        return qeq_build_plain(grid, walk, planes, fn, own, nown)
+        return qeq_build_plain(grid, walk, planes, fn, own, nown, cap)
     dev = planes.device
     args = _walk_args(grid, walk, planes, fn, 5)
     _check("own", own, torch.int32, (grid.nslots,), dev)
@@ -793,15 +834,18 @@ def qeq_build(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
                   "qeq_build (count)")
     rowptr = torch.zeros(T + 1, dtype=torch.int32, device=dev)
     rowptr[1:] = torch.cumsum(cnt, 0, dtype=torch.int32)
-    total = int(rowptr[-1])
-    src = torch.empty(total, dtype=torch.int32, device=dev)
-    h = torch.empty(total, dtype=torch.float32, device=dev)
+    if cap is None:
+        cap = int(rowptr[-1])
+    src = torch.empty(cap, dtype=torch.int32, device=dev)
+    h = torch.empty(cap, dtype=torch.float32, device=dev)
+    need = torch.zeros((), dtype=torch.int32, device=dev)
     if T:
         _raise_on(lib.pairsweep_qeq_fill(
             *args, own.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
-            h.data_ptr(), units.CCLMB0_QEQ, stream), "qeq_build (fill)")
+            h.data_ptr(), cap, need.data_ptr(), units.CCLMB0_QEQ, stream),
+            "qeq_build (fill)")
         launches["qeq_build"] += 1
-    return QeqList(rowptr=rowptr, src=src, h=h, nown=nown)
+    return QeqList(rowptr=rowptr, src=src, h=h, nown=nown, need=need)
 
 
 def qeq_apply(lst: QeqList, walk: Walk, hs, ht, q):
@@ -830,7 +874,7 @@ def qeq_apply(lst: QeqList, walk: Walk, hs, ht, q):
             lst.rowptr.data_ptr(), lst.src.data_ptr(), lst.h.data_ptr(),
             walk.trow.data_ptr(), hs.data_ptr(), ht.data_ptr(), q.data_ptr(),
             hs.stride(0), ht.stride(0), q.stride(0), out.data_ptr(), T,
-            walk.nrows, _stream(dev)), "qeq_apply")
+            walk.nrows, E, _stream(dev)), "qeq_apply")
         launches["qeq_apply"] += 1
     return out
 

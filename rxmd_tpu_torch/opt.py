@@ -72,8 +72,10 @@ class _MDAdapter:
         pw = e._wrap(pos, s.H)
         nbrs, lists, sm = e._build_lists(pw, s, slack=1.0, margin=0.0)
         pairs = e._pair_data(pw, s, nbrs, sm)
-        q, _, _, _, spos = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs,
-                                       pairs, isqeq=1, spos=s.spos)
+        q, _, _, nq, spos = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs,
+                                        pairs, isqeq=1, spos=s.spos)
+        e.cg_iters = e.cg_iters + nq
+        e.qeq_solves += 1
         comps, f = e._forces(pw, q, s, nbrs, lists, pairs, False, spos)
         return comps[0], f, q
 

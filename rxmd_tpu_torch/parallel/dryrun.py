@@ -168,7 +168,7 @@ def trajectory(mc, cfg_kw, nsteps=1, seed=1, mesh=None, device="cpu",
     return dict(comps=np.array(comps), forces=np.array(forces),
                 q=np.array(charges), press=np.array(press), lines=lines,
                 n_atoms=e.n_atoms, pos=fin.pos.double().numpy(),
-                spos=fin.spos.double().numpy(), cg_iters=e.cg_iters,
+                spos=fin.spos.double().numpy(), cg_iters=int(e.cg_iters),
                 ff_chi=ff.chi.copy(), ff_eta=ff.eta.copy(),
                 mesh=e.mesh_shape)
 
@@ -304,6 +304,29 @@ def slab_case(mc, cfg_kw, mesh, outdir, nsteps=2):
     return e.comm.rank
 
 
+def scheduled_run(mc, cfg_kw, nsteps, seed=1, mesh=None):
+    """Rank entry: ShardedEngine on the CHON deck, init_velocity(seed),
+    prepare, then `run(nsteps)` on its own schedule.  Returns the PE
+    components at each PRINTE (step, comps), the timers' dispatch and
+    rebuild counts and the final positions in gid order."""
+    from ..config import RunConfig
+    from .engine import ShardedEngine
+    ff, st = load_deck(mc, "float64")
+    e = ShardedEngine(ff, st, RunConfig(**cfg_kw), mesh_shape=mesh,
+                      device="cpu")
+    e.init_velocity(seed=seed)
+    e.prepare()
+    printed = []
+    e.run(nsteps, log=lambda line: printed.append(
+        (e.step_count, e.comps.double().cpu().numpy())))
+    tm = e.timers
+    return dict(printed=printed, pos=e.to_state().pos.double().numpy(),
+                blocks=tm.ncalls.get("MD block (dispatch)", 0),
+                steps=tm.ncalls.get("MD step (dispatch)", 0),
+                rebuilds=tm.ncalls.get("neighbor rebuild", 0),
+                in_blocks=tm.counters.get("MD steps in blocks", 0))
+
+
 def md_trajectory(mc, cfg_kw, nsteps=1, seed=1, device="cpu"):
     """The single-device md.Engine (pair list) over the same steps as
     `trajectory`, in the same record."""
@@ -333,7 +356,7 @@ def md_trajectory(mc, cfg_kw, nsteps=1, seed=1, device="cpu"):
                 q=np.array(charges), press=np.array(press), lines=lines,
                 pos=e.state.pos.double().cpu().numpy(),
                 spos=e.state.spos.double().cpu().numpy(),
-                cg_iters=e.cg_iters)
+                cg_iters=int(e.cg_iters))
 
 
 def pe_rel(a, b):

@@ -289,6 +289,10 @@ class ShardedEngine:
         self.drift_trigger = 0.5 * lim
         self.drift_check_from = 4
         self.drift_check_every = 2
+        # steps per block (rxmd_tpu engine.py:731), the schedule's
+        # velocity bound and last block drift (md.Engine.run)
+        self.block_steps = max(int(cfg.block_steps), 1)
+        self._vmax = self._last_maxdr = None
 
         self.sstate = distribute(state0, self.mesh_shape, ncap).block(
             comm.rank, ncap, device)
@@ -781,14 +785,33 @@ class ShardedEngine:
                 and float(self.comm.pmax(self._maxdr2)) ** 0.5
                 > 0.8 * self.drift_trigger)
 
+    @torch.no_grad()
+    def _run_block(self, K):
+        """K steps, eagerly (rxmd_tpu's multi_block, engine.py:679-704):
+        the mesh-wide running maximum of the drift^2 and the final max v^2,
+        one all-reduce."""
+        mdr = None
+        for _ in range(K):
+            self.step()
+            mdr = (self._maxdr2 if mdr is None
+                   else torch.maximum(mdr, self._maxdr2))
+        s = self.sstate
+        vmax2 = torch.max(torch.where(s.valid, torch.sum(s.vel * s.vel, 1),
+                                      0.0))
+        self._maxdr2 = None
+        return self.comm.pmax(torch.stack([mdr, vmax2])).tolist()
+
     def run(self, nsteps=None, log=print, writer=None):
-        """Host loop of every rank (md.Engine.run's cadence, rxmd_tpu
-        engine.py:817-937): redraws (mdmodes 0, 6), PRINTE every pstep,
-        `writer(engine)` every fstep, a rebuild on the cadence or the drift
-        trigger, the atom-count check at every PRINTE and at the end.
-        Every rank must call it alike (it runs collectives); pass the same
-        `log` on every rank (a rank whose output is not wanted may print to
-        a null stream).  Returns the loop's wall seconds."""
+        """Host loop of every rank, rxmd_tpu's sharded schedule (rxmd_tpu
+        engine.py:840-900; md.Engine.run's): redraws (mdmodes 0, 6), PRINTE
+        every pstep, `writer(engine)` every fstep, a rebuild on the cadence
+        or the drift trigger, then a block of `block_steps` steps (run
+        eagerly) where the boundaries and the drift budget allow it, else
+        one step; blocks end on pstep only when logging, and qstep > 1
+        runs single steps.  The atom-count check at every PRINTE and at the
+        end.  Every rank must call it alike (it runs collectives); pass the
+        same `log` on every rank (a rank whose output is not wanted may
+        print to a null stream).  Returns the loop's wall seconds."""
         cfg, tm = self.cfg, self.timers
         nsteps = nsteps if nsteps is not None else cfg.ntime_step
         if not hasattr(self, "force"):
@@ -797,11 +820,14 @@ class ShardedEngine:
             with tm("first force"):
                 self.prepare()
         t0 = time.perf_counter()
-        for k in range(nsteps):
+        trig = 0.8 * self.drift_trigger
+        k = 0
+        while k < nsteps:
             stepno = self.step_count
             if cfg.mdmode in (0, 6) and stepno % cfg.sstep == 0 and k > 0:
                 # periodic Maxwell-Boltzmann redraw (ref: main.F90:53-54)
                 self.init_velocity(seed=stepno)
+                self._vmax = None
             if stepno % cfg.pstep == 0:
                 tm.count("QEq iterations", int(self.nqeq))
                 if log:
@@ -811,14 +837,47 @@ class ShardedEngine:
                 with tm("trajectory output"):
                     writer(self)
             drifted = self._drifted()
+            if self._last_maxdr is not None and self._last_maxdr > trig:
+                drifted = True
             if self._steps_since_rebuild >= self.rebuild_every or drifted:
                 if drifted:
                     tm.count("drift-triggered rebuilds", 1)
                 with tm("neighbor rebuild"):
                     self.rebuild()
-            with tm("MD step (dispatch)"):
-                self.step()
-            tm.count("MD steps", 1)
+                self._last_maxdr = None
+
+            nb = nsteps - k
+            if log:
+                nb = min(nb, cfg.pstep - stepno % cfg.pstep)
+            if writer is not None:
+                nb = min(nb, cfg.fstep - stepno % cfg.fstep)
+            if cfg.mdmode in (0, 6):
+                nb = min(nb, cfg.sstep - stepno % cfg.sstep)
+            nb = min(nb, self.rebuild_every - self._steps_since_rebuild)
+            if cfg.qstep > 1:
+                nb = 1
+            if self._vmax is None and nb >= self.block_steps > 1:
+                s = self.sstate
+                self._vmax = float(self.comm.pmax(torch.max(torch.where(
+                    s.valid, torch.sum(s.vel * s.vel, 1), 0.0)))) ** 0.5
+            if self._vmax is not None and self._vmax > 0.0:
+                room = trig - (self._last_maxdr or 0.0)
+                budget = int(room / (1.25 * self._vmax * self.dt))
+                nb = min(nb, max(budget, 1))
+
+            if nb >= self.block_steps > 1:
+                with tm("MD block (dispatch)"):
+                    mdr, vmax2 = self._run_block(self.block_steps)
+                self._last_maxdr = mdr ** 0.5
+                self._vmax = vmax2 ** 0.5
+                nadv = self.block_steps
+                tm.count("MD steps in blocks", nadv)
+            else:
+                with tm("MD step (dispatch)"):
+                    self.step()
+                nadv = 1
+            k += nadv
+            tm.count("MD steps", nadv)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0

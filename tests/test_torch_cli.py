@@ -7,11 +7,13 @@ Neither CLI has a flag for `nonbond_closed_form`, nor rxmd_tpu's for
 `block_steps`.  In float64 both would take the interpolation-table
 nonbond over the pair list, whose CG stops an iteration count apart that
 the 10% bar below does not hold (61 against 70 at step 10; the default's
-parity is held per step by test_torch_engine_paths.py), and rxmd_tpu
-would fuse 10 steps per dispatch, which moves its list rebuilds.  So both
+parity is held per step by test_torch_engine_paths.py).  So both
 packages' `config.apply_cli` are wrapped (monkeypatch) to set
-nonbond_closed_form=True (the port then runs its pair sweep), and
-rxmd_tpu's to set block_steps=1; nothing in either package changes.
+nonbond_closed_form=True (the port then runs its pair sweep), and to set
+block_steps=1, one step per dispatch in both; nothing in either package
+changes.  `test_default_block_steps` runs both at their default
+block_steps (10), where a block forms at the start (NVE, extended
+Lagrangian, PRINTE every 10 of 20 steps), to the same bars.
 
 Bars: the PRINTE numbers and the numbers of every text frame agree to
 the printed precision (one unit in the last printed digit, which absorbs
@@ -51,6 +53,8 @@ QEq          1  500  1.0d-12  1
 CG_tol       10.0
 """
 NPZ_KEYS = ("pos", "vel", "q", "qsfp", "qsfv")
+# the packages' own apply_cli, before any fixture wraps it
+APPLY_CLI = {"port": tcfg.apply_cli, "jax": jcfg.apply_cli}
 
 
 def _run(main, argv, **kw):
@@ -126,6 +130,7 @@ def jax_cli():
     def port_apply_cli(cfg, args):
         cfg = torig(cfg, args)
         cfg.nonbond_closed_form = True
+        cfg.block_steps = 1
         return cfg
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcfg, "apply_cli", apply_cli)
@@ -254,6 +259,48 @@ def test_rxmd_tpu_restarts_from_the_port(restarts):
     assert len(lp) == len(lj) == 2        # steps 10 and the final 15
     for k, (a, b) in enumerate(zip(lp, lj)):
         _same_printe(a, b, f"restart PRINTE line {k}")
+
+
+def test_default_block_steps(tmp_path):
+    """Both programs at their default block_steps: PRINTE lines and the
+    final checkpoint to the bars of the pinned case, and a block ran in
+    each (the port's "MD steps in blocks" counter, rxmd_tpu's "MD block
+    (dispatch)" timer in their summaries)."""
+    rxmdin = tmp_path / "rxmd.in"
+    rxmdin.write_text(RXMD_IN.replace("mdmode       4", "mdmode       1")
+                      .replace("0.25  10", "0.25  20")
+                      .replace("io_step      5  5", "io_step      20  10")
+                      .replace("T  T  T  T", "F  F  F  F")
+                      .replace("QEq          1", "QEq          2"))
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for name, mod, main, kw in (("port", tcfg, tmain.main,
+                                     {"device": "cpu"}),
+                                    ("jax", jcfg, jmain.main, {})):
+            def apply_cli(cfg, args, orig=APPLY_CLI[name]):
+                cfg = orig(cfg, args)
+                cfg.nonbond_closed_form = True
+                assert cfg.block_steps == 10
+                return cfg
+            mp.setattr(mod, "apply_cli", apply_cli)
+            dat = tmp_path / name / "DAT"
+            rc, out, err = _run(main, _argv(rxmdin, dat, "--run_from_xyz",
+                                            CELL), **kw)
+            assert rc == 0, err
+            runs[name] = dict(dat=dat, out=out)
+    lp, lj = _printe(runs["port"]["out"]), _printe(runs["jax"]["out"])
+    assert len(lp) == len(lj) == 3        # steps 0, 10 and the final 20
+    for k, (a, b) in enumerate(zip(lp, lj)):
+        _same_printe(a, b, f"PRINTE line {k}")
+    blocks = [ln.split() for ln in runs["port"]["out"].splitlines()
+              if "MD steps in blocks" in ln]
+    assert blocks and int(blocks[0][-1]) >= 10
+    assert "MD block (dispatch)" in runs["jax"]["out"]
+    with np.load(runs["port"]["dat"] / "rxff.npz") as a, \
+            np.load(runs["jax"]["dat"] / "rxff.npz") as b:
+        assert int(a["step"]) == int(b["step"]) == 20
+        for k in NPZ_KEYS:
+            assert np.abs(a[k] - b[k]).max() <= _bar(k), k
 
 
 def test_structural_optimization(tmp_path):

@@ -69,7 +69,7 @@ def runs(request):
     tf = tff.parse_ffield(FF)
     te = tmd.Engine(tf, tsys.state_from_numpy(
         {k: np.asarray(v) for k, v in vars(st).items()}),
-        tcfg.RunConfig(**kw), device="cpu")
+        tcfg.RunConfig(block_steps=1, **kw), device="cpu")
     assert te.pair_engine == "sweep"
     tc, tp, etot, rebuilds = _trajectory(te, lambda x: x.cpu().numpy(),
                                          NSTEPS)
@@ -113,7 +113,7 @@ def runs_f32():
     jc, jp, _, _ = _trajectory(je, np.asarray, F32_STEPS)
     te = tmd.Engine(tff.parse_ffield(FF), tsys.state_from_numpy(
         {k: np.asarray(v) for k, v in vars(st).items()}),
-        tcfg.RunConfig(**kw), device="cpu")
+        tcfg.RunConfig(block_steps=1, **kw), device="cpu")
     tc, tp, _, rebuilds = _trajectory(te, lambda x: x.cpu().numpy(),
                                       F32_STEPS)
     assert rebuilds == 2 and te.dtype == torch.float32

@@ -102,7 +102,8 @@ def runs(request):
                    pstep=1), **over)
     ff, js, ts = _states(kind)
     je = jmd.Engine(ff, js, jcfg.RunConfig(block_steps=1, **kw))
-    te = tmd.Engine(tff.parse_ffield(FF), ts, tcfg.RunConfig(**kw),
+    te = tmd.Engine(tff.parse_ffield(FF), ts,
+                    tcfg.RunConfig(block_steps=1, **kw),
                     device="cpu")
     jc, jp = _trajectory(je, np.asarray, NSTEPS)
     tc, tp = _trajectory(te, lambda x: x.cpu().numpy(), NSTEPS)
@@ -182,7 +183,8 @@ def optimizer_runs():
                    recording(topt._MDAdapter, probes["port"]))
         je = jmd.Engine(ff, js, jcfg.RunConfig(block_steps=1, **kw))
         jpe = jopt.conjugate_gradient(je, max_iter=1, log=None)
-        te = tmd.Engine(tff.parse_ffield(FF), ts, tcfg.RunConfig(**kw),
+        te = tmd.Engine(tff.parse_ffield(FF), ts,
+                        tcfg.RunConfig(block_steps=1, **kw),
                         device="cpu")
         tpe = topt.conjugate_gradient(te, max_iter=1, log=None)
     return te, probes, jpe, tpe

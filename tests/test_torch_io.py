@@ -181,7 +181,8 @@ def engines(states):
     ff, js, ts = states
     je = jmd.Engine(ff, js, jcfg.RunConfig(dtype="float64", block_steps=1,
                                            nonbond_closed_form=True))
-    te = tmd.Engine(tff.parse_ffield(FF), ts, tcfg.RunConfig(), device="cpu")
+    te = tmd.Engine(tff.parse_ffield(FF), ts, tcfg.RunConfig(block_steps=1),
+                    device="cpu")
     return je, te
 
 

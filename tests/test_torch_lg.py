@@ -214,7 +214,8 @@ def _engines(name, dtype="float64"):
     return (lambda: jmd.Engine(jf, jsys.make_state(pos, types, H),
                                jcfg.RunConfig(block_steps=1, **kw)),
             lambda: tmd.Engine(tf, tsys.make_state(pos, types, H),
-                               tcfg.RunConfig(**kw), device="cpu"))
+                               tcfg.RunConfig(block_steps=1, **kw),
+                               device="cpu"))
 
 
 @pytest.fixture(scope="module", params=["tables", "dense"])

@@ -65,7 +65,7 @@ def runs():
             writer=lambda it, pos, pe: iters["jax"].append(pe))
         te = tmd.Engine(tff.parse_ffield(FF), tsys.state_from_numpy(
             {k: np.asarray(v) for k, v in vars(st).items()}),
-            tcfg.RunConfig(**KW), device="cpu")
+            tcfg.RunConfig(block_steps=1, **KW), device="cpu")
         pos0 = te.state.pos.clone()
         tpe = topt.conjugate_gradient(
             te, max_iter=2, log=None,

@@ -270,7 +270,8 @@ def _engines(over, dtype="float64", lg=False):
     js = jsys.from_cellfile(CELL, jf.name_to_type)
     ts = tsys.from_cellfile(CELL, tf.name_to_type)
     return (lambda: jmd.Engine(jf, js, jcfg.RunConfig(block_steps=1, **kw)),
-            lambda: tmd.Engine(tf, ts, tcfg.RunConfig(**kw), device="cpu"))
+            lambda: tmd.Engine(tf, ts, tcfg.RunConfig(block_steps=1, **kw),
+                               device="cpu"))
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))

@@ -44,7 +44,7 @@ MC = (2, 2, 2)
 NSTEPS = 3
 TIMEOUT = 280.0
 BASE = dict(dtype="float64", QEq_tol=1e-14, NMAXQEq=8, rebuild_every=2,
-            pstep=1)
+            pstep=1, block_steps=1)
 CASES = {
     "qeq1_mesh111": ((1, 1, 1), dict(isQEq=1)),
     "qeq2_mesh211": ((2, 1, 1), dict(isQEq=2)),
@@ -115,8 +115,8 @@ def test_engine_against_rxmd_tpu(runs):
     ff = jff.parse_ffield(FF)
     js = jsys.from_cellfile(CELL, ff.name_to_type, mc=MC)
     je = jmd.Engine(ff, js, jcfg.RunConfig(
-        block_steps=1, pair_kernel=False, dense_direct_max=0,
-        qeq_dense_max=0, **case["cfg"]))
+        pair_kernel=False, dense_direct_max=0, qeq_dense_max=0,
+        **case["cfg"]))          # block_steps=1 from BASE
     je.init_velocity(seed=1)
     comps = [np.asarray(je.prepare())]
     for _ in range(NSTEPS):

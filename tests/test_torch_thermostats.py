@@ -52,7 +52,7 @@ def _pair(**over):
     je = jmd.Engine(ff, st, jcfg.RunConfig(block_steps=1, **kw))
     te = tmd.Engine(tff.parse_ffield(FF), tsys.state_from_numpy(
         {k: np.asarray(v) for k, v in vars(st).items()}),
-        tcfg.RunConfig(**kw), device="cpu")
+        tcfg.RunConfig(block_steps=1, **kw), device="cpu")
     return je, te
 
 

@@ -27,7 +27,8 @@ import torch
 
 from rxmd_tpu import __main__ as jmain, config as jcfg
 from rxmd_tpu.tools import bondlifetime as jbl, plot as jplot, stat as jstat
-from rxmd_tpu_torch import __main__ as tmain, ffield as tff, system as tsys
+from rxmd_tpu_torch import __main__ as tmain, config as tcfg, ffield as tff, \
+    system as tsys
 from rxmd_tpu_torch.tools import bondlifetime as tbl, plot as tplot, \
     stat as tstat
 
@@ -77,15 +78,15 @@ def program(tmp_path_factory):
     root = tmp_path_factory.mktemp("pqeq_lg")
     rxmdin = root / "rxmd.in"
     rxmdin.write_text(RXMD_IN)
-    orig = jcfg.apply_cli
-
-    def apply_cli(cfg, args):
-        cfg = orig(cfg, args)
-        cfg.block_steps = 1
-        return cfg
     runs = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jcfg, "apply_cli", apply_cli)
+        # one step per dispatch in both programs
+        for mod in (jcfg, tcfg):
+            def apply_cli(cfg, args, orig=mod.apply_cli):
+                cfg = orig(cfg, args)
+                cfg.block_steps = 1
+                return cfg
+            mp.setattr(mod, "apply_cli", apply_cli)
         for name, main, kw in (("port", tmain.main, {"device": "cpu"}),
                                ("jax", jmain.main, {})):
             dat = root / name / "DAT"
