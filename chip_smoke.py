@@ -75,7 +75,22 @@ first failure ends the run with a non-zero exit code and no result line.
      4, and one step replayed right after a rebuild against the eager
      step; printed, never checked: ms/step and atom-steps/s of both,
      captures and capture ms, steps in blocks, peak memory, and the device
-     idle share of 10 more steps by torch.profiler.
+     idle share of 10 more steps by torch.profiler;
+ 11. graph paths: the step program of every other configuration at --mc,
+     each from one start with graphs and eagerly under the same schedule
+     (GRAPH_PATH_STEPS steps, blocks of GRAPH_BLOCK): the pair list at
+     isQEq=1 (its QEq folded dense), the dense forms at isQEq=2, float64's
+     tables at isQEq=2, a triclinic cell at isQEq=2, uncached terms at
+     isQEq=2 and tighten_lists at isQEq=1 (both on the pair list), PQEq
+     at isQEq=1 and 2, and LG (the dense forms) at isQEq=2.  Each holds
+     `uses_graphs()`, a capture and a replay or more, the same block,
+     step and rebuild counts, each PRINTE's total PE within TOL_GRAPH_PE
+     of the eager run's (TOL_GRAPH_PE_F64 in float64), no capacity
+     overflow at the block ends, no sweep kernel, and one step replayed
+     right after a rebuild against the eager step; printed, never
+     checked: ms/step and atom-steps/s of both modes, captures and
+     capture ms, the device idle share of 10 more steps by
+     torch.profiler, and peak memory.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -159,6 +174,10 @@ TOL_GRAPH_POS = 1e-5
 GRAPH_STEPS = 40
 GRAPH_BLOCK = 4          # steps per block: the hot deck's drift budget
                          # leaves room for blocks this short
+# phase 11: float64's graphs against its eager run (the same kernels in
+# float64: only index_add_'s atomics reorder, ~1e-16 relative a sum)
+TOL_GRAPH_PE_F64 = 1e-9
+GRAPH_PATH_STEPS = 20
 DEVICE = "cuda"          # the slice's device; main() requires a card
 
 
@@ -1063,7 +1082,7 @@ def replay_after_rebuild(e):
     (the lists rebuilt, so rebound, at the same positions each time; the
     first two calls warm the program up and capture it), against the
     same step run eagerly: (PE difference over |PE|, max position
-    difference)."""
+    difference).  The sweep's replay launches its nonbond kernel once."""
     from rxmd_tpu_torch.ops import pairsweep as ps
     s0, f0, a0 = e.state, e.force, e._astr
 
@@ -1080,7 +1099,8 @@ def replay_after_rebuild(e):
     g = e._graphs
     reps, nb = g.replays, ps.launches["nonbond"]
     got = one(True)
-    check(g.replays == reps + 1 and ps.launches["nonbond"] == nb + 1,
+    sweep = int(e.pair_engine == "sweep")
+    check(g.replays == reps + 1 and ps.launches["nonbond"] == nb + sweep,
           "the step right after a rebuild replayed a captured graph")
     ref = one(False)
     e.graphs = True
@@ -1167,6 +1187,123 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
             f"eager: PE {pe_err:.3e}, positions {pos_err:.3e} A")
         del runs, a, b
     log(f"graphs: phase took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def graph_path_configs():
+    """Phase 11's configurations: (label, make_engine keywords, the pair
+    engine it must take)."""
+    ell = dict(pair_kernel=False, dense_direct_max=0)
+    pq = dict(isPQEq=True, pqeq_parm_path=PQEQ_PAR)
+    return [
+        ("ELL isQEq=1", dict(isQEq=1, **ell), "ell"),
+        ("dense isQEq=2", dict(isQEq=2, pair_kernel=False), "dense"),
+        ("float64 tables isQEq=2", dict(isQEq=2, dtype="float64"), "ell"),
+        ("triclinic ELL isQEq=2", dict(isQEq=2, angles=TRICLINIC), "ell"),
+        ("uncached terms isQEq=2", dict(isQEq=2, term_cache=False, **ell),
+         "ell"),
+        ("tighten_lists isQEq=1", dict(isQEq=1, tighten_lists=True, **ell),
+         "ell"),
+        ("PQEq isQEq=1", dict(isQEq=1, **pq), "ell"),
+        ("PQEq isQEq=2", dict(isQEq=2, **pq), "ell"),
+        ("LG dense isQEq=2", dict(isQEq=2, lg=True), "dense"),
+    ]
+
+
+def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
+    """The step program of every other configuration as CUDA graphs (see
+    the module docstring, phase 11); `only` runs the configurations whose
+    labels it names."""
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    names = ("MD block (dispatch)", "MD step (dispatch)", "neighbor rebuild")
+    for label, cfg, want in graph_path_configs():
+        if only is not None and label not in only:
+            continue
+        t_cfg = time.perf_counter()
+        runs = {}
+        for mode in ("graphs", "eager"):
+            e = make_engine(mc, DEVICE, pstep=10, block_steps=GRAPH_BLOCK,
+                            **cfg)
+            e.graphs = mode == "graphs"
+            check(e.pair_engine == want and e.uses_graphs() == e.graphs,
+                  f"graph paths | {label}: engine {want} ({e.pair_engine}), "
+                  f"graphs {e.graphs} ({e.uses_graphs()})")
+            # every block end's (and rebuild's) capacity counts, checked
+            checked = []
+            over = e._check_over
+            e._check_over = lambda got, over=over: (checked.append(got),
+                                                    over(got))
+            e.init_velocity(seed=seed)
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            printed = []
+            wall = e.run(steps, log=lambda line, e=e: printed.append(
+                (e.state.step, float(e.comps[0]))))
+            no_sweep(f"graph paths | {label} {mode}")
+            tm = e.timers
+            counts = [tm.ncalls.get(k, 0) for k in names] + [
+                tm.counters.get("drift-triggered rebuilds", 0)]
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            busy, pwall, idle = idle_share(lambda e=e: e.run(10, log=None))
+            runs[mode] = dict(e=e, printed=printed, wall=wall, counts=counts,
+                              peak=peak, busy=busy, pwall=pwall, idle=idle,
+                              checked=checked,
+                              caps=tm.counters.get("graph captures", 0),
+                              reps=tm.counters.get("graph replays", 0),
+                              cap_ms=tm.acc.get("graph capture", 0.0) * 1e3,
+                              inblk=tm.counters.get("MD steps in blocks", 0))
+        a, b = runs["graphs"], runs["eager"]
+        check(a["caps"] >= 1 and a["reps"] >= 1 and b["caps"] == 0,
+              f"graph paths | {label}: {a['caps']:.0f} captures and "
+              f"{a['reps']:.0f} replays with graphs, none eagerly")
+        check(a["counts"] == b["counts"] and a["counts"][0] >= 1,
+              f"graph paths | {label}: the same blocks, steps, rebuilds and "
+              f"drift rebuilds, one block or more ({a['counts']} against "
+              f"{b['counts']})")
+        check([s for s, _ in a["printed"]] == [s for s, _ in b["printed"]],
+              f"graph paths | {label}: the same PRINTE steps")
+        err = max(abs(x - y) / abs(y) for (_, x), (_, y)
+                  in zip(a["printed"], b["printed"]))
+        f64 = a["e"].dtype == torch.float64
+        tol = TOL_GRAPH_PE_F64 if f64 else TOL_GRAPH_PE
+        check(np.isfinite(err) and err <= tol,
+              f"graph paths | {label}: PRINTE PE within {tol} of the eager "
+              f"run ({err:.3e})")
+        pe_err, pos_err = replay_after_rebuild(a["e"])
+        check(pe_err <= tol and pos_err <= TOL_GRAPH_POS,
+              f"graph paths | {label}: the replay after a rebuild against "
+              f"the eager step (PE {pe_err:.3e}, positions {pos_err:.3e} A)")
+        ncheck = [len(r["checked"]) for r in (a, b)]
+        if not a["e"].term_cache or a["e"].cfg.tighten_lists:
+            check(min(ncheck) >= 1, f"graph paths | {label}: the steps' "
+                  f"capacity counts checked at block ends ({ncheck})")
+        fill = {k: max(g[k] for r in (a, b) for g in r["checked"])
+                for k in a["checked"][0]} if a["checked"] else {}
+        fill = {k: v for k, v in fill.items() if v > 0}
+        n = a["e"].state.n
+        for mode, r in runs.items():
+            idle = ("not measured" if r["idle"] is None
+                    else f"{r['idle']:.3f}")
+            log(f"graph paths | {label} {mode} | {n} atoms, "
+                f"{str(r['e'].dtype)[6:]}, {steps} steps: "
+                f"{r['wall'] / steps * 1e3:.2f} ms/step wall, "
+                f"{n * steps / r['wall']:.4e} atom-steps/s; blocks / steps / "
+                f"rebuilds / drift rebuilds {r['counts']}, steps in blocks "
+                f"{r['inblk']:.0f}; captures {r['caps']:.0f} in "
+                f"{r['cap_ms']:.1f} ms, replays {r['reps']:.0f}; peak "
+                f"{r['peak']:.1f} MB; 10 more steps under torch.profiler: "
+                f"device {r['busy']:.2f} of {r['pwall']:.2f} ms, idle share "
+                f"{idle} | {smi}")
+        log(f"graph paths | {label}: PRINTE PE graphs vs eager max rel diff "
+            f"{err:.3e} (bound {tol}); replay after a rebuild vs eager: PE "
+            f"{pe_err:.3e}, positions {pos_err:.3e} A; capacity checks "
+            f"(graphs, eager) {ncheck}, no overflow, largest counts {fill} "
+            f"against caps { {k: a['e'].caps[k] for k in fill} }; "
+            f"{time.perf_counter() - t_cfg:.1f} s")
+        del runs, a, b
+        torch.cuda.empty_cache()
+    log(f"graph paths: phase took {time.perf_counter() - t_phase:.1f} s | "
+        f"{smi}")
 
 
 def zero_launches():
@@ -1396,6 +1533,7 @@ def main():
     phase_pqeq_lg(mc, args.seed)
     phase_sharded(mc, args.seed)
     phase_graphs(mc, args.seed)
+    phase_graph_paths(mc, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -3,11 +3,15 @@ blocks (counterpart of rxmd_tpu's jitted step and its `lax.scan` blocks,
 rxmd_tpu/md.py:298-299, 717-738).
 
 rxmd_tpu compiles a step, or K steps, into one XLA program that the host
-dispatches with one call.  Here a program is a Python function of tensors
-(`md.Engine._block_fn`) recorded into CUDA graphs over static input
-tensors and replayed after `copy_`-ing the current inputs into them.  The
-kernels take raw pointers (ops/pairsweep.py), so a graph holds the
-addresses of its inputs: every input is copied, never rebound.
+dispatches with one call, whatever its configuration.  Here a program is
+a Python function of tensors (`md.Engine._block_fn`, for every pair
+engine, box, term cache, QEq or PQEq mode and force field) recorded into
+CUDA graphs over static input tensors and replayed after `copy_`-ing the
+current inputs into them.  A graph holds the addresses of its inputs
+(the sweep's kernels take raw pointers, ops/pairsweep.py; every captured
+op reads its tensors so): every input is copied, never rebound, and
+nothing inside the function reads a tensor on the host (the lists a step
+builds have fixed capacities; their counts come out with the step).
 
 A program's inputs come in two parts: the rebuild window's (neighbor and
 term lists, slot map, reference positions), copied once after each
@@ -18,14 +22,14 @@ both parts; the window's list lengths are padded to sizes that only grow
 (md.Engine._size), so after a few rebuilds every window has the same
 shapes and reuses the same programs.
 
-The CG of a full QEq solve (isQEq=1) ends on a host read of its finished
-flag between chunks of iterations (qeq.eager_loop): PyTorch exposes no
-conditional `while` node to Python (2.13 has `if` nodes,
-CUDAGraph.begin_capture_to_if_node; 2.11 has none).  So a program is a
-list of parts: plain graph segments,
-and between them the CG's chunk graph, which updates the CG's carry in
-place and is replayed until the flag is set.  A program with no such loop
-(the extended Lagrangian's one iteration, or no QEq) is one graph.
+The CG of a full QEq or PQEq solve (isQEq=1; qeq._cg, pqeq.solve) ends
+on a host read of its finished flag between chunks of iterations
+(qeq.eager_loop): PyTorch exposes no conditional `while` node to Python
+(2.13 has `if` nodes, CUDAGraph.begin_capture_to_if_node; 2.11 has
+none).  So a program is a list of parts: plain graph segments, and
+between them the CG's chunk graph, which updates the CG's carry in place
+and is replayed until the flag is set.  A program with no such loop (the
+extended Lagrangian's one iteration, or no QEq) is one graph.
 
 The first call of a key runs the function eagerly on the cache's stream
 (the warm-up: lazy initialization, cached tables, autograd's streams), the

@@ -35,10 +35,14 @@ too) and spring restraints.
 The host schedule is rxmd_tpu's (`Engine.run`): single steps, and blocks
 of `block_steps` steps between the host's boundaries and within the drift
 budget.  A step is a function of its inputs (`_step_fn`, a block
-`_multi_step`), which on a card the sweep engine runs as CUDA graphs
-(graphs.py; `uses_graphs`), the CG's chunks read by the host in between
-(qeq.py); every other engine, the CPU, and runs with `graphs` off or a
-PhaseTimer run the same functions eagerly.
+`_multi_step`), which on a card every configuration runs as CUDA graphs
+(graphs.py; `uses_graphs`), the CG's chunks (QEq's and PQEq's) read by
+the host in between (qeq.py); the CPU, the sweep's plain versions, and
+runs with `graphs` off or a PhaseTimer run the same functions eagerly.
+A step reads nothing on the host: the lists it builds itself (the
+tightened neighbor lists, the uncached terms' lists, the sweep's QEq
+list) have fixed capacities, and their counts come out with the step for
+the host to check at a block's end (`_check_lists`).
 """
 from __future__ import annotations
 
@@ -140,8 +144,27 @@ def _bond_table_from(bo, nbrs, gid, img, bo_cutoff):
     return gids, bos, keep.sum(dim=1)
 
 
-# the pair engines whose dispatches run as CUDA graphs on a card
-GRAPH_ENGINES = ("sweep",)
+# the capacities a step's own lists are held to, in StepOut.over's order:
+# the uncached terms' angle and torsion lists, candidate bonds and
+# hydrogens per center and hbond entries per donor (reax.energy_components'
+# counts), and the tightened neighbor lists (tighten_lists)
+CAP_NAMES = ("ang", "tor", "ks", "kh", "hb", "kb_t", "knb_t")
+
+
+def _over_vector(counts):
+    """A step's capacity counts (a dict of device tensors) as one (7,)
+    int64 vector in CAP_NAMES' order (0 where none was counted), or None
+    where the step counted none."""
+    if not counts:
+        return None
+    z = next(iter(counts.values())).new_zeros(())
+    return torch.stack([counts.get(k, z).to(torch.int64) for k in CAP_NAMES])
+
+
+def _max_or(a, b):
+    """The elementwise maximum of two tensors, either of which may be
+    None."""
+    return a if b is None else b if a is None else torch.maximum(a, b)
 
 
 class StepOut(NamedTuple):
@@ -156,6 +179,8 @@ class StepOut(NamedTuple):
     astr: torch.Tensor    # (6,) accumulated stress
     need: torch.Tensor    # () max QEq list entries of the steps, or None
     vmax2: torch.Tensor   # () final max v^2 of a block, None for a step
+    over: torch.Tensor    # (7,) max capacity counts of the steps (CAP_NAMES)
+                          # or None
 
 
 # mdmodes of the reference main loop (ref: main.F90:25,45-61): 1 NVE, 0 and
@@ -368,12 +393,13 @@ class Engine:
         self._graphs = None
         # steps per block dispatch (rxmd_tpu md.py:308), the schedule's
         # velocity bound and last block drift, the rebuild window's id,
-        # the QEq list's capacity and its entries since the last check
+        # the QEq list's capacity and its entries since the last check,
+        # and the capacity counts (CAP_NAMES) since the last check
         self.block_steps = max(int(cfg.block_steps), 1)
         self._vmax = self._last_maxdr = None
         self._window_id = 0
         self._sizes = {}
-        self._qcap = self._qeq_need = None
+        self._qcap = self._qeq_need = self._over = None
 
         # rebuild trigger: pair lists are valid while drift < skin/2, cached
         # term lists while drift < term_margin/2 (0 without a cache)
@@ -412,15 +438,22 @@ class Engine:
         return _build(s, self.img, self.grid, self.rc2b_ext, self.rctap2_ext,
                       self.kb, self.knb)
 
-    def _tight_nbrs(self, pos, H, types, nbrs):
+    def _tight_nbrs(self, pos, H, types, nbrs, counts=None):
         """The skinned lists filtered to the true cutoffs (tighten_lists),
-        raising where a row overflows its tight capacity."""
+        raising where a row overflows its tight capacity; with `counts` (a
+        dict) their largest rows go to counts["kb_t"] and ["knb_t"]
+        instead (device tensors, no host read; the host checks them at
+        the block's end, `_check_lists`)."""
         if not self.cfg.tighten_lists:
             return nbrs
         tight = neighbors.tighten(pos, H, types, self.img, nbrs,
                                   self.ffd.rc2b, self.ffd.rctap2,
                                   self.caps["kb_t"], self.caps["knb_t"])
-        neighbors.check_overflow(tight)
+        if counts is None:
+            neighbors.check_overflow(tight)
+        else:
+            counts["kb_t"] = tight.cntb.max()
+            counts["knb_t"] = tight.cntnb.max()
         return tight
 
     def _pair_data(self, pos, s: State, nbrs, sm, qcap=None):
@@ -567,7 +600,7 @@ class Engine:
                     self.ffd, self.pq, isqeq=isqeq, nmax=cfg.NMAXQEq,
                     tol=cfg.QEq_tol, lex_fqs=cfg.Lex_fqs,
                     efield_dir=cfg.eFieldDir if cfg.isEfield else None,
-                    efield_strength=cfg.eFieldStrength)
+                    efield_strength=cfg.eFieldStrength, loop=loop)
             if isqeq == 1:
                 return qn, q, torch.zeros_like(qsfv), iters, spos_n
             return qn, qsfp, qsfv, iters, spos_n
@@ -589,11 +622,14 @@ class Engine:
         return res.q, qsfp, qsfv, res.iters, spos
 
     def _potential(self, pos, q, s: State, nbrs, lists, pairs, with_virial,
-                   spos=None):
+                   spos=None, counts=None):
         """Potential energy components, forces [and virial]: the pair
         engine's nonbond spliced into the bonded terms' autograd pass (the
         hydrogen bonds of uncached terms reuse the pair context); under
-        PQEq the core/shell nonbond at shells `spos` joins that pass."""
+        PQEq the core/shell nonbond at shells `spos` joins that pass.
+        Uncached terms enumerate exact lists, raising at once on an
+        overflow, or with `counts` (a dict) lists of the engine's
+        capacities, their counts left in it (reax.energy_components)."""
         with self._phase("nonbond"):
             ext_nb = self._external_nonbond(pos, q, s, pairs, with_virial)
         ctx = pairs[0] if pairs is not None and self.pair_engine == "ell" \
@@ -602,7 +638,8 @@ class Engine:
             return reax.energy_and_forces(
                 pos, q, s.H, s.types, s.gid, self.img, nbrs, self.ffd,
                 lists, with_virial=with_virial, external_nonbond=ext_nb,
-                caps=self.caps, ctx=ctx, pq=self.pq, spos=spos)
+                caps=self.caps, ctx=ctx, pq=self.pq, spos=spos,
+                counts=counts)
 
     def _external_forces(self, pos, q, types=None):
         """Electric-field and spring forces, or None without either."""
@@ -626,9 +663,9 @@ class Engine:
         return f_extra
 
     def _forces(self, pos, q, s: State, nbrs, lists, pairs, with_virial,
-                spos=None):
+                spos=None, counts=None):
         out = self._potential(pos, q, s, nbrs, lists, pairs, with_virial,
-                              spos)
+                              spos, counts)
         f_extra = self._external_forces(pos, q, s.types)
         if f_extra is None:
             return out
@@ -742,7 +779,14 @@ class Engine:
         self.timers.peak("bonded nbr list", mb, self.kb)
         self.timers.peak("nonbonded nbr list", mnb, self.knb)
         if lists is not None:
-            self._check_list_overflow(lists)
+            counts = [int(lst.cnt) for lst in lists]
+            caps = [lst.valid.shape[0] for lst in lists]
+            err = self._list_overflow(("ang", "tor", "hbf"), counts, caps)
+            if err:
+                raise RuntimeError(err)
+            for name, c, cap in zip(("angle list", "torsion list",
+                                     "hbond list"), counts, caps):
+                self.timers.peak(name, c, cap)
             lists = tuple(
                 _trim(lst, self._size(nm, lst.cnt, lst.valid.shape[0]))
                 for nm, lst in zip(("ang", "tor", "hbf"), lists))
@@ -761,8 +805,9 @@ class Engine:
         the cached many-body lists (slackened gates; none for uncached
         terms) and the sweep's slot layout with its QEq list capacity:
         the walk's candidates (pairsweep.walk_candidates), padded as the
-        window's lists are (`_size`)."""
-        self._check_qeq_list()
+        window's lists are (`_size`).  First the lists of the steps since
+        the last check are checked (`_check_lists`)."""
+        self._check_lists()
         pos = self._wrap(s.pos, s.H)
         self.nbrs, self.tlists, self._slotmap = self._build_lists(
             pos, s, self.term_slack, self.term_margin,
@@ -785,24 +830,63 @@ class Engine:
         self._sizes[name] = size
         return size
 
-    def _check_qeq_list(self, need=None):
-        """Raise if a QEq list of the steps since the last check overflowed
-        its capacity (one host read, none if `need` was read already; as
-        _check_list_overflow does for the term lists)."""
-        if need is None:
-            need = self._qeq_need
-        self._qeq_need = None
-        if need is not None and int(need) > self._qcap:
+    def _pending(self):
+        """The steps' counts not yet checked, as a list of tensors: the
+        QEq list's entries, then the capacity counts (CAP_NAMES)."""
+        return [t.reshape(-1) for t in (self._qeq_need, self._over)
+                if t is not None]
+
+    def _check_lists(self, vals=None):
+        """Raise if a list of the steps since the last check overflowed
+        its capacity: the sweep's QEq list (`_qcap`) and the steps' own
+        lists (CAP_NAMES against `caps`: the uncached terms and the
+        tightened neighbor lists).  One host read, none if `vals` (the
+        values of `_pending()`, in order) was read already.  The steps
+        run a block or more past an overflow before this raises (the
+        host reads at a block's end, a rebuild and a run's end); rxmd_tpu
+        drops the entries past a capacity, and the port raises."""
+        if vals is None:
+            pend = self._pending()
+            vals = (torch.cat([t.double() for t in pend]).tolist() if pend
+                    else [])
+        need = vals[0] if self._qeq_need is not None else None
+        over = vals[-len(CAP_NAMES):] if self._over is not None else None
+        self._qeq_need = self._over = None
+        if need is not None and need > self._qcap:
             raise RuntimeError(
                 f"QEq list overflow: {int(need)} entries > capacity "
                 f"{self._qcap} (pairsweep.walk_candidates bounds them)")
+        if over is not None:
+            self._check_over(dict(zip(CAP_NAMES, (int(v) for v in over))))
 
-    def _check_list_overflow(self, lists):
-        """Abort on interaction-list overflow like the reference
-        (ref: main.F90:402-407), naming every cap that tripped."""
-        names = ("ang", "tor", "hbf")
-        counts = [int(lst.cnt) for lst in lists]
-        caps = [lst.valid.shape[0] for lst in lists]
+    def _check_over(self, got):
+        """Raise, naming each cap, where a step's own list overflowed
+        (`got`: CAP_NAMES -> the steps' largest count), with the messages
+        of the rebuild's and neighbors.check_overflow's checks."""
+        caps = self.caps
+        msgs = [m for name, m in (
+            ("kb_t", f"bonded neighbor overflow: {got['kb_t']} > capacity "
+                     f"{caps['kb_t']} (caps['kb_t'], tighten_lists)"),
+            ("knb_t", f"nonbonded neighbor overflow: {got['knb_t']} > "
+                      f"capacity {caps['knb_t']} (caps['knb_t'], "
+                      "tighten_lists)"),
+            ("ks", f"many-body candidate overflow: {got['ks']} bonds at "
+                   f"one center > ks={caps['ks']} (raise caps['ks'])"),
+            ("kh", f"hbond overflow: {got['kh']} hydrogens on one donor > "
+                   f"kh={caps['kh']} (raise caps['kh'])"),
+            ("hb", f"hbond overflow: {got['hb']} entries at one donor > "
+                   f"cap={caps['hb']} (raise caps['hb'])"))
+            if got[name] > caps[name]]
+        msgs.append(self._list_overflow(("ang", "tor"), (got["ang"],
+                                        got["tor"]), (caps["ang"],
+                                                      caps["tor"])))
+        if any(msgs):
+            raise RuntimeError("; ".join(m for m in msgs if m))
+
+    def _list_overflow(self, names, counts, caps):
+        """The reference's interaction-list overflow abort message (ref:
+        main.F90:402-407) naming every cap that tripped, `counts` of the
+        lists `names` against their `caps`; None if none did."""
         errors = []
         rows = [nm + "_row" if nm != "hbf" else "hb_row"
                 for nm, c in zip(names, counts) if c >= reax.ROW_OVERFLOW]
@@ -814,12 +898,10 @@ class Engine:
         if total:
             errors.append(f"total overflow: {', '.join(total)} — raise caps")
         if errors:
-            raise RuntimeError("interaction-list overflow: "
-                               + "; ".join(errors) + f" (caps={self.caps}; "
-                               "ref aborts too, main.F90:402-407)")
-        for name, c, cap in zip(("angle list", "torsion list", "hbond list"),
-                                counts, caps):
-            self.timers.peak(name, c, cap)
+            return ("interaction-list overflow: " + "; ".join(errors)
+                    + f" (caps={self.caps}; ref aborts too, "
+                    "main.F90:402-407)")
+        return None
 
     def _check_slot_overflow(self, sm):
         ov = int(sm.overflow)
@@ -855,7 +937,7 @@ class Engine:
         self.qeq_solves += bool(self.cfg.isQEq)
         if self.pair_engine == "sweep" and self.cfg.isQEq:
             self._qeq_need = pairs.need()
-            self._check_qeq_list()
+            self._check_lists()
         self._astr = torch.zeros((6,), dtype=self.dtype, device=self.device)
         self._astr_steps = 0
         return comps
@@ -866,7 +948,10 @@ class Engine:
         `_step_fn`, md.py:637-714): a StepOut.  It reads the engine's
         constants and mutates nothing, so a CUDA graph can hold it;
         `do_scale` and `do_qeq` are the host's decisions for this step,
-        `qcap` the QEq list's capacity, `loop` runs the CG's chunks."""
+        `qcap` the QEq list's capacity, `loop` runs the CG's chunks.  The
+        step's own lists (tightened neighbors, uncached terms) have fixed
+        capacities: their counts come out in `over`, for the host to
+        check at the block's end."""
         cfg = self.cfg
         dt = self.dt
         s = self._thermostat(s, do_scale)
@@ -883,7 +968,8 @@ class Engine:
         # drift (ref: main.F90:72); wrapping happens at list rebuilds
         pos = s.pos + dt * v
 
-        nbrs = self._tight_nbrs(pos, s.H, s.types, nbrs)
+        counts = {}
+        nbrs = self._tight_nbrs(pos, s.H, s.types, nbrs, counts)
         pairs = self._pair_data(pos, s, nbrs, sm, qcap)
         need = None
         if do_qeq:
@@ -897,7 +983,7 @@ class Engine:
         if not isinstance(nq, torch.Tensor):
             nq = torch.full((), nq, dtype=torch.int32, device=pos.device)
         comps, f2, w = self._forces(pos, q, s, nbrs, lists, pairs, True,
-                                    spos)
+                                    spos, counts)
 
         # per-step stress accumulation: kinetic m v_a v_b with the
         # half-kicked velocity + potential virial (ref: main.F90:86-94)
@@ -915,25 +1001,26 @@ class Engine:
         maxdr2 = torch.max(torch.sum((pos - pos_ref) ** 2, dim=1))
         s2 = dataclasses.replace(s, pos=pos, vel=v, q=q, qsfp=qsfp,
                                  qsfv=qsfv, spos=spos, step=s.step + 1)
-        return StepOut(s2, f2, comps, nq, nq, ke, maxdr2, astr, need, None)
+        return StepOut(s2, f2, comps, nq, nq, ke, maxdr2, astr, need, None,
+                       _over_vector(counts))
 
     def _multi_step(self, pattern, s: State, f, nbrs, lists, sm, qcap,
                     pos_ref, astr, loop=None):
         """len(pattern) steps, (do_scale, do_qeq) each (rxmd_tpu's
         `_make_multi_step`, md.py:717-738): the last step's StepOut with
         the CG iterations summed over the steps (`nq_sum`), the block's
-        running maximum of the drift (`maxdr2`) and of the QEq list's
-        entries, and the final max v^2 (`vmax2`)."""
+        running maximum of the drift (`maxdr2`), of the QEq list's
+        entries and of the capacity counts (`over`), and the final max
+        v^2 (`vmax2`)."""
         out = None
         for do_scale, do_qeq in pattern:
             o = self._step_fn(s, f, nbrs, lists, sm, qcap, pos_ref, astr,
                               do_scale, do_qeq, loop)
             if out is not None:
-                need = (o.need if out.need is None or o.need is None
-                        else torch.maximum(out.need, o.need))
                 o = o._replace(nq_sum=out.nq_sum + o.nq,
                                maxdr2=torch.maximum(out.maxdr2, o.maxdr2),
-                               need=o.need if need is None else need)
+                               need=_max_or(out.need, o.need),
+                               over=_max_or(out.over, o.over))
             out = o
             s, f, astr = o.state, o.force, o.astr
         return out._replace(vmax2=torch.max(torch.sum(s.vel * s.vel, dim=1)))
@@ -951,12 +1038,11 @@ class Engine:
                                 pos_ref, astr, loop)
 
     def uses_graphs(self):
-        """Whether dispatches run as CUDA graphs: on a card, for the sweep
-        engine (GRAPH_ENGINES), unless `graphs` is off, a PhaseTimer is
-        set (its events cannot time the inside of a graph) or the plain
+        """Whether dispatches run as CUDA graphs: on a card, for every
+        configuration, unless `graphs` is off, a PhaseTimer is set (its
+        events cannot time the inside of a graph) or the sweep's plain
         versions run (they read counts on the host)."""
         return (self.graphs and self.device.type == "cuda"
-                and self.pair_engine in GRAPH_ENGINES
                 and self.phases is None and not self.plain_sweeps)
 
     @torch.no_grad()
@@ -995,9 +1081,8 @@ class Engine:
         self._astr = out.astr
         self.cg_iters = self.cg_iters + out.nq_sum
         self.qeq_solves += sum(do_qeq for _, do_qeq in pattern)
-        if out.need is not None:
-            self._qeq_need = (out.need if self._qeq_need is None
-                              else torch.maximum(self._qeq_need, out.need))
+        self._qeq_need = _max_or(self._qeq_need, out.need)
+        self._over = _max_or(self._over, out.over)
         self._maxdr2_dev = out.maxdr2 if K == 1 else None
         self._astr_steps += K
         self._steps_since_rebuild += K
@@ -1087,13 +1172,13 @@ class Engine:
             if nb >= self.block_steps > 1:
                 with tm("MD block (dispatch)"):
                     out = self._advance(self.block_steps)
-                    # one read: the block's drift, max v^2 and QEq list
-                    vals = [out.maxdr2, out.vmax2] + (
-                        [] if self._qeq_need is None else [self._qeq_need])
-                    mdr, vmax2, *need = torch.stack(
+                    # one read: the block's drift, max v^2, QEq list and
+                    # capacity counts
+                    vals = [out.maxdr2[None], out.vmax2[None]] \
+                        + self._pending()
+                    mdr, vmax2, *pend = torch.cat(
                         [v.double() for v in vals]).tolist()
-                    if need:
-                        self._check_qeq_list(need[0])
+                    self._check_lists(pend)
                 self._last_maxdr = mdr ** 0.5
                 self._vmax = vmax2 ** 0.5
                 nadv = self.block_steps
@@ -1104,7 +1189,7 @@ class Engine:
                 nadv = 1
             k += nadv
             tm.count("MD steps", nadv)
-        self._check_qeq_list()
+        self._check_lists()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -1128,9 +1213,7 @@ class Engine:
                 f"{str(self.dtype)[6:]} on {self.device}; charges {charges}"
                 f"{'; LG dispersion' if self.ff.is_lg else ''}; taper "
                 f"{self.rctap} A; blocks of {self.block_steps} steps, "
-                f"{'as CUDA graphs' if self.uses_graphs() else 'eager'} "
-                f"(CUDA graphs for the {', '.join(GRAPH_ENGINES)} engine on "
-                "a card)")
+                f"{'as CUDA graphs' if self.uses_graphs() else 'eager'}")
 
     def summary(self):
         """What runs (`describe`), then the end-of-run per-phase timing /

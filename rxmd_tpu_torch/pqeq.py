@@ -15,11 +15,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import units
+from . import qeq, units
 from .neighbors import ImageTable, Neighbors, ext_positions
 from .reax import FFDev
 
@@ -193,19 +194,41 @@ def pqeq_kernels(pq: PQEqParams, tblE, ti, tj, dvec, mask):
     return torch.where(m, _lerp2(tblE, ti, tj, dr2, pq.udr, pq.udri, m), 0.0)
 
 
+class PQEqCarry(NamedTuple):
+    """PQEq's CG loop state (rxmd_tpu pqeq.py:262-266), on the device."""
+    it: torch.Tensor      # () int32 completed updates
+    qs: torch.Tensor      # (n,) the s and t iterates
+    qt: torch.Tensor
+    qcur: torch.Tensor    # (n,) their charges
+    hs: torch.Tensor      # (n,) search directions
+    ht: torch.Tensor
+    gs: torch.Tensor      # (n,) gradients
+    gt: torch.Tensor
+    gnew: torch.Tensor    # (2,) g.g of both
+    gest2: torch.Tensor   # () Est of the previous update
+    est: torch.Tensor     # () Est of the last iteration run
+    done: torch.Tensor    # () bool: a stop test fired
+    fin: torch.Tensor     # () bool: the loop has ended
+
+
 def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
           ffd: FFDev, pq: PQEqParams, amask=None, isqeq: int = 1,
           nmax: int = 500, tol: float = 1e-7, lex_fqs: float = 1.0,
           efield_dir=None, efield_strength: float = 0.0,
-          lmin_f32: bool = False, allreduce=None, refresh=None):
+          lmin_f32: bool = False, allreduce=None, refresh=None,
+          loop=None):
     """PQEq CG solve + one shell relaxation step (ref: pqeq.F90:2-259).
-    Returns (q, spos_new, iters, Est).
+    Returns (q, spos_new, iters, Est), iters and Est on the device.
 
     isqeq=1: full CG from q; isqeq=2: the extended-Lagrangian warm start,
-    one iteration.  The loop is rxmd_tpu.pqeq's: each iteration reads the
-    stop tests on Est (ref: pqeq.F90:114-115) on the host and, on a stop,
-    keeps the previous iterate; the gradient is recomputed from the new
-    iterate, not carried by the residual recurrence of qeq._cg.
+    one iteration.  The loop is rxmd_tpu.pqeq's `lax.while_loop`
+    (pqeq.py:275-308) as a masked update, as qeq._cg runs QEq's: each
+    iteration tests the stop on Est (ref: pqeq.F90:114-115) and, on a
+    stop, keeps the previous iterate; the gradient is recomputed from the
+    new iterate, not carried by the residual recurrence of qeq._cg.  The
+    iterations run in chunks of qeq.CG_CHUNK, driven by `loop(run_chunk,
+    carry, nchunks)` (qeq.eager_loop if None: one host read of the
+    finished flag between chunks; a CUDA graph capture passes its own).
     `efield_dir`/`efield_strength`: a constant field on the shell charges
     (ref: pqeq.F90:205).  `lmin_f32` stores the line-minimization step in
     float32 as the reference does (pqeq.F90:27).
@@ -301,55 +324,77 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
                             torch.sum(hs * hshs_v), torch.sum(ht * hsht_v)])
 
     if isqeq == 2:
-        qs = torch.where(amask, lex_fqs * qsfp + (1.0 - lex_fqs) * q, 0.0)
+        qs0 = torch.where(amask, lex_fqs * qsfp + (1.0 - lex_fqs) * q, 0.0)
         nmax_eff = 1
     else:
-        qs = torch.where(amask, q, 0.0)
-        nmax_eff = nmax
-    qt = torch.zeros_like(q)
-    gs, gt, gnew = gradient(qs, qt)
-    hs, ht = gs, gt
-    qcur = q
+        qs0 = torch.where(amask, q, 0.0)
+        nmax_eff = int(nmax)
+    qt0 = torch.zeros_like(q)
+    gs0, gt0, gnew0 = gradient(qs0, qt0)
+    scalar = lambda v, dt: torch.full((), v, dtype=dt, device=dev)
     # "never converged yet" sentinel (ref GEst2=1.d99, pqeq.F90:98), the
     # dtype's own max so float32 does not overflow
-    gest2 = torch.tensor(torch.finfo(dtype).max, dtype=dtype, device=dev)
-    est = torch.zeros((), dtype=dtype, device=dev)
-    it = 0
-    while it < nmax_eff:
-        est = electrostatic(qcur)
+    carry = PQEqCarry(it=scalar(0, torch.int32), qs=qs0, qt=qt0, qcur=q,
+                      hs=gs0, ht=gt0, gs=gs0, gt=gt0, gnew=gnew0,
+                      gest2=scalar(torch.finfo(dtype).max, dtype),
+                      est=scalar(0.0, dtype), done=scalar(False, torch.bool),
+                      fin=scalar(nmax_eff <= 0, torch.bool))
+
+    def body(c):
+        """rxmd_tpu's loop body (pqeq.py:279-306) as a masked update."""
+        est = electrostatic(c.qcur)
+        prods = line_products(c.gs, c.gt, c.hs, c.ht)
         if multi:
-            # Est and the four line-search products in one reduction: the
-            # matvecs come before the stop test, as in rxmd_tpu's loop
-            # body, and go unused on a stop
-            prods = line_products(gs, gt, hs, ht)
+            # Est and the four line-search products in one reduction,
+            # before the stop test, as in rxmd_tpu's loop body
             red = allreduce(torch.cat([est[None], prods]))
             est, prods = red[0], red[1:]
-        ex1 = 0.5 * (torch.abs(gest2) + torch.abs(est)) < tol
-        ex2 = (torch.abs(gest2) > 0.0) & (torch.abs(est / gest2 - 1.0) < tol)
-        if bool(ex1 | ex2):
-            break
-        if not multi:
-            prods = line_products(gs, gt, hs, ht)
+        ex1 = 0.5 * (torch.abs(c.gest2) + torch.abs(est)) < tol
+        ex2 = ((torch.abs(c.gest2) > 0.0)
+               & (torch.abs(est / c.gest2 - 1.0) < tol))
         g_h, h_hsh = prods[:2], prods[2:]
         lmin = g_h / torch.where(h_hsh != 0.0, h_hsh, 1.0)
         if lmin_f32:
             lmin = lmin.to(torch.float32).to(dtype)    # ref: pqeq.F90:27
-        qs1 = qs + lmin[0] * hs
-        qt1 = qt + lmin[1] * ht
+        qs1 = c.qs + lmin[0] * c.hs
+        qt1 = c.qt + lmin[1] * c.ht
         st = allreduce(torch.stack([torch.sum(qs1), torch.sum(qt1)]))
         mu = st[0] / st[1]
-        qcur = torch.where(amask, qs1 - mu * qt1, 0.0)
+        q1 = torch.where(amask, qs1 - mu * qt1, 0.0)
         gs1, gt1, gnew1 = gradient(qs1, qt1)
-        gsafe = torch.where(torch.abs(gnew) > 0.0, gnew, 1.0)
-        hs = gs1 + (gnew1[0] / gsafe[0]) * hs
-        ht = gt1 + (gnew1[1] / gsafe[1]) * ht
-        qs, qt, gs, gt, gnew, gest2 = qs1, qt1, gs1, gt1, gnew1, est
-        it += 1
+        gsafe = torch.where(torch.abs(c.gnew) > 0.0, c.gnew, 1.0)
+        hs1 = gs1 + (gnew1[0] / gsafe[0]) * c.hs
+        ht1 = gt1 + (gnew1[1] / gsafe[1]) * c.ht
+        # rxmd_tpu's cond (it < nmax and not done); a stop keeps the
+        # previous iterate
+        run = (c.it < nmax_eff) & ~c.done
+        take = run & ~(ex1 | ex2)
+        sel = lambda new, old: torch.where(take, new, old)
+        it = c.it + take.to(torch.int32)
+        done = c.done | (run & ~take)
+        return PQEqCarry(it=it, qs=sel(qs1, c.qs), qt=sel(qt1, c.qt),
+                         qcur=sel(q1, c.qcur), hs=sel(hs1, c.hs),
+                         ht=sel(ht1, c.ht), gs=sel(gs1, c.gs),
+                         gt=sel(gt1, c.gt), gnew=sel(gnew1, c.gnew),
+                         gest2=sel(est, c.gest2),
+                         est=torch.where(run, est, c.est), done=done,
+                         fin=done | (it >= nmax_eff))
+
+    if nmax_eff > 0:
+        size = min(qeq.CG_CHUNK, nmax_eff)
+
+        def run_chunk(c):
+            for _ in range(size):
+                c = body(c)
+            return c
+        carry = (loop or qeq.eager_loop)(run_chunk, carry,
+                                         math.ceil(nmax_eff / size))
+    qcur = carry.qcur
 
     spos_new = update_shells(pos, spos, refresh(qcur), H, types, img, nbrs,
                              pq, amask, efield_dir=efield_dir,
                              efield_strength=efield_strength)
-    return qcur, spos_new, it, est
+    return qcur, spos_new, carry.it, carry.est
 
 
 def shell_forces(pos, spos, q, H, types, img, nbrs, pq: PQEqParams, amask,

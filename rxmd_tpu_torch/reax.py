@@ -783,6 +783,13 @@ def _flat_compact(mask_flat, cap):
     return idx[:cap], valid, cnt
 
 
+def _count(counts, name, value):
+    """Keep the largest `value` under `name` in the dict `counts` (device
+    tensors: no host read)."""
+    old = counts.get(name)
+    counts[name] = value if old is None else torch.maximum(old, value)
+
+
 def _exact_compact(mask_flat, cand_cnt, ks):
     """Indices of every True entry of a flat mask, in index order, for the
     uncached terms' per-step lists.  A center with more than `ks`
@@ -897,16 +904,22 @@ def _angle_mask(types, img, nbrs, bo, amask, ffd, ks, slack, margin):
 
 def build_angle_list(types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
                      cap: int = 4096, ks: int = 12, slack: float = 1.0,
-                     margin: float = 0.0, rowcap: int = 0) -> AngleList:
+                     margin: float = 0.0, rowcap: int = 0,
+                     counts=None) -> AngleList:
     """Compact flat angle list (ref enumeration: pot.F90:369-399).
     `cap` is the TOTAL entry capacity; `rowcap` > 0 bounds the per-center
     count and selects the two-stage pack.  `cap=None` builds the exact
-    list, every entry and no padding (the uncached terms' per-step
-    enumeration)."""
+    list, every entry and no padding, and raises where a center has more
+    than `ks` candidate bonds.  With `counts` (a dict) the most candidate
+    bonds at one center go to counts["ks"], a device tensor, for the
+    caller to hold against `ks` (a list of a capacity drops the excess,
+    as rxmd_tpu's does)."""
     n = nbrs.center_rows
     pm, sslot, cand_cnt = _angle_mask(types, img, nbrs, bo, amask, ffd, ks,
                                       slack, margin)
     ks = sslot.shape[1]
+    if counts is not None and cand_cnt.numel():
+        _count(counts, "ks", cand_cnt.max())
     if cap is None:
         fidx, valid, cnt = _exact_compact(pm.reshape(-1), cand_cnt, ks)
     elif rowcap > 0:
@@ -927,15 +940,19 @@ def build_angle_list(types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
 
 
 def e_3body(pos, H, types, img, nbrs, bo: BondOrder, lp: LonePair, amask,
-            ffd: FFDev, al: AngleList = None, ks: int = 12):
+            ffd: FFDev, al: AngleList = None, ks: int = 12, cap: int = None,
+            counts=None):
     """Valence angle + penalty + 3-body conjugation (ref: pot.F90:355-549)
     over the cached flat angle list, re-gated with live bond orders, or
-    over the exact list built here when `al` is None (`ks` candidate bonds
-    per center).  Geometry comes from the differentiable bond table
-    bo.drb."""
+    over a list built here when `al` is None (`ks` candidate bonds per
+    center): of capacity `cap`, its count in counts["ang"] (see
+    build_angle_list), or exact when `cap` is None.  Geometry comes from
+    the differentiable bond table bo.drb."""
     if al is None:
-        al = build_angle_list(types, img, nbrs, bo, amask, ffd, cap=None,
-                              ks=ks)
+        al = build_angle_list(types, img, nbrs, bo, amask, ffd, cap=cap,
+                              ks=ks, counts=counts)
+        if counts is not None:
+            _count(counts, "ang", al.cnt)
     j, a, c = al.j, al.a, al.c
     bo0 = bo.bo[..., 0]
     esub = units.CUTOF2_ESUB
@@ -1109,13 +1126,13 @@ def _torsion_mask(types, gid, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
 def build_torsion_list(types, gid, img, nbrs, bo: BondOrder, amask,
                        ffd: FFDev, cap: int = 8192, ks: int = 12,
                        slack: float = 1.0, margin: float = 0.0,
-                       rowcap: int = 0) -> TorsionList:
+                       rowcap: int = 0, counts=None) -> TorsionList:
     """Compact flat torsion list (ref enumeration: pot.F90:1019-1081).
 
     Center j, bond c -> k (counted once via gid(j) < gid(k)), slot a -> i in
     j's list, slot e -> l in owner(k)'s list.  `cap` is the TOTAL entry
     capacity; `rowcap` (> 0, required) bounds the per-center count.
-    `cap=None` builds the exact list (see build_angle_list)."""
+    `cap=None` builds the exact list; `counts` as in build_angle_list."""
     if cap is not None and rowcap <= 0:
         raise ValueError("build_torsion_list needs rowcap > 0 (the two-stage "
                          "pack); size it with md.probe_capacities")
@@ -1123,6 +1140,8 @@ def build_torsion_list(types, gid, img, nbrs, bo: BondOrder, amask,
     mask4, sslot, cand_cnt = _torsion_mask(types, gid, img, nbrs, bo, amask,
                                            ffd, ks, slack, margin)
     ks = sslot.shape[1]
+    if counts is not None and cand_cnt.numel():
+        _count(counts, "ks", cand_cnt.max())
     if cap is None:
         fidx, valid, cnt = _exact_compact(mask4.reshape(-1), cand_cnt, ks)
     else:
@@ -1145,14 +1164,18 @@ def build_torsion_list(types, gid, img, nbrs, bo: BondOrder, amask,
 
 
 def e_4body(pos, H, types, img, nbrs, bo: BondOrder, amask, gid,
-            ffd: FFDev, tl: TorsionList = None, ks: int = 12):
+            ffd: FFDev, tl: TorsionList = None, ks: int = 12,
+            cap: int = None, rowcap: int = 0, counts=None):
     """Torsion + 4-body conjugation (ref: pot.F90:1012-1219) over the
-    cached flat torsion list with live BO re-gating, or over the exact list
-    built here when `tl` is None; all four legs come from the
-    differentiable bond table bo.drb."""
+    cached flat torsion list with live BO re-gating, or over a list built
+    here when `tl` is None: of capacity `cap` (rows `rowcap`), its count
+    in counts["tor"] (see build_torsion_list), or exact when `cap` is
+    None; all four legs come from the differentiable bond table bo.drb."""
     if tl is None:
         tl = build_torsion_list(types, gid, img, nbrs, bo, amask, ffd,
-                                cap=None, ks=ks)
+                                cap=cap, ks=ks, rowcap=rowcap, counts=counts)
+        if counts is not None:
+            _count(counts, "tor", tl.cnt)
     j, a, c, ok, e = tl.j, tl.a, tl.c, tl.ok, tl.e
     bo0 = bo.bo[..., 0]
     esub = units.CUTOF2_ESUB
@@ -1351,7 +1374,7 @@ def e_hbond_list(pos, H, types, img, nbrs, bo: BondOrder, hl: HBondList,
 
 
 def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
-            cap: int = 64, kh: int = 6, ctx: NbCtx = None):
+            cap: int = 64, kh: int = 6, ctx: NbCtx = None, counts=None):
     """Hydrogen-bond energy without a cached list (ref: pot.F90:587-665):
     donor i, central hydrogen j bonded to i (up to `kh` per donor),
     acceptor k from i's nonbonded list within rchb.  With `ctx` the
@@ -1359,7 +1382,9 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     types and distances from the pair context; without it the valid
     entries are compacted per donor into `cap` slots.  A donor with more
     hydrogens than `kh` or entries than `cap` raises, where rxmd_tpu
-    drops them.  Donors: `nbrs.center_rows`."""
+    drops them; with `counts` (a dict) their maxima go to counts["kh"]
+    and counts["hb"] instead, device tensors the caller holds against
+    the caps.  Donors: `nbrs.center_rows`."""
     if ffd.hbprm.shape[0] == 0:
         return torch.zeros((), dtype=pos.dtype, device=pos.device)
     n, knb = nbrs.center_rows, nbrs.idxnb.shape[1]
@@ -1385,7 +1410,9 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
                & amask[:n, None])
     kh = min(kh, kb)
     hslot, hvalid, hcnt = _row_topk_slots(mask_ij, kh)
-    if int(hcnt.max()) > kh:
+    if counts is not None:
+        _count(counts, "kh", hcnt.max())
+    elif int(hcnt.max()) > kh:
         raise RuntimeError(f"hbond overflow: {int(hcnt.max())} hydrogens on "
                            f"one donor > kh={kh} (raise caps['kh'])")
     row = torch.arange(n, device=dev)[:, None]
@@ -1422,7 +1449,9 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
                 & (idx_h[:, :, None] != idxnb[:, None, :])     # j != k
                 & (rik2 < units.RCHB2)[:, None, :])
         s, valid, cnt = _row_topk_slots(mask.reshape(n, kh * knb), cap)
-        if int(cnt.max()) > s.shape[1]:
+        if counts is not None:
+            _count(counts, "hb", cnt.max())
+        elif int(cnt.max()) > s.shape[1]:
             raise RuntimeError(f"hbond overflow: {int(cnt.max())} entries at "
                                f"one donor > cap={cap} (raise caps['hb'])")
         b_slot = hslot[row, s // knb]
@@ -1552,14 +1581,19 @@ DEFAULT_CAPS = {"ks": 12, "kh": 6, "hb": 64}
 def energy_components(pos, q, H, types, gid, img: ImageTable,
                       nbrs: Neighbors, ffd: FFDev, lists=None, amask=None,
                       caps=None, include_nonbond=True, ctx=None, pq=None,
-                      spos=None):
+                      spos=None, counts=None):
     """All potential-energy components as a (14,) vector in the
     reference's PE slot convention (ref: module.F90:143-146):
       0=total 1=Ebond 2=Elp 3=Eover 4=Eunder 5=Eval 6=Epen 7=Ecoa
       8=Etors 9=Econj 10=Ehb 11=Evdw 12=Eclmb 13=Echarge
     over the cached (angle, torsion, hbond) `lists`, or over per-call
     enumeration where `lists` is None (`caps` "ks", "kh", "hb"; the
-    hydrogen bonds on the pair context `ctx`, built here if not given).
+    hydrogen bonds on the pair context `ctx`, built here if not given):
+    exact lists, raising at once on an overflow of ks, kh or hb; or, with
+    `counts` (a dict), lists of the fixed capacities caps "ang", "tor"
+    and "tor_row", as rxmd_tpu builds them, and every count and candidate
+    maximum left in `counts` as a device tensor (no host read; the caller
+    holds them against `caps`).
     Slots 11-13 hold the table nonbond `e_nonbond` (under PQEq, `pq` the
     parameters and `spos` the shells: `e_nonbond_pqeq`) with
     `include_nonbond`, else zero (the caller splices its own in)."""
@@ -1571,17 +1605,22 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
     lp = lone_pair(types, bo.delta, ffd)
     ebond = e_bond(types, img, nbrs, bo, gid, amask, ffd)
     elp, eover, eunder = e_lnpr(types, img, nbrs, bo, lp, amask, ffd)
+    capped = counts is not None
     eval_, epen, ecoa = e_3body(pos, H, types, img, nbrs, bo, lp, amask,
-                                ffd, al, ks=caps["ks"])
+                                ffd, al, ks=caps["ks"],
+                                cap=caps["ang"] if capped else None,
+                                counts=counts)
     etors, econj = e_4body(pos, H, types, img, nbrs, bo, amask, gid, ffd, tl,
-                           ks=caps["ks"])
+                           ks=caps["ks"], cap=caps["tor"] if capped else None,
+                           rowcap=caps["tor_row"] if capped else 0,
+                           counts=counts)
     if hl is not None:
         ehb = e_hbond_list(pos, H, types, img, nbrs, bo, hl, ffd)
     else:
         if ctx is None:
             ctx = nb_ctx(pos, None, H, types, img, nbrs, gid, amask, ffd)
         ehb = e_hbond(pos, H, types, img, nbrs, bo, amask, ffd,
-                      cap=caps["hb"], kh=caps["kh"], ctx=ctx)
+                      cap=caps["hb"], kh=caps["kh"], ctx=ctx, counts=counts)
     z = torch.zeros_like(ebond)
     evdw = eclmb = echarge = z
     if include_nonbond and pq is not None:
@@ -1598,7 +1637,8 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
 def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
                       amask=None, with_virial=False, external_nonbond=None,
                       caps=None, fast_nonbond=True, closed_form=None,
-                      ctx=None, rows_pre=None, pq=None, spos=None):
+                      ctx=None, rows_pre=None, pq=None, spos=None,
+                      counts=None):
     """(PE components, forces[, virial]).
 
     Bonded forces are -dE/dpos by autograd; the ghost-force reduction
@@ -1616,7 +1656,7 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
     the table energy `e_nonbond` joins the autograd pass, as the PQEq
     energy `e_nonbond_pqeq` always does (`pq`, `spos`; ref: rxmd_tpu takes
     no row-local nonbond under PQEq).  `closed_form` None means the
-    tables, as in rxmd_tpu.
+    tables, as in rxmd_tpu.  `counts`: see energy_components.
     """
     use_fast = fast_nonbond and external_nonbond is None and pq is None
     if amask is None:
@@ -1624,7 +1664,7 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
     if ctx is None and use_fast:
         ctx = nb_ctx(pos, q, H, types, img, nbrs, gid, amask, ffd)
     kw = dict(lists=lists, amask=amask, caps=caps, ctx=ctx, pq=pq,
-              spos=spos,
+              spos=spos, counts=counts,
               include_nonbond=not use_fast and external_nonbond is None)
     p = pos.detach().requires_grad_(True)
     with torch.enable_grad():
