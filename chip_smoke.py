@@ -32,9 +32,10 @@ first failure ends the run with a non-zero exit code and no result line.
      then `__main__.main` (tests/data/rxmd_chon.in with CLI overrides) runs
      mdmode 5 from rxff.bin with frames in all four formats, restarts from
      rxff.npz (NVE), runs mdmode 7 with an electric field and springs, and
-     opt.conjugate_gradient takes two iterations; each run's launch counts
-     (as in phase 4), its PRINTE lines and files are checked, and its
-     atom-steps/s, summary() table and optimizer seconds printed;
+     opt.conjugate_gradient takes two iterations (each probe the engine's
+     probe program, a CUDA graph after its first uses); each run's launch
+     counts (as in phase 4), its PRINTE lines and files are checked, and
+     its atom-steps/s, summary() table and optimizer seconds printed;
   7. pair paths: the engines besides the sweep at --mc, each asserting
      `Engine.pair_engine` and that no sweep kernel ran, prepare + 5 steps
      timed by phase beside the sweep's own: (a) the dense forms and (b)
@@ -90,12 +91,32 @@ first failure ends the run with a non-zero exit code and no result line.
      right after a rebuild against the eager step; printed, never
      checked: ms/step and atom-steps/s of both modes, captures and
      capture ms, the device idle share of 10 more steps by
-     torch.profiler, and peak memory.
+     torch.profiler with the captures and replays inside them, and peak
+     memory;
+ 12. optimizer program: the optimizer's probes (md.Engine.probe, the
+     probe program `_probe_fn`, as CUDA graphs in a cache of their own)
+     at --mc in float32 on the sweep: OPT_ITERS iterations of
+     opt.conjugate_gradient with graphs and eagerly (Engine.graphs off)
+     from one start, each with PE that does not rise, nonbond and
+     qeq_build launched once a probe, and with graphs every probe a
+     replay but each key's first use and the first probe (which sizes
+     the QEq list); then the graph probe against the eager probe on one
+     engine at five positions the run recorded (TOL_PROBE_PE, _F, _Q),
+     and three probes each of the pair list, the dense forms, float64's
+     tables (TOL_GRAPH_PE_F64), a triclinic cell, PQEq and LG dense,
+     graphs against eager, no sweep kernel; printed, never checked:
+     seconds and probes per iteration, captures, capture ms, replays,
+     peak memory, the device idle share of one more iteration by
+     torch.profiler with the captures and replays inside it and its
+     kernels with the most device time, an eager probe's device ms by
+     phase (CUDA events) and its aten ops with the most device time, and
+     each configuration's ms per probe.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -178,6 +199,13 @@ GRAPH_BLOCK = 4          # steps per block: the hot deck's drift budget
 # float64: only index_add_'s atomics reorder, ~1e-16 relative a sum)
 TOL_GRAPH_PE_F64 = 1e-9
 GRAPH_PATH_STEPS = 20
+# phase 12: a probe as a CUDA graph against the same probe run eagerly on
+# the same engine and inputs (float32: index_add_'s atomics reorder the
+# sums, which a full CG carries into the charges): PE within TOL_PROBE_PE
+# of |PE|, forces within TOL_PROBE_F of max|f|, charges within
+# TOL_PROBE_Q e; float64 within TOL_GRAPH_PE_F64 each
+TOL_PROBE_PE, TOL_PROBE_F, TOL_PROBE_Q = 1e-5, 1e-4, 1e-4
+OPT_ITERS = 2
 DEVICE = "cuda"          # the slice's device; main() requires a card
 
 
@@ -219,6 +247,15 @@ def make_engine(mc, device, dtype="float32", angles=None, lg=False, **cfg):
     kw = dict(dtype=dtype, isQEq=1, pstep=5)
     kw.update(cfg)
     return md.Engine(ff, st, config.RunConfig(**kw), device=device)
+
+
+def fresh_peak(device=None):
+    """Free what earlier engines left (an engine in a reference cycle
+    lives until the garbage collector runs) and restart the count of peak
+    device memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
 
 
 def cuda_ms(fn, reps):
@@ -291,7 +328,8 @@ def phase_kernels(engine, seed):
     grid, walk, own = e.pairk, ops.walk, ops.own
     nb_fn, qeq_fn = e._nb_fn, e._qeq_fn
     nb_planes, qeq_planes = ops.nonbond_planes(q), ops.qeq_planes()
-    T, M = walk.tslot.shape[0], walk.slots.shape[0]
+    # the filled slots lead walk.slots (its padding is never read)
+    T, M = walk.tslot.shape[0], int(walk.cell_start[-1])
     # what every walk kernel must read besides its planes: the filled
     # slots, the cell prefix sums and the target slots (padded slots
     # never reach a result, so planes count over the M filled slots only)
@@ -550,7 +588,7 @@ def path_run(mc, device, steps, seed, dtype="float32", angles=None,
     e = make_engine(mc, device, dtype=dtype, angles=angles, lg=lg, **cfg)
     zero_launches()
     if e.device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(e.device)
+        fresh_peak(e.device)
     e.init_velocity(seed=seed)
     sync = (torch.cuda.synchronize if e.device.type == "cuda"
             else (lambda: None))
@@ -858,7 +896,7 @@ def phase_sharded(mc, seed, steps=5):
         for isq in (1, 2):
             ff, st = load_deck(mc, torch.float64, "cpu")
             zero_launches()
-            torch.cuda.reset_peak_memory_stats()
+            fresh_peak()
             e = ShardedEngine(ff, st, RunConfig(
                 dtype="float32", isQEq=isq, pstep=5),
                 device=DEVICE)
@@ -1060,10 +1098,15 @@ def row_layout_cost(e):
 
 
 def idle_share(fn):
-    """(device ms, wall ms, idle share) of fn() under torch.profiler
+    """(device ms, wall ms, idle share, top) of fn() under torch.profiler
     (CUDA activity only): the summed device time of its kernels, copies
     and fills against the host wall of the window, which ends in a
-    synchronize; the share is None when the trace holds no device time."""
+    synchronize; the share is None when the trace holds no device time.
+    `top`: the eight names with the most device time, (name, ms, calls).
+    The trace's raw events are summed: building the profiler's event
+    tree (`key_averages`) takes tens of seconds for a window of 1e5
+    kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1071,10 +1114,34 @@ def idle_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-               for ev in prof.key_averages()) / 1e3
-    return busy, wall, (max(0.0, 1.0 - busy / wall) if busy > 0 else None)
+    by = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            ms, calls = by.get(ev.name(), (0.0, 0))
+            by[ev.name()] = (ms + ev.duration_ns() / 1e6, calls + 1)
+    busy = sum(ms for ms, _ in by.values())
+    top = [(k[:60], round(ms, 2), c) for k, (ms, c)
+           in sorted(by.items(), key=lambda x: -x[1][0])[:8]]
+    return (busy, wall, (max(0.0, 1.0 - busy / wall) if busy > 0 else None),
+            top)
+
+
+def op_profile(fn, top=8):
+    """The `top` aten ops of fn() with the most device time (their
+    kernels' time, children included) under torch.profiler with CPU and
+    CUDA activity, by input shapes: (op, shapes, device ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = lambda ev: getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0)) / 1e3
+    evs = [ev for ev in prof.key_averages(group_by_input_shape=True)
+           if ev.key.startswith("aten::")]
+    return [(ev.key, str(ev.input_shapes)[:80], round(dev(ev), 2), ev.count)
+            for ev in sorted(evs, key=dev, reverse=True)[:top]]
 
 
 def replay_after_rebuild(e):
@@ -1132,7 +1199,7 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
                   f"graphs: the sweep, graphs {e.graphs}")
             e.init_velocity(seed=seed)
             zero_launches()
-            torch.cuda.reset_peak_memory_stats()
+            fresh_peak()
             printed = []
             wall = e.run(steps, log=lambda line, e=e: printed.append(
                 (e.state.step, float(e.comps[0]))))
@@ -1144,7 +1211,8 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
             counts = [tm.ncalls.get(k, 0) for k in names] + [
                 tm.counters.get("drift-triggered rebuilds", 0)]
             peak = torch.cuda.max_memory_allocated() / 2**20
-            busy, pwall, idle = idle_share(lambda e=e: e.run(10, log=None))
+            busy, pwall, idle, _ = idle_share(
+                lambda e=e: e.run(10, log=None))
             runs[mode] = dict(e=e, printed=printed, wall=wall, counts=counts,
                               peak=peak, busy=busy, pwall=pwall, idle=idle,
                               launches=got, iters=iters,
@@ -1235,7 +1303,7 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
                                                     over(got))
             e.init_velocity(seed=seed)
             zero_launches()
-            torch.cuda.reset_peak_memory_stats()
+            fresh_peak()
             printed = []
             wall = e.run(steps, log=lambda line, e=e: printed.append(
                 (e.state.step, float(e.comps[0]))))
@@ -1244,10 +1312,13 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
             counts = [tm.ncalls.get(k, 0) for k in names] + [
                 tm.counters.get("drift-triggered rebuilds", 0)]
             peak = torch.cuda.max_memory_allocated() / 2**20
-            busy, pwall, idle = idle_share(lambda e=e: e.run(10, log=None))
+            before = graph_counts(tm)
+            busy, pwall, idle, _ = idle_share(
+                lambda e=e: e.run(10, log=None))
+            prof = [b - a for a, b in zip(before, graph_counts(tm))]
             runs[mode] = dict(e=e, printed=printed, wall=wall, counts=counts,
                               peak=peak, busy=busy, pwall=pwall, idle=idle,
-                              checked=checked,
+                              checked=checked, prof=prof,
                               caps=tm.counters.get("graph captures", 0),
                               reps=tm.counters.get("graph replays", 0),
                               cap_ms=tm.acc.get("graph capture", 0.0) * 1e3,
@@ -1293,7 +1364,9 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
                 f"{r['cap_ms']:.1f} ms, replays {r['reps']:.0f}; peak "
                 f"{r['peak']:.1f} MB; 10 more steps under torch.profiler: "
                 f"device {r['busy']:.2f} of {r['pwall']:.2f} ms, idle share "
-                f"{idle} | {smi}")
+                f"{idle}, captures {r['prof'][0]:.0f} in "
+                f"{r['prof'][1] * 1e3:.1f} ms, replays {r['prof'][2]:.0f} | "
+                f"{smi}")
         log(f"graph paths | {label}: PRINTE PE graphs vs eager max rel diff "
             f"{err:.3e} (bound {tol}); replay after a rebuild vs eager: PE "
             f"{pe_err:.3e}, positions {pos_err:.3e} A; capacity checks "
@@ -1304,6 +1377,220 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
         torch.cuda.empty_cache()
     log(f"graph paths: phase took {time.perf_counter() - t_phase:.1f} s | "
         f"{smi}")
+
+
+def graph_counts(tm):
+    """(captures, capture seconds, replays) in an engine's timers."""
+    return (tm.counters.get("graph captures", 0),
+            tm.acc.get("graph capture", 0.0),
+            tm.counters.get("graph replays", 0))
+
+
+def probe_configs():
+    """Phase 12's configurations besides the sweep: (label, make_engine
+    keywords, the pair engine it must take)."""
+    pq = dict(isPQEq=True, pqeq_parm_path=PQEQ_PAR)
+    return [
+        ("ELL", dict(pair_kernel=False, dense_direct_max=0), "ell"),
+        ("dense", dict(pair_kernel=False), "dense"),
+        ("float64 tables", dict(dtype="float64"), "ell"),
+        ("triclinic ELL", dict(angles=TRICLINIC), "ell"),
+        ("PQEq", pq, "ell"),
+        ("LG dense", dict(lg=True), "dense"),
+    ]
+
+
+def probe_diff(a, b):
+    """(PE difference over |PE|, force difference over max|f|, charge
+    difference in e) of two probes' (PE, forces, charges)."""
+    return (abs(a[0] - b[0]) / abs(b[0]),
+            float((a[1] - b[1]).abs().max() / b[1].abs().max()),
+            float((a[2] - b[2]).abs().max()))
+
+
+def check_probe_diff(what, d, f64):
+    bars = ((TOL_GRAPH_PE_F64,) * 3 if f64
+            else (TOL_PROBE_PE, TOL_PROBE_F, TOL_PROBE_Q))
+    check(all(np.isfinite(x) and x <= b for x, b in zip(d, bars)),
+          f"{what}: graph probe against the eager probe: PE {d[0]:.3e}, "
+          f"forces {d[1]:.3e} of max|f|, charges {d[2]:.3e} e (bounds "
+          f"{bars})")
+
+
+def phase_optimizer_program(mc, seed, iters=OPT_ITERS):
+    """The optimizer's probes as CUDA graphs (see the module docstring,
+    phase 12): at --mc, float32, the sweep, `iters` CG iterations with
+    graphs and eagerly from one start, then three probes of each other
+    configuration, graphs against eager."""
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    optimizer_sweep(mc, iters, smi)
+    probe_paths(mc, seed, smi)
+    log(f"optimizer program: phase took {time.perf_counter() - t_phase:.1f}"
+        f" s | {smi}")
+
+
+def optimizer_sweep(mc, iters, smi):
+    """Phase 12's sweep: `iters` CG iterations with graphs and eagerly
+    from one start, then graph probes against eager probes at five of
+    the positions the graph run probed."""
+    from rxmd_tpu_torch import md, opt
+    runs = {}
+    for mode in ("graphs", "eager"):
+        t_mode = time.perf_counter()
+        e = make_engine(mc, DEVICE, mdmode=10)
+        e.graphs = mode == "graphs"
+        check(e.pair_engine == "sweep" and e.uses_graphs() == e.graphs,
+              f"optimizer program: the sweep, graphs {e.graphs}")
+        seen = []                        # every probe's positions
+        probe = e.probe
+        e.probe = lambda pos, hinv=None, probe=probe: (
+            seen.append(pos), probe(pos, hinv))[1]
+        lines, ends = [], []
+        zero_launches()
+        fresh_peak()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pe_end = opt.conjugate_gradient(
+            e, max_iter=iters, log=lines.append,
+            writer=lambda it, pos, p: ends.append(
+                (p, time.perf_counter(), len(seen))))
+        got = read_launches(f"optimizer program {mode}", e)
+        check(got["nonbond"] == got["qeq_build"] == e.qeq_solves,
+              f"optimizer program {mode}: nonbond and qeq_build launches "
+              f"{got} == probes run {e.qeq_solves}")
+        seq = [float(lines[0].split("PE0=")[1])] + [p for p, _, _ in ends]
+        check(len(ends) == iters and all(np.isfinite(seq))
+              and all(b <= a for a, b in zip(seq, seq[1:]))
+              and pe_end == seq[-1],
+              f"optimizer program {mode}: PE does not rise over {iters} "
+              f"iterations ({seq})")
+        ts = [t0] + [t for _, t, _ in ends]
+        nps = [0] + [k for _, _, k in ends]
+        tm = e.timers
+        caps, cap_s, reps = graph_counts(tm)
+        if e.graphs:
+            g = e._probe_graphs
+            check(caps >= 1 and reps >= 1
+                  and reps == e.qeq_solves - 1 - len(g.seen),
+                  f"optimizer program: {caps:.0f} captures, {reps:.0f} "
+                  f"replays of {e.qeq_solves} probes run ({len(g.seen)} "
+                  "keys first run eagerly, and the sizing probe): every "
+                  "other probe a replay")
+        else:
+            check(caps == reps == 0, "optimizer program: no graph eagerly")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        before, nprobe = graph_counts(tm), len(seen)
+        t_prof = time.perf_counter()
+        busy, pwall, idle, top = idle_share(
+            lambda e=e: opt.conjugate_gradient(e, max_iter=1, log=None))
+        t_prof = time.perf_counter() - t_prof
+        prof = [b - a for a, b in zip(before, graph_counts(tm))]
+        runs[mode] = dict(
+            e=e, seen=seen, seq=seq, launches=got, peak=peak,
+            per_it=[b - a for a, b in zip(ts, ts[1:])],
+            probes=[b - a for a, b in zip(nps, nps[1:])],
+            caps=caps, cap_ms=cap_s * 1e3, reps=reps,
+            regrow=tm.counters.get("probe QEq list regrowths", 0),
+            busy=busy, pwall=pwall, idle=idle, prof=prof, top=top,
+            prof_probes=len(seen) - nprobe, t_prof=t_prof,
+            t_run=time.perf_counter() - t_mode)
+    t_cmp = time.perf_counter()
+    e = runs["graphs"]["e"]
+    picks = np.linspace(0, len(runs["graphs"]["seen"]) - 1, 5).astype(int)
+    diffs = []
+    for i in picks:
+        pos = runs["graphs"]["seen"][i]
+        e.graphs = True
+        a = e.probe(pos)
+        e.graphs = False
+        b = e.probe(pos)
+        diffs.append(probe_diff(a, b))
+        check_probe_diff(f"optimizer program | sweep probe {i}", diffs[-1],
+                         False)
+    # an eager probe's device ms by phase (CUDA events; a PhaseTimer runs
+    # the probe eagerly)
+    e.phases = md.PhaseTimer()
+    for i in picks:
+        e.probe(runs["graphs"]["seen"][i])
+    by = {k: round(ms / c, 2) for k, (ms, c) in e.phases.ms().items()}
+    e.phases = None
+    e.graphs = False
+    ops = op_profile(lambda: e.probe(runs["graphs"]["seen"][picks[-1]]))
+    e.graphs = True
+    worst = np.max(diffs, axis=0)
+    n = e.state.n
+    t_cmp = time.perf_counter() - t_cmp
+    for mode, r in runs.items():
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+        log(f"optimizer program | sweep {mode} | {n} atoms, float32, "
+            f"{iters} iterations: seconds per iteration "
+            f"{[round(x, 4) for x in r['per_it']]}, probes per iteration "
+            f"{r['probes']} (the first with the start's); PE {r['seq']}; "
+            f"captures {r['caps']:.0f} in {r['cap_ms']:.1f} ms, replays "
+            f"{r['reps']:.0f}, QEq list regrowths {r['regrow']:.0f}; "
+            f"launches {r['launches']}; peak {r['peak']:.1f} MB; one more "
+            f"iteration under torch.profiler: {r['prof_probes']} probes, "
+            f"device {r['busy']:.2f} of {r['pwall']:.2f} ms, idle share "
+            f"{idle}, captures {r['prof'][0]:.0f} in "
+            f"{r['prof'][1] * 1e3:.1f} ms, replays {r['prof'][2]:.0f}; "
+            f"most device time (name, ms, calls): {r['top']}; this run "
+            f"took {r['t_run']:.1f} s, {r['t_prof']:.1f} s of it the "
+            f"profiled iteration with its trace's processing | {smi}")
+    log(f"optimizer program | sweep: an eager probe's ms by phase (CUDA "
+        f"events, {len(picks)} probes): {by}; its aten ops with the most "
+        f"device time (op, input shapes, ms, calls): {ops}")
+    log(f"optimizer program | sweep: graph vs eager probe at {len(picks)} "
+        f"recorded positions: max PE {worst[0]:.3e}, forces {worst[1]:.3e} "
+        f"of max|f|, charges {worst[2]:.3e} e (bounds {TOL_PROBE_PE}, "
+        f"{TOL_PROBE_F}, {TOL_PROBE_Q}); these checks and the phase split "
+        f"took {t_cmp:.1f} s")
+    del runs, e
+    torch.cuda.empty_cache()
+
+
+def probe_paths(mc, seed, smi):
+    """Phase 12's other configurations: three probes each at positions a
+    numpy-seeded step apart, graphs against eager on one engine."""
+    for label, cfg, want in probe_configs():
+        t_cfg = time.perf_counter()
+        e = make_engine(mc, DEVICE, mdmode=10, **cfg)
+        check(e.pair_engine == want and e.uses_graphs(),
+              f"optimizer program | {label}: engine {want} "
+              f"({e.pair_engine}), graphs")
+        rng = np.random.default_rng(seed)
+        step = torch.as_tensor(rng.normal(scale=0.01, size=(e.state.n, 3)),
+                               dtype=e.dtype, device=e.device)
+        zero_launches()
+        ms, diffs = {"graphs": [], "eager": []}, []
+        for k in range(3):
+            pos = e.state.pos + (k + 1) * step
+            out = {}
+            for mode in ms:
+                e.graphs = mode == "graphs"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[mode] = e.probe(pos)      # ends in its one read
+                ms[mode].append(round((time.perf_counter() - t0) * 1e3, 2))
+            diffs.append(probe_diff(out["graphs"], out["eager"]))
+            check_probe_diff(f"optimizer program | {label} probe {k}",
+                             diffs[-1], e.dtype == torch.float64)
+        no_sweep(f"optimizer program | {label}")
+        caps, cap_s, reps = graph_counts(e.timers)
+        check(caps == 1 and reps == 2,
+              f"optimizer program | {label}: three graph probes: a first "
+              f"use, a capture and replay, a replay ({caps:.0f} captures, "
+              f"{reps:.0f} replays)")
+        worst = np.max(diffs, axis=0)
+        log(f"optimizer program | {label} | engine {e.pair_engine}, "
+            f"{str(e.dtype)[6:]}, {e.state.n} atoms, 3 probes: ms graphs "
+            f"{ms['graphs']} (first use, capture + replay, replay), eager "
+            f"{ms['eager']}; capture {cap_s * 1e3:.1f} ms; graph vs eager "
+            f"max PE {worst[0]:.3e}, forces {worst[1]:.3e} of max|f|, "
+            f"charges {worst[2]:.3e} e; {time.perf_counter() - t_cfg:.1f} s"
+            f" | {smi}")
+        del e
+        torch.cuda.empty_cache()
 
 
 def zero_launches():
@@ -1491,8 +1778,11 @@ def phase_program(mc, steps):
         seq = [float(lines[0].split("PE0=")[1])] + [p for p, _ in pes]
         ts = [t0] + [t for _, t in pes]
         per_it = [b - a for a, b in zip(ts, ts[1:])]
+        caps, cap_s, reps = graph_counts(e.timers)
         log(f"optimizer: PE {seq}, seconds per iteration "
-            f"{[round(x, 3) for x in per_it]}, launches {got}")
+            f"{[round(x, 3) for x in per_it]}, launches {got}, probes "
+            f"{e.qeq_solves} as the probe program: captures {caps:.0f} in "
+            f"{cap_s * 1e3:.1f} ms, replays {reps:.0f}")
         check(len(pes) == 2 and all(b <= a for a, b in zip(seq, seq[1:]))
               and pe_end == seq[-1], "optimizer: PE does not rise over two "
               "iterations")
@@ -1534,6 +1824,7 @@ def main():
     phase_sharded(mc, args.seed)
     phase_graphs(mc, args.seed)
     phase_graph_paths(mc, args.seed)
+    phase_optimizer_program(mc, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -3,9 +3,11 @@ blocks (counterpart of rxmd_tpu's jitted step and its `lax.scan` blocks,
 rxmd_tpu/md.py:298-299, 717-738).
 
 rxmd_tpu compiles a step, or K steps, into one XLA program that the host
-dispatches with one call, whatever its configuration.  Here a program is
-a Python function of tensors (`md.Engine._block_fn`, for every pair
-engine, box, term cache, QEq or PQEq mode and force field) recorded into
+dispatches with one call, whatever its configuration, and so the
+optimizer's evaluation.  Here a program is a Python function of tensors
+(`md.Engine._block_fn`, for every pair engine, box, term cache, QEq or
+PQEq mode and force field; `md.Engine._probe_fn`, whose window is empty
+and whose cache is its own, so a rebuild never drops it) recorded into
 CUDA graphs over static input tensors and replayed after `copy_`-ing the
 current inputs into them.  A graph holds the addresses of its inputs
 (the sweep's kernels take raw pointers, ops/pairsweep.py; every captured
@@ -33,14 +35,16 @@ extended Lagrangian's one iteration, or no QEq) is one graph.
 
 The first call of a key runs the function eagerly on the cache's stream
 (the warm-up: lazy initialization, cached tables, autograd's streams), the
-second captures and replays it.  A failed capture raises; nothing falls
-back to eager mode.  Each part records the kernel launches it holds
-(ops/pairsweep.launches counts them at capture) and adds them to the
-counts at every replay.
+second captures and replays it, with Python's garbage collector held off
+(a CUDA graph freed during a capture invalidates it).  A failed capture
+raises; nothing falls back to eager mode.  Each part records the kernel
+launches it holds (ops/pairsweep.launches counts them at capture) and
+adds them to the counts at every replay.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import torch
@@ -191,10 +195,19 @@ class GraphCache:
             t0 = time.perf_counter()
             prog = Program()
             rec = _Recorder(prog, self.pool)
-            rec.begin()
-            prog.out = fn(fill(window, iter(wbuf)), fill(carry, iter(cbuf)),
-                          rec.loop)
-            rec.end()
+            # no garbage collection while capturing: a graph that the
+            # collector frees during a capture (an engine dropped in a
+            # reference cycle) invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                rec.begin()
+                prog.out = fn(fill(window, iter(wbuf)),
+                              fill(carry, iter(cbuf)), rec.loop)
+                rec.end()
+            finally:
+                if collecting:
+                    gc.enable()
             self.programs[key] = prog
             self.captures += 1
             self.capture_s += time.perf_counter() - t0

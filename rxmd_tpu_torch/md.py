@@ -43,6 +43,12 @@ A step reads nothing on the host: the lists it builds itself (the
 tightened neighbor lists, the uncached terms' lists, the sweep's QEq
 list) have fixed capacities, and their counts come out with the step for
 the host to check at a block's end (`_check_lists`).
+
+The optimizer's probe (mdmode 10, `probe`) is a program too: rxmd_tpu's
+jitted evaluation (`_probe_fn`: wrap, neighbor lists, the sweep's slot
+layout, a full QEq solve, the uncached terms' forces at the engine's
+capacities), run as a CUDA graph on a card in a cache of its own, its PE
+and every count a capacity bounds read by the host in one transfer.
 """
 from __future__ import annotations
 
@@ -90,7 +96,11 @@ def _cell_grid(ff, state, img, skin, rctap):
     return grid._replace(ccap=max(grid.ccap, int(occ * 1.25) + 2))
 
 
-def _build(state, img, grid, rc2b, rctap2, kb, knb):
+def _build(state, img, grid, rc2b, rctap2, kb, knb, counts=None):
+    """The neighbor lists: over the cell grid, raising where a cell
+    overflows its capacity, or with `counts` (a dict) its densest cell
+    left in counts["cells"] (a device tensor, no host read); brute force
+    without a grid."""
     if grid is not None:
         pose = neighbors.ext_positions(state.pos, state.H, img)
         valid = torch.ones(pose.shape[0], dtype=torch.bool,
@@ -98,12 +108,19 @@ def _build(state, img, grid, rc2b, rctap2, kb, knb):
         nbrs, occ = neighbors.build_neighbors_cells(
             pose, valid, state.types[img.owner], grid, rc2b, rctap2, kb, knb,
             nrows=state.n)
-        if int(occ) > grid.ccap:                 # see _cell_grid
-            raise RuntimeError(f"neighbor cell overflow: {int(occ)} atoms > "
-                               f"ccap={grid.ccap}")
+        if counts is None:
+            _check_cells(int(occ), grid)
+        else:
+            counts["cells"] = occ
         return nbrs
     return neighbors.build_neighbors_brute(state.pos, state.H, state.types,
                                            img, rc2b, rctap2, kb, knb)
+
+
+def _check_cells(occ, grid):
+    if occ > grid.ccap:                          # see _cell_grid
+        raise RuntimeError(f"neighbor cell overflow: {occ} atoms > "
+                           f"ccap={grid.ccap}")
 
 
 def _bucket(n, cap=None):
@@ -181,6 +198,30 @@ class StepOut(NamedTuple):
     vmax2: torch.Tensor   # () final max v^2 of a block, None for a step
     over: torch.Tensor    # (7,) max capacity counts of the steps (CAP_NAMES)
                           # or None
+
+
+class ProbeIn(NamedTuple):
+    """An optimizer probe's input (`Engine._probe_fn`)."""
+    state: State          # the engine's state at the probe's positions
+    hinv: torch.Tensor    # (3, 3) H^-1: the box is fixed under mdmode 10
+    qcap: int             # the sweep's QEq list capacity (None: exact, or
+                          # no sweep)
+
+
+class ProbeOut(NamedTuple):
+    """What a probe returns (rxmd_tpu opt.py:48: PE, forces, charges)."""
+    pe: torch.Tensor      # () potential energy
+    force: torch.Tensor   # (n, 3)
+    q: torch.Tensor       # (n,) the solve's charges
+    nq: torch.Tensor      # () its CG iterations
+    counts: torch.Tensor  # int64, PROBE_COUNTS' order
+
+
+# a probe's counts, in ProbeOut.counts' order: the densest neighbor cell,
+# the largest bonded and nonbonded neighbor rows, the densest slot cell
+# and the QEq list's entries of the sweep, then the capacity counts of
+# CAP_NAMES (0 where a configuration counts none)
+PROBE_COUNTS = ("cells", "kb", "knb", "slots", "qeq") + CAP_NAMES
 
 
 # mdmodes of the reference main loop (ref: main.F90:25,45-61): 1 NVE, 0 and
@@ -391,6 +432,9 @@ class Engine:
         # run may turn this off to run them eagerly
         self.graphs = True
         self._graphs = None
+        # the optimizer's probe programs (`probe`): a cache of their own,
+        # which a rebuild's new window shapes never drop
+        self._probe_graphs = None
         # steps per block dispatch (rxmd_tpu md.py:308), the schedule's
         # velocity bound and last block drift, the rebuild window's id,
         # the QEq list's capacity and its entries since the last check,
@@ -432,11 +476,12 @@ class Engine:
                 else self.phases(name))
 
     # ------------------------------------------------------------------
-    def _build_nbrs(self, pos, H, types):
-        """Neighbor lists with the Verlet-skin-extended cutoffs."""
+    def _build_nbrs(self, pos, H, types, counts=None):
+        """Neighbor lists with the Verlet-skin-extended cutoffs (`counts`:
+        see `_build`)."""
         s = dataclasses.replace(self.state, pos=pos, H=H, types=types)
         return _build(s, self.img, self.grid, self.rc2b_ext, self.rctap2_ext,
-                      self.kb, self.knb)
+                      self.kb, self.knb, counts)
 
     def _tight_nbrs(self, pos, H, types, nbrs, counts=None):
         """The skinned lists filtered to the true cutoffs (tighten_lists),
@@ -477,7 +522,8 @@ class Engine:
             return ctx, rows
 
     def _bin_pair_slots(self, pos, H):
-        """Cell-slot binning for the pair sweep (rebuild cadence)."""
+        """Cell-slot binning for the pair sweep (at a rebuild and in each
+        probe)."""
         pose = neighbors.ext_positions(pos, H, self.img)
         valid = torch.ones(pose.shape[0], dtype=torch.bool,
                            device=pose.device)
@@ -578,9 +624,11 @@ class Engine:
                                 torch.stack([v[4], v[3], v[2]])])
         return evdw, eclmb, echarge, f_nb, w_nb
 
-    def _wrap(self, pos, H):
-        """Wrap positions into the primary cell."""
-        frac = torch.remainder(pos @ torch.linalg.inv(H).T, 1.0)
+    def _wrap(self, pos, H, hinv=None):
+        """Wrap positions into the primary cell (`hinv`: H^-1 if known;
+        inverting H reads the host, a singular-matrix check)."""
+        hinv = torch.linalg.inv(H) if hinv is None else hinv
+        frac = torch.remainder(pos @ hinv.T, 1.0)
         return frac @ H.T
 
     def _qeq_step(self, pos, q, qsfp, qsfv, s: State, nbrs, pairs,
@@ -791,12 +839,7 @@ class Engine:
                 _trim(lst, self._size(nm, lst.cnt, lst.valid.shape[0]))
                 for nm, lst in zip(("ang", "tor", "hbf"), lists))
         if sm is not None:
-            self._check_slot_overflow(sm)
-            # the filled slots padded (`_size`; the walk reads only the
-            # cells' ranges, so the padding is never read)
-            m = sm.filled.shape[0]
-            sm = sm._replace(filled=torch.cat([
-                sm.filled, sm.filled.new_zeros(self._size("filled", m) - m)]))
+            self._check_slot_overflow(int(sm.overflow))
         return nbrs, lists, sm
 
     @torch.no_grad()
@@ -903,8 +946,7 @@ class Engine:
                     "main.F90:402-407)")
         return None
 
-    def _check_slot_overflow(self, sm):
-        ov = int(sm.overflow)
+    def _check_slot_overflow(self, ov):
         if ov > self.pairk.ccap:
             raise RuntimeError(
                 f"pair-sweep cell overflow: {ov} > ccap={self.pairk.ccap} "
@@ -1063,16 +1105,10 @@ class Engine:
         if self.uses_graphs():
             if self._graphs is None:
                 self._graphs = graphs.GraphCache(self.device)
-            g = self._graphs
-            caps, secs, reps = g.captures, g.capture_s, g.replays
-            out = g.run((pattern, self._qcap), functools.partial(
-                self._block_fn, pattern, self._qcap), window, carry,
-                self._window_id)
-            self.timers.count("graph replays", g.replays - reps)
-            if g.captures > caps:
-                self.timers.count("graph captures", g.captures - caps)
-                self.timers.add("graph capture", g.capture_s - secs,
-                                g.captures - caps)
+            out = self._run_graph(self._graphs, (pattern, self._qcap),
+                                  functools.partial(self._block_fn, pattern,
+                                                    self._qcap),
+                                  window, carry, self._window_id)
         else:
             out = self._block_fn(pattern, self._qcap, window, carry, None)
         self.state = dataclasses.replace(out.state, step=s0 + K)
@@ -1087,6 +1123,115 @@ class Engine:
         self._astr_steps += K
         self._steps_since_rebuild += K
         return out
+
+    def _run_graph(self, cache, key, fn, window, carry, window_id):
+        """cache.run(...) (graphs.GraphCache), its captures, capture
+        seconds and replays added to the timers."""
+        caps, secs, reps = cache.captures, cache.capture_s, cache.replays
+        out = cache.run(key, fn, window, carry, window_id)
+        self.timers.count("graph replays", cache.replays - reps)
+        if cache.captures > caps:
+            self.timers.count("graph captures", cache.captures - caps)
+            self.timers.add("graph capture", cache.capture_s - secs,
+                            cache.captures - caps)
+        return out
+
+    # ------------------------------------------------------------------
+    def _probe_fn(self, carry: ProbeIn, loop=None):
+        """One optimizer probe as a function of its inputs (rxmd_tpu's
+        jitted `evaluate`, opt.py:40-50): a ProbeOut.  The positions
+        wrapped (by `carry.hinv`), the skinned neighbor lists (tightened
+        under tighten_lists), for the sweep its slot layout and pair data
+        with a QEq list of capacity `carry.qcap`, a full QEq solve
+        (isQEq=1; under PQEq a PQEq solve and its shell step from the
+        state's shells, which the forces read and nothing keeps; `loop`
+        runs the CG's chunks), then the forces over the uncached terms at
+        the engine's capacities (`caps`), rxmd_tpu's evaluation and the
+        exact-gate lists' set.  It reads the engine's constants, mutates
+        nothing and reads nothing on the host, so a CUDA graph can hold
+        it; every count a capacity bounds comes out in `counts`, for the
+        host to check (`probe`)."""
+        s, hinv, qcap = carry
+        counts = {}
+        sweep = self.pair_engine == "sweep"
+        with self._phase("rebuild"):
+            pos = self._wrap(s.pos, s.H, hinv)
+            nbrs = self._build_nbrs(pos, s.H, s.types, counts)
+            rows = [nbrs.cntb.max(), nbrs.cntnb.max()]
+            nbrs = self._tight_nbrs(pos, s.H, s.types, nbrs, counts)
+            sm = self._bin_pair_slots(pos, s.H) if sweep else None
+        pairs = self._pair_data(pos, s, nbrs, sm, qcap)
+        q, _, _, nq, spos = self._qeq_step(pos, s.q, s.qsfp, s.qsfv, s,
+                                           nbrs, pairs, isqeq=1,
+                                           spos=s.spos, loop=loop)
+        comps, f = self._forces(pos, q, s, nbrs, None, pairs, False, spos,
+                                counts)
+        z = rows[0].new_zeros(())
+        over = _over_vector(counts)
+        vec = torch.stack([t.to(torch.int64) for t in (
+            counts.get("cells", z), *rows, sm.overflow if sweep else z,
+            pairs.need() if sweep else z)])
+        return ProbeOut(comps[0], f, q, nq, torch.cat(
+            [vec, z.new_zeros(len(CAP_NAMES)) if over is None else over]))
+
+    @torch.no_grad()
+    def probe(self, pos, hinv=None):
+        """(PE as a float, forces, charges) at `pos`, which stays
+        untouched: the probe program (`_probe_fn`) as a CUDA graph where
+        `uses_graphs()` (a cache of its own, keyed by its input's shapes
+        and the QEq list's capacity), else eagerly, then one host read of
+        its PE and counts.  A count past one of the engine's capacities
+        raises, naming it.  The sweep's QEq list is sized by the first
+        probe, run eagerly with a list of exactly its entries, as a
+        window's lists are (`_size`); a probe whose list outgrows that
+        capacity grows it and runs again.  `hinv`: H^-1 (else inverted
+        here)."""
+        s = dataclasses.replace(self.state, pos=pos, step=0)
+        hinv = torch.linalg.inv(s.H) if hinv is None else hinv
+        sweep = self.pair_engine == "sweep"
+        while True:
+            qcap = self._sizes.get("probe qeq list") if sweep else None
+            carry = ProbeIn(s, hinv, qcap)
+            if self.uses_graphs() and not (sweep and qcap is None):
+                if self._probe_graphs is None:
+                    self._probe_graphs = graphs.GraphCache(self.device)
+                out = self._run_graph(
+                    self._probe_graphs, "probe",
+                    lambda _, c, loop: self._probe_fn(c, loop), (), carry, 0)
+            else:
+                out = self._probe_fn(carry)
+            self.cg_iters = self.cg_iters + out.nq
+            self.qeq_solves += 1
+            pe, *vals = torch.cat([out.pe[None].double(),
+                                   out.counts.double()]).tolist()
+            got = dict(zip(PROBE_COUNTS, (int(v) for v in vals)))
+            self._check_probe(got)
+            if sweep and (qcap is None or got["qeq"] > qcap):
+                self._size("probe qeq list", got["qeq"])
+                if qcap is not None:
+                    self.timers.count("probe QEq list regrowths", 1)
+                    continue
+            break
+        tm = self.timers
+        tm.peak("bonded nbr list", got["kb"], self.kb)
+        tm.peak("nonbonded nbr list", got["knb"], self.knb)
+        tm.peak("angle list", got["ang"], self.caps["ang"])
+        tm.peak("torsion list", got["tor"], self.caps["tor"])
+        if sweep:
+            tm.peak("probe QEq list", got["qeq"],
+                    self._sizes["probe qeq list"])
+        return pe, out.force, out.q
+
+    def _check_probe(self, got):
+        """Raise where a probe's count (`got`: PROBE_COUNTS -> value)
+        passed one of the engine's capacities, with the messages of the
+        rebuild's checks."""
+        if self.grid is not None:
+            _check_cells(got["cells"], self.grid)
+        neighbors.check_counts(got["kb"], got["knb"], self.kb, self.knb)
+        if self.pairk is not None:
+            self._check_slot_overflow(got["slots"])
+        self._check_over(got)
 
     def step(self):
         """One velocity-Verlet MD step on the engine state (after

@@ -225,6 +225,26 @@ def make_cell_grid(lo, hi, maxrc, rctap, density_per_A3=0.15,
 
 _FAR = 1.0e4      # padded-slot coordinate: dr2 ~ 1e8 fails every cutoff
 
+_grid_consts = {}
+
+
+def grid_consts(grid: CellGrid, dtype, device):
+    """The grid's constants on `device`: lo and cellsize (`dtype`), the
+    cell counts, and the bonded and nonbonded stencils (int64).  Made once
+    per (grid, dtype, device) and kept, so a build run again, as a CUDA
+    graph's capture runs it after its eager first use, copies nothing
+    from the host (a captured stream cannot).  The capacity is not part
+    of them (a grid may deepen its cells)."""
+    key = (grid._replace(ccap=0), dtype, torch.device(device))
+    if key not in _grid_consts:
+        t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
+                                          device=device)
+        _grid_consts[key] = (
+            t(grid.lo, dtype), t(grid.cellsize, dtype),
+            t(grid.ncells, torch.int64), t(grid.stencil_b, torch.int64),
+            t(grid.stencil_nb, torch.int64))
+    return _grid_consts[key]
+
 
 def _cell_table_packed(pos, valid, types, grid: CellGrid):
     """Cell binning with packed per-slot payloads: positions + type in a
@@ -235,11 +255,10 @@ def _cell_table_packed(pos, valid, types, grid: CellGrid):
     nc = np.array(grid.ncells)
     ctot = int(np.prod(nc))
     ccap = grid.ccap
-    rel = ((pos - torch.as_tensor(grid.lo, dtype=pos.dtype, device=dev))
-           / torch.as_tensor(grid.cellsize, dtype=pos.dtype, device=dev))
+    lo, cs, nc_t = grid_consts(grid, pos.dtype, dev)[:3]
+    rel = (pos - lo) / cs
     cid3 = torch.floor(rel).to(torch.int64)
-    cid3 = torch.minimum(cid3.clamp(min=0),
-                         torch.as_tensor(nc - 1, device=dev))
+    cid3 = torch.minimum(cid3.clamp(min=0), nc_t - 1)
     cid = (cid3[:, 0] * nc[1] + cid3[:, 1]) * nc[2] + cid3[:, 2]
     cid = torch.where(valid, cid, ctot)
     order = torch.argsort(cid, stable=True)
@@ -285,11 +304,10 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
                                                dtype=pos.dtype, device=dev)])
     slot_idx = torch.cat([slot_idx, torch.full((1, ccap), -1,
                                                dtype=torch.int64, device=dev)])
-    nc_t = torch.as_tensor(nc, device=dev)
+    _, _, nc_t, st_b, st_nb = grid_consts(grid, pos.dtype, dev)
 
-    def lists(rows, stencil, bonded, cap):
+    def lists(rows, offs, bonded, cap):
         nr = rows.shape[0]
-        offs = torch.as_tensor(np.array(stencil, np.int64), device=dev)
         nb3 = cid3[rows][:, None, :] + offs[None, :, :]          # (B, S, 3)
         oob = ((nb3 < 0) | (nb3 >= nc_t)).any(dim=-1)
         nbc = (nb3[..., 0] * nc[1] + nb3[..., 1]) * nc[2] + nb3[..., 2]
@@ -314,16 +332,15 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
         return idx, mask.sum(dim=1)
 
     if bond_rows is None:
-        idxb, cntb = lists(torch.arange(nrows, device=dev), grid.stencil_b,
-                           True, kb)
+        idxb, cntb = lists(torch.arange(nrows, device=dev), st_b, True, kb)
     else:
-        ib, cb = lists(bond_rows, grid.stencil_b, True, kb)
+        ib, cb = lists(bond_rows, st_b, True, kb)
         idxb = torch.full((nrows, kb), -1, dtype=torch.int64, device=dev)
         idxb[bond_rows] = ib
         cntb = torch.zeros(nrows, dtype=cb.dtype, device=dev)
         cntb[bond_rows] = cb
-    idxnb, cntnb = lists(torch.arange(nb_rows, device=dev), grid.stencil_nb,
-                         False, knb)
+    idxnb, cntnb = lists(torch.arange(nb_rows, device=dev), st_nb, False,
+                         knb)
     return Neighbors(idxb=idxb, cntb=cntb, idxnb=idxnb, cntnb=cntnb), overflow
 
 
@@ -332,11 +349,15 @@ def check_overflow(nbrs: Neighbors):
     raises if either exceeds its capacity (ref: main.F90:402-407)."""
     mb = int(nbrs.cntb.max())
     mnb = int(nbrs.cntnb.max())
-    if mb > nbrs.idxb.shape[1]:
-        raise RuntimeError(
-            f"bonded neighbor overflow: {mb} > capacity {nbrs.idxb.shape[1]}")
-    if mnb > nbrs.idxnb.shape[1]:
-        raise RuntimeError(
-            f"nonbonded neighbor overflow: {mnb} > capacity "
-            f"{nbrs.idxnb.shape[1]}")
+    check_counts(mb, mnb, nbrs.idxb.shape[1], nbrs.idxnb.shape[1])
     return mb, mnb
+
+
+def check_counts(mb, mnb, kb, knb):
+    """Raise if the largest bonded row `mb` exceeds its capacity `kb`, or
+    the largest nonbonded row `mnb` exceeds `knb` (counts read already)."""
+    if mb > kb:
+        raise RuntimeError(f"bonded neighbor overflow: {mb} > capacity {kb}")
+    if mnb > knb:
+        raise RuntimeError(
+            f"nonbonded neighbor overflow: {mnb} > capacity {knb}")

@@ -155,25 +155,43 @@ class SlotMap(NamedTuple):
     overflow: torch.Tensor      # () max per-cell occupancy (host-checked)
     cell_count: torch.Tensor    # (ncells,) int32 filled slots per cell
     order: torch.Tensor         # (n,) primary atoms in slot order
-    filled: torch.Tensor        # (M,) int32 the filled slots, ascending
+    filled: torch.Tensor        # (m,) int32 the filled slots, ascending,
+                                # then 0 to the m extended atoms
+
+
+_bin_consts = {}
+
+
+def _bin_tables(grid: PairGrid, dtype, device):
+    """lo, cellsize (`dtype`) and the cell counts (int64) on `device`,
+    made once per (grid, dtype, device): a CUDA graph's capture, which
+    follows its eager first use, then copies nothing from the host."""
+    key = (grid, dtype, torch.device(device))
+    if key not in _bin_consts:
+        _bin_consts[key] = (
+            torch.as_tensor(grid.lo, dtype=dtype, device=device),
+            torch.as_tensor(grid.cellsize, dtype=dtype, device=device),
+            torch.as_tensor(grid.nc, dtype=torch.int64, device=device))
+    return _bin_consts[key]
 
 
 def bin_slots(pose, valid, grid: PairGrid, n: int) -> SlotMap:
     """Assign extended atoms to slots (stable sort by cell id, fixed
     capacity) — the cell-binning analog of LINKEDLIST (ref:
-    main.F90:277-318), built on the rebuild cadence."""
+    main.F90:277-318), built on the rebuild cadence and in each
+    optimizer probe.  Nothing reads the host: `filled` holds the filled
+    slots padded with 0 to the m extended atoms (at most m slots fill),
+    a length that depends on no value (the walk reads only the cells'
+    ranges, so the padding is never read)."""
     m = pose.shape[0]
     dev = pose.device
     nc = np.array(grid.nc)
     ctot = int(np.prod(nc))
     ccap = grid.ccap
-    lo = torch.as_tensor(grid.lo, dtype=pose.dtype, device=dev)
-    cs = torch.as_tensor(grid.cellsize, dtype=pose.dtype, device=dev)
+    lo, cs, nc_t = _bin_tables(grid, pose.dtype, dev)
     rel = (pose - lo) / cs
-    nc_f = torch.as_tensor(nc, dtype=pose.dtype, device=dev)
-    inside = valid & ((rel >= 0) & (rel < nc_f)).all(dim=1)
-    cid3 = torch.minimum(rel.to(torch.int64).clamp(min=0),
-                         torch.as_tensor(nc - 1, device=dev))
+    inside = valid & ((rel >= 0) & (rel < nc_t)).all(dim=1)
+    cid3 = torch.minimum(rel.to(torch.int64).clamp(min=0), nc_t - 1)
     cid = (cid3[:, 0] * nc[1] + cid3[:, 1]) * nc[2] + cid3[:, 2]
     cid = torch.where(inside, cid, ctot)
     order = torch.argsort(cid, stable=True)
@@ -195,11 +213,14 @@ def bin_slots(pose, valid, grid: PairGrid, n: int) -> SlotMap:
     slot_of_atom = slot_of_atom[:-1]
     slot_src = slot_src[:-1]
     cell_count = torch.clamp(start[1:] - start[:-1], max=ccap)
+    # the slots in sorted order ascend, so compacting them in that order
+    # keeps them ascending
+    at = torch.where(inb, torch.cumsum(inb, 0) - 1, m)
+    filled = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    filled = filled.index_copy_(0, at, dst.to(torch.int32))[:-1]
     return SlotMap(slot_src=slot_src, slot_of_atom=slot_of_atom,
                    overflow=overflow, cell_count=cell_count.to(torch.int32),
-                   order=torch.argsort(slot_of_atom),
-                   filled=torch.nonzero(slot_src >= 0).squeeze(1).to(
-                       torch.int32))
+                   order=torch.argsort(slot_of_atom), filled=filled)
 
 
 def pack_slots(slot_src, cols, far_cols: int = 3):
@@ -278,7 +299,8 @@ class Walk(NamedTuple):
     trow: torch.Tensor        # (T,) int32 output row of each target
     nrows: int                # rows of the output
     cell_start: torch.Tensor  # (ncells + 1,) int32 prefix sums of counts
-    slots: torch.Tensor       # (M,) int32 the filled slots, ascending
+    slots: torch.Tensor       # int32 the filled slots, ascending (any
+                              # padding after them is never read)
 
 
 def _cell_start(cell_count):

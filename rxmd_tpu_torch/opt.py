@@ -8,16 +8,17 @@ Wolfe-condition tests, golden-section line minimization, convergence when
 EvaluateEnergyWithStep (ref: cg.F90:358-387).
 
 The line-search control flow runs on the host and reads one float per
-probe.  Each probe builds its lists fresh: the neighbor lists, the angle /
-torsion / hbond lists with exact gates (slack 1, margin 0: what rxmd_tpu's
-uncached terms evaluate) and, for the pair sweep, the slot layout; then a
-full CG and the forces, through the engine's pair engine as an MD step.
-The same loop drives the sharded engine through an adapter whose vectors
-are each domain's block: its dot products and maxima are reduced over the
-mesh, the CG vectors migrate with their atoms between iterations
-(MigrateVec3D, ref: cg.F90:292-314) and a probe may move an atom at most
-half the Verlet skin, so the probe's fresh halo plan stays complete
-(rxmd_tpu opt.py:67-90).
+probe.  On one device a probe is the engine's probe program
+(`md.Engine.probe`, rxmd_tpu's jitted evaluation): fresh neighbor lists
+and, for the pair sweep, the slot layout, then a full CG and the forces
+over the uncached terms (what rxmd_tpu evaluates), through the engine's
+pair engine; on a card a CUDA graph, its PE and list counts read in one
+transfer.  The same loop drives the sharded engine, eagerly, through an
+adapter whose vectors are each domain's block: its dot products and
+maxima are reduced over the mesh, the CG vectors migrate with their atoms
+between iterations (MigrateVec3D, ref: cg.F90:292-314) and a probe may
+move an atom at most half the Verlet skin, so the probe's fresh halo
+plan stays complete (rxmd_tpu opt.py:67-90).
 """
 from __future__ import annotations
 
@@ -43,6 +44,9 @@ class _MDAdapter:
     def __init__(self, engine):
         self.engine = engine
         self.n = engine.state.n
+        # the box is fixed under mdmode 10: its inverse once, outside the
+        # probes (inverting reads the host)
+        self.hinv = torch.linalg.inv(engine.state.H)
 
     @staticmethod
     def dot(a, b):
@@ -59,25 +63,9 @@ class _MDAdapter:
     def positions(self):
         return self.engine.state.pos
 
-    @torch.no_grad()
     def evaluate(self, pos):
-        """(PE, forces, charges) at `pos`, leaving `pos` untouched: a
-        wrapped copy, fresh exact-gate lists (and the sweep's slot layout;
-        overflow checked once), a full CG (isQEq=1; under PQEq a PQEq
-        solve from the engine's shells and its shell step, which the
-        probe's forces read and nothing keeps), then the forces, through
-        the engine's pair engine."""
-        e = self.engine
-        s = e.state
-        pw = e._wrap(pos, s.H)
-        nbrs, lists, sm = e._build_lists(pw, s, slack=1.0, margin=0.0)
-        pairs = e._pair_data(pw, s, nbrs, sm)
-        q, _, _, nq, spos = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs,
-                                        pairs, isqeq=1, spos=s.spos)
-        e.cg_iters = e.cg_iters + nq
-        e.qeq_solves += 1
-        comps, f = e._forces(pw, q, s, nbrs, lists, pairs, False, spos)
-        return comps[0], f, q
+        """(PE, forces, charges) at `pos` (md.Engine.probe)."""
+        return self.engine.probe(pos, self.hinv)
 
     def commit(self, pos, q):
         self.engine.state = dataclasses.replace(self.engine.state,

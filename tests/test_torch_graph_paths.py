@@ -158,6 +158,12 @@ GUARD_CONFIGS = {
 }
 
 
+# the optimizer's probe program runs on these and the sweep (on the
+# replica: the cell list and the sweep's slot layout)
+PROBE_CONFIGS = dict(GUARD_CONFIGS, sweep=(
+    "x2", False, dict(isQEq=1, nonbond_closed_form=True), "sweep"))
+
+
 @pytest.fixture(scope="module")
 def prepared():
     """One prepared engine per configuration, built on first use."""
@@ -165,7 +171,7 @@ def prepared():
 
     def get(name):
         if name not in cache:
-            kind, lg, over, engine = GUARD_CONFIGS[name]
+            kind, lg, over, engine = PROBE_CONFIGS[name]
             ff, st = _deck(kind, lg)
             e = tmd.Engine(ff, st, tcfg.RunConfig(**GUARD_BASE, **over),
                            device="cpu")
@@ -206,6 +212,70 @@ def test_no_host_read_inside_the_step(prepared, guard, name, steps):
             assert min(counts[k] for k in ("ang", "tor", "ks", "kh")) > 0
         if e.cfg.tighten_lists:
             assert min(counts["kb_t"], counts["knb_t"]) > 0
+
+
+@pytest.fixture
+def no_host_data(guard, monkeypatch):
+    """The guard, and no tensor made from host data either: on a card that
+    is a copy to the device, which a captured stream cannot make."""
+    for name in ("tensor", "as_tensor"):
+        def made(data, *a, orig=getattr(torch, name), name=name, **k):
+            if _ACTIVE[0] and not isinstance(data, torch.Tensor):
+                raise AssertionError("host data inside the program: torch."
+                                     + name)
+            return orig(data, *a, **k)
+        monkeypatch.setattr(torch, name, made)
+
+
+def _plain_sweeps_unguarded(monkeypatch):
+    """The sweep's plain versions read counts on the host by design (the
+    card runs the kernels): the guard is lifted inside them."""
+    from rxmd_tpu_torch.ops import pairsweep as tps
+    for name in ("nonbond_plain", "qeq_build_plain", "qeq_apply_plain"):
+        def plain(*a, orig=getattr(tps, name), **k):
+            was, _ACTIVE[0] = _ACTIVE[0], False
+            try:
+                return orig(*a, **k)
+            finally:
+                _ACTIVE[0] = was
+        monkeypatch.setattr(tps, name, plain)
+
+
+@pytest.mark.parametrize("name", list(PROBE_CONFIGS))
+def test_no_host_read_inside_the_probe(prepared, no_host_data, monkeypatch,
+                                       name):
+    """Engine._probe_fn, the optimizer's probe program, at positions moved
+    by a numpy-seeded step, reads nothing on the host but the CG's chunk
+    flags, after one eager run (a graph's first use, which makes the
+    grids' device constants); its counts are within the caps."""
+    import numpy as np
+    e = prepared(name)
+    _plain_sweeps_unguarded(monkeypatch)
+    rng = np.random.default_rng(3)
+    pos = e.state.pos + torch.as_tensor(
+        rng.normal(scale=0.02, size=(e.state.n, 3)), dtype=e.dtype)
+    sweep = e.pair_engine == "sweep"
+    if sweep:
+        e.probe(pos)                 # sizes the QEq list, eagerly
+    carry = tmd.ProbeIn(dataclasses.replace(e.state, pos=pos, step=0),
+                        torch.linalg.inv(e.state.H),
+                        e._sizes["probe qeq list"] if sweep else None)
+    with torch.no_grad():
+        ref = e._probe_fn(carry)
+        reads = []
+        _ACTIVE[0] = True
+        out = e._probe_fn(carry, _guarded_loop(reads))
+        _ACTIVE[0] = False
+    assert len(reads) > 0            # a full CG reads its flag per chunk
+    assert bool(torch.isfinite(out.pe)) and float(out.pe) == float(ref.pe)
+    assert torch.equal(out.force, ref.force)
+    got = dict(zip(tmd.PROBE_COUNTS, out.counts.tolist()))
+    assert (got["cells"] > 0) == (e.grid is not None), got
+    assert min(got["kb"], got["knb"], got["ang"], got["tor"],
+               got["ks"]) > 0, got
+    assert (got["slots"] > 0) == (got["qeq"] > 0) == sweep, got
+    assert (min(got["kb_t"], got["knb_t"]) > 0) == e.cfg.tighten_lists
+    e._check_probe(got)
 
 
 def test_graphs_on_a_card_for_every_configuration(prepared, monkeypatch):
