@@ -112,6 +112,27 @@ first failure ends the run with a non-zero exit code and no result line.
      phase (CUDA events) and its aten ops with the most device time, and
      each configuration's ms per probe.
 
+ 13. sharded graphs: the sharded engine's programs (ShardedEngine's
+     steps, blocks, prepare and optimizer probes through graphs.GraphCache,
+     their NCCL all-reduces inside the captures) as one NCCL rank on mesh
+     (1, 1, 1) at --mc in float32, which runs no sweep kernel: isQEq=2
+     then 1, GRAPH_PATH_STEPS steps in blocks of GRAPH_BLOCK with graphs
+     and eagerly (ShardedEngine.graphs off) from one start: the same
+     block, step and rebuild counts with a block or more, each PRINTE's
+     total PE within TOL_GRAPH_PE, a capture or more and every dispatch
+     after each key's first use a replay, and a step replayed right after
+     a rebuild within the window's buckets against the eager step (10
+     steps more, then 10 profiled); then
+     OPT_ITERS iterations of opt.conjugate_gradient each way, PE not
+     rising, every probe after each key's first use a replay, and graph
+     probes against eager ones at three recorded positions at phase 12's
+     bars; printed, never checked: ms/step and atom-steps/s of both modes,
+     captures and capture ms, the device idle share of 10 more steps by
+     torch.profiler, peak memory, and the optimizer's seconds per
+     iteration and per probe.  With two or more cards the multi-rank dry
+     run (dryrun.run, its steps captured with their sends and receives);
+     else a line saying it needs them.
+
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -982,7 +1003,8 @@ def wall_ms(fn, reps=3):
 def row_layout_cost(e):
     """The sharded engine's rows against rxmd_tpu's layout, on the domain
     `e` holds after a rebuild.  The engine computes over the residents and
-    the live ghosts (Block.keep): nonbonded rows, many-body centers and CG
+    the live ghosts, padded with empty ghost rows to the window's bucket
+    (Block.keep): nonbonded rows, many-body centers and CG
     vectors for the residents alone (Neighbors.center_rows), bonded rows
     for the ghosts within `bond_depth`.  rxmd_tpu computes every row of
     the ghost buffers, ncap + 6 bcap, each with both lists and CG entries
@@ -1003,7 +1025,11 @@ def row_layout_cost(e):
 
     def cut_nbrs():
         keep = e._block.keep
-        return e._neighbors(frac_ext[keep], valid_ext[keep], tex_all[keep])
+        pos_rel, near = e._near(frac_ext[keep], valid_ext[keep])
+        nbrs, occ = e._neighbors(pos_rel, valid_ext[keep], tex_all[keep],
+                                 torch.nonzero(near).reshape(-1), e.grid)
+        check(int(occ) <= e.grid.ccap, "row layouts: cell capacity")
+        return pos_rel, nbrs
 
     def all_nbrs():
         pos_rel = (frac_ext - e.mylo) @ e.Hg.T
@@ -1593,6 +1619,249 @@ def probe_paths(mc, seed, smi):
         torch.cuda.empty_cache()
 
 
+def sharded_engine(mc, **cfg):
+    """A float32 ShardedEngine on the card over the process group this
+    process joined (one NCCL rank: mesh (1, 1, 1))."""
+    from rxmd_tpu_torch.config import RunConfig
+    from rxmd_tpu_torch.parallel.engine import ShardedEngine
+    ff, st = load_deck(mc, torch.float64, "cpu")
+    kw = dict(dtype="float32", isQEq=1, pstep=5)
+    kw.update(cfg)
+    return ShardedEngine(ff, st, RunConfig(**kw), device=DEVICE)
+
+
+def sharded_replay_after_rebuild(e):
+    """phase 13's replay_after_rebuild: one step right after a rebuild at
+    the same positions, whose counts fit the window's buckets, so the
+    window keeps its shapes and the step replays the program captured
+    before it, against the same step run eagerly: (PE difference over
+    |PE|, max position difference [A])."""
+    s0, f0, a0, k0 = e.sstate, e.force, e._astr, e.step_count
+
+    def one(graphs):
+        e.graphs = graphs
+        e.sstate, e.force, e._astr, e.step_count = s0, f0, a0, k0
+        e.rebuild()
+        e._advance(1)
+        torch.cuda.synchronize()
+        return (e.comps.double().cpu().numpy(),
+                (e.sstate.frac @ e.Hg.T).double().cpu().numpy())
+    one(True)
+    one(True)
+    g = e._graphs
+    reps, caps = g.replays, g.captures
+    got = one(True)
+    check(g.replays == reps + 1 and g.captures == caps,
+          "sharded graphs: the step right after a rebuild within the "
+          "window's buckets replayed the program captured before it")
+    ref = one(False)
+    e.graphs = True
+    return (abs(got[0][0] - ref[0][0]) / abs(ref[0][0]),
+            float(np.abs(got[1] - ref[1]).max()))
+
+
+def phase_sharded_graphs(mc, seed, steps=GRAPH_PATH_STEPS, iters=OPT_ITERS):
+    """The sharded engine's programs as CUDA graphs with their NCCL
+    collectives (see the module docstring, phase 13): one NCCL rank, mesh
+    (1, 1, 1), at --mc in float32, isQEq=2 then 1, `steps` steps with
+    graphs and eagerly from one start, then the sharded optimizer."""
+    from rxmd_tpu_torch.parallel import comm, dryrun
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    names = ("MD block (dispatch)", "MD step (dispatch)", "neighbor rebuild")
+    comm.init_process_group(0, 1, f"127.0.0.1:{dryrun.free_port()}", DEVICE)
+    try:
+        for isq in (2, 1):
+            runs = {}
+            for mode in ("graphs", "eager"):
+                e = sharded_engine(mc, isQEq=isq, pstep=10,
+                                   block_steps=GRAPH_BLOCK)
+                e.graphs = mode == "graphs"
+                check(e.comm.grouped and e.mesh_shape == (1, 1, 1)
+                      and e.uses_graphs() == e.graphs,
+                      f"sharded graphs: one NCCL rank, graphs {e.graphs}")
+                e.init_velocity(seed=seed)
+                zero_launches()
+                fresh_peak()
+                printed = []
+                wall = e.run(steps, log=lambda line, e=e: printed.append(
+                    (e.step_count, float(e.comps[0]))))
+                no_sweep(f"sharded graphs isQEq={isq} {mode}")
+                tm = e.timers
+                counts = [tm.ncalls.get(k, 0) for k in names] + [
+                    tm.counters.get("drift-triggered rebuilds", 0)]
+                caps, cap_s, reps = graph_counts(tm)
+                # prepare, then every block and single step: each key's
+                # first use runs eagerly, every later dispatch replays
+                runs_n = 1 + counts[0] + counts[1]
+                if e.graphs:
+                    first = len(e._graphs.seen)
+                    check(caps >= 1 and reps == runs_n - first,
+                          f"sharded graphs isQEq={isq}: {caps:.0f} "
+                          f"captures, {reps:.0f} replays of {runs_n} "
+                          f"dispatches ({first} keys first run eagerly): "
+                          "every other dispatch a replay")
+                else:
+                    first = runs_n
+                    check(caps == reps == 0,
+                          "sharded graphs: no graph eagerly")
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                # the window's buckets grow at the first rebuilds of the
+                # heating deck (its angle and torsion lists): 10 steps
+                # more, then 10 profiled
+                e.run(10, log=None)
+                before = graph_counts(tm)
+                busy, pwall, idle, _ = idle_share(
+                    lambda e=e: e.run(10, log=None))
+                prof = [b - a for a, b in zip(before, graph_counts(tm))]
+                runs[mode] = dict(e=e, printed=printed, wall=wall,
+                                  counts=counts, caps=caps,
+                                  cap_ms=cap_s * 1e3, reps=reps, first=first,
+                                  peak=peak, busy=busy, pwall=pwall,
+                                  idle=idle, prof=prof,
+                                  iters=int(e.cg_iters),
+                                  sizes=dict(e._sizes))
+            a, b = runs["graphs"], runs["eager"]
+            check(a["counts"] == b["counts"] and a["counts"][0] >= 1,
+                  f"sharded graphs isQEq={isq}: the same blocks, steps, "
+                  f"rebuilds and drift rebuilds, one block or more "
+                  f"({a['counts']} against {b['counts']})")
+            check([s for s, _ in a["printed"]]
+                  == [s for s, _ in b["printed"]],
+                  "sharded graphs: the same PRINTE steps")
+            err = max(abs(x - y) / abs(y) for (_, x), (_, y)
+                      in zip(a["printed"], b["printed"]))
+            check(np.isfinite(err) and err <= TOL_GRAPH_PE,
+                  f"sharded graphs isQEq={isq}: PRINTE PE within "
+                  f"{TOL_GRAPH_PE} of the eager run ({err:.3e})")
+            pe_err, pos_err = sharded_replay_after_rebuild(a["e"])
+            check(pe_err <= TOL_GRAPH_PE and pos_err <= TOL_GRAPH_POS,
+                  f"sharded graphs isQEq={isq}: the replay after a rebuild "
+                  f"against the eager step (PE {pe_err:.3e}, positions "
+                  f"{pos_err:.3e} A)")
+            no_sweep(f"sharded graphs isQEq={isq}")
+            e = a["e"]
+            n = e.n
+            rows = e._block.keep.shape[0]
+            for mode, r in runs.items():
+                idle = ("not measured" if r["idle"] is None
+                        else f"{r['idle']:.3f}")
+                log(f"sharded graphs | isQEq={isq} {mode} | {n} atoms, "
+                    f"float32, mesh (1, 1, 1), 1 NCCL rank, rows {rows} of "
+                    f"{e.mext}, {steps} steps from one start: "
+                    f"{r['wall'] / steps * 1e3:.2f} ms/step wall, "
+                    f"{n * steps / r['wall']:.4e} atom-steps/s; blocks / "
+                    f"steps / rebuilds / drift rebuilds {r['counts']}; "
+                    f"captures {r['caps']:.0f} in {r['cap_ms']:.1f} ms, "
+                    f"replays {r['reps']:.0f}, first uses {r['first']}; CG "
+                    f"iterations {r['iters']}; peak {r['peak']:.1f} MB; "
+                    f"after 10 steps more, 10 under torch.profiler: device "
+                    f"{r['busy']:.2f} of {r['pwall']:.2f} ms, idle share "
+                    f"{idle}, captures {r['prof'][0]:.0f}, replays "
+                    f"{r['prof'][2]:.0f}; window buckets {r['sizes']} | "
+                    f"{smi}")
+            log(f"sharded graphs | isQEq={isq}: PRINTE PE graphs vs eager "
+                f"max rel diff {err:.3e} (bound {TOL_GRAPH_PE}); replay "
+                f"after a rebuild vs eager: PE {pe_err:.3e}, positions "
+                f"{pos_err:.3e} A")
+            del runs, a, b, e
+        sharded_optimizer(mc, iters, smi)
+    finally:
+        comm.destroy()
+    count = torch.cuda.device_count()
+    if count >= 2:
+        err, rec, _ = dryrun.run(min(count, 8), DEVICE, mc=mc,
+                                 dtype="float32", tol=TOL_TE)
+        log(f"sharded graphs | {min(count, 8)} NCCL ranks, mesh "
+            f"{rec['mesh']}: 3 steps (first use, capture, replay) with "
+            f"their sends, receives and all-reduces captured, PE against "
+            f"md.Engine {err:.3e} of |PE| (bound {TOL_TE}); captures "
+            f"{rec['captures']:.0f}, replays {rec['replays']:.0f} | {smi}")
+    else:
+        log(f"sharded graphs | multi-rank graphs (captured sends and "
+            f"receives): not run, NCCL runs one rank a card and this "
+            f"machine has {count} (torch.cuda.device_count())")
+    log(f"sharded graphs: phase took {time.perf_counter() - t_phase:.1f} s"
+        f" | {smi}")
+
+
+def sharded_optimizer(mc, iters, smi):
+    """Phase 13's optimizer: `iters` CG iterations of the sharded engine
+    (mdmode 10) with graphs and eagerly from one start, then graph probes
+    against eager probes at three of the positions the graph run
+    probed."""
+    from rxmd_tpu_torch import opt
+    runs = {}
+    for mode in ("graphs", "eager"):
+        e = sharded_engine(mc, mdmode=10)
+        e.graphs = mode == "graphs"
+        seen = []
+        evaluate = e.cg_evaluate
+        e.cg_evaluate = lambda pos, f=evaluate: (seen.append(pos),
+                                                 f(pos))[1]
+        lines, ends = [], []
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pe_end = opt.conjugate_gradient(
+            e, max_iter=iters, log=lines.append,
+            writer=lambda it, pos, p: ends.append(
+                (p, time.perf_counter(), len(seen))))
+        no_sweep(f"sharded optimizer {mode}")
+        seq = [float(lines[0].split("PE0=")[1])] + [p for p, _, _ in ends]
+        check(len(ends) == iters and all(np.isfinite(seq))
+              and all(y <= x for x, y in zip(seq, seq[1:]))
+              and pe_end == seq[-1],
+              f"sharded optimizer {mode}: PE does not rise over {iters} "
+              f"iterations ({seq})")
+        tm = e.timers
+        caps, cap_s, reps = graph_counts(tm)
+        runs_n = len(seen) + tm.counters.get("probe regrowths", 0)
+        if e.graphs:
+            first = len(e._probe_graphs.seen)
+            check(caps >= 1 and reps == runs_n - first,
+                  f"sharded optimizer: {caps:.0f} captures, {reps:.0f} "
+                  f"replays of {runs_n} probes run ({first} keys first run "
+                  "eagerly): every other probe a replay")
+        else:
+            check(caps == reps == 0, "sharded optimizer: no graph eagerly")
+        ts = [t0] + [t for _, t, _ in ends]
+        nps = [0] + [k for _, _, k in ends]
+        runs[mode] = dict(e=e, seen=seen, seq=seq, caps=caps,
+                          cap_ms=cap_s * 1e3, reps=reps, runs=runs_n,
+                          per_it=[y - x for x, y in zip(ts, ts[1:])],
+                          probes=[y - x for x, y in zip(nps, nps[1:])])
+    e = runs["graphs"]["e"]
+    del e.cg_evaluate
+    seen = runs["graphs"]["seen"]
+    diffs = []
+    for i in np.linspace(0, len(seen) - 1, 3).astype(int):
+        e.graphs = True
+        x = e.cg_evaluate(seen[i])
+        e.graphs = False
+        y = e.cg_evaluate(seen[i])
+        diffs.append(probe_diff(x, y))
+        check_probe_diff(f"sharded optimizer probe {i}", diffs[-1], False)
+    e.graphs = True
+    worst = np.max(diffs, axis=0)
+    for mode, r in runs.items():
+        spi = [round(x, 4) for x in r["per_it"]]
+        spp = [round(t / max(k, 1), 4) for t, k in zip(r["per_it"],
+                                                        r["probes"])]
+        log(f"sharded graphs | optimizer {mode} | {e.n} atoms, float32, "
+            f"mesh (1, 1, 1), {iters} iterations: seconds per iteration "
+            f"{spi}, probes per iteration {r['probes']} (the first with "
+            f"the start's), seconds per probe {spp}; PE {r['seq']}; "
+            f"captures {r['caps']:.0f} in {r['cap_ms']:.1f} ms, replays "
+            f"{r['reps']:.0f} of {r['runs']} probes run | {smi}")
+    log(f"sharded graphs | optimizer: graph vs eager probe at "
+        f"{len(diffs)} recorded positions: max PE {worst[0]:.3e}, forces "
+        f"{worst[1]:.3e} of max|f|, charges {worst[2]:.3e} e (bounds "
+        f"{TOL_PROBE_PE}, {TOL_PROBE_F}, {TOL_PROBE_Q})")
+    del runs, e
+    torch.cuda.empty_cache()
+
+
 def zero_launches():
     from rxmd_tpu_torch.ops import pairsweep as ps
     for k in ps.launches:
@@ -1825,6 +2094,7 @@ def main():
     phase_graphs(mc, args.seed)
     phase_graph_paths(mc, args.seed)
     phase_optimizer_program(mc, args.seed)
+    phase_sharded_graphs(mc, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

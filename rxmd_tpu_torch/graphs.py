@@ -1,13 +1,16 @@
 """The MD step as a device program: CUDA graphs of single steps and K-step
 blocks (counterpart of rxmd_tpu's jitted step and its `lax.scan` blocks,
-rxmd_tpu/md.py:298-299, 717-738).
+rxmd_tpu/md.py:298-299, 717-738, and of its sharded engine's
+shard_map'd programs, rxmd_tpu/parallel/engine.py:622-741, 949-974).
 
 rxmd_tpu compiles a step, or K steps, into one XLA program that the host
 dispatches with one call, whatever its configuration, and so the
 optimizer's evaluation.  Here a program is a Python function of tensors
 (`md.Engine._block_fn`, for every pair engine, box, term cache, QEq or
 PQEq mode and force field; `md.Engine._probe_fn`, whose window is empty
-and whose cache is its own, so a rebuild never drops it) recorded into
+and whose cache is its own, so a rebuild never drops it; the sharded
+engine's `_block_fn`, `_prep_fn` and `_probe_fn`, whose NCCL collectives
+are captured with them, parallel/comm.py) recorded into
 CUDA graphs over static input tensors and replayed after `copy_`-ing the
 current inputs into them.  A graph holds the addresses of its inputs
 (the sweep's kernels take raw pointers, ops/pairsweep.py; every captured
@@ -34,12 +37,13 @@ and is replayed until the flag is set.  A program with no such loop (the
 extended Lagrangian's one iteration, or no QEq) is one graph.
 
 The first call of a key runs the function eagerly on the cache's stream
-(the warm-up: lazy initialization, cached tables, autograd's streams), the
-second captures and replays it, with Python's garbage collector held off
-(a CUDA graph freed during a capture invalidates it).  A failed capture
-raises; nothing falls back to eager mode.  Each part records the kernel
-launches it holds (ops/pairsweep.launches counts them at capture) and
-adds them to the counts at every replay.
+(the warm-up: lazy initialization, cached tables, autograd's streams,
+NCCL's communicators), the second captures and replays it, with Python's
+garbage collector held off (a CUDA graph freed during a capture
+invalidates it).  A failed capture raises; nothing falls back to eager
+mode.  Each part records the kernel launches it holds
+(ops/pairsweep.launches counts them at capture) and adds them to the
+counts at every replay.
 """
 from __future__ import annotations
 
@@ -193,27 +197,35 @@ class GraphCache:
             b.copy_(t)
         if prog is None:
             t0 = time.perf_counter()
-            prog = Program()
-            rec = _Recorder(prog, self.pool)
-            # no garbage collection while capturing: a graph that the
-            # collector frees during a capture (an engine dropped in a
-            # reference cycle) invalidates the capture
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                rec.begin()
-                prog.out = fn(fill(window, iter(wbuf)),
-                              fill(carry, iter(cbuf)), rec.loop)
-                rec.end()
-            finally:
-                if collecting:
-                    gc.enable()
+            prog = self._capture(fn, fill(window, iter(wbuf)),
+                                 fill(carry, iter(cbuf)))
             self.programs[key] = prog
             self.captures += 1
             self.capture_s += time.perf_counter() - t0
         prog.replay()
         self.replays += 1
         return fill(prog.out, (t.clone() for t in leaves(prog.out)))
+
+    def _capture(self, fn, window, carry):
+        """fn over the static inputs, captured into a Program."""
+        prog = Program()
+        rec = _Recorder(prog, self.pool)
+        # no garbage collection while capturing: a graph that the
+        # collector frees during a capture (an engine dropped in a
+        # reference cycle) invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            rec.begin()
+            prog.out = fn(window, carry, rec.loop)
+            rec.end()
+        finally:
+            if collecting:
+                gc.enable()
+        return prog
+
+    def _new_pool(self):
+        return torch.cuda.graph_pool_handle()
 
     def _window(self, wkey, window, window_id):
         """The static copy of the window's tensors, refreshed once per
@@ -224,7 +236,7 @@ class GraphCache:
         key, buf, wid = self.window
         if key != wkey:
             self.programs = {}
-            self.pool = torch.cuda.graph_pool_handle()
+            self.pool = self._new_pool()
             buf = [t.clone() for t in leaves(window)]
         elif wid != window_id:
             for b, t in zip(buf, leaves(window)):

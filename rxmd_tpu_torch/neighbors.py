@@ -286,10 +286,10 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
     400 atoms).  `pos` are real coordinates inside the grid region; `valid`
     masks live entries.  Returns (Neighbors: bonded rows for the first
     `nrows` entries, nonbonded rows for the first `nb_rows` (default
-    `nrows`), max cell occupancy).  With `bond_rows` (row indices) only
-    those rows get bonded lists, the others stay empty.  The sharded
-    engine needs bonded rows for its ghosts near its domain too (their
-    bond orders), nonbonded rows only for its residents."""
+    `nrows`), max cell occupancy).  With `bond_rows` (row indices, -1
+    padded) only those rows get bonded lists, the others stay empty.  The
+    sharded engine needs bonded rows for its ghosts near its domain too
+    (their bond orders), nonbonded rows only for its residents."""
     m = pos.shape[0]
     dev = pos.device
     nrows = nrows or m
@@ -334,11 +334,16 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
     if bond_rows is None:
         idxb, cntb = lists(torch.arange(nrows, device=dev), st_b, True, kb)
     else:
-        ib, cb = lists(bond_rows, st_b, True, kb)
-        idxb = torch.full((nrows, kb), -1, dtype=torch.int64, device=dev)
-        idxb[bond_rows] = ib
-        cntb = torch.zeros(nrows, dtype=cb.dtype, device=dev)
-        cntb[bond_rows] = cb
+        # -1 entries pad a fixed-length selection: their rows land in a
+        # dump row past the end
+        ok = bond_rows >= 0
+        ib, cb = lists(torch.where(ok, bond_rows, 0), st_b, True, kb)
+        dst = torch.where(ok, bond_rows, nrows)
+        idxb = torch.full((nrows + 1, kb), -1, dtype=torch.int64, device=dev)
+        idxb[dst] = ib
+        cntb = torch.zeros(nrows + 1, dtype=cb.dtype, device=dev)
+        cntb[dst] = cb
+        idxb, cntb = idxb[:nrows], cntb[:nrows]
     idxnb, cntnb = lists(torch.arange(nb_rows, device=dev), st_nb, False,
                          knb)
     return Neighbors(idxb=idxb, cntb=cntb, idxnb=idxnb, cntnb=cntnb), overflow

@@ -10,6 +10,19 @@ rxmd_tpu.parallel.engine calls inside shard_map).
     sending to its face neighbor at +d and receiving from the one at -d;
   * `all_gather`: fixed-size blocks from every rank, in rank order.
 
+Inside a CUDA graph (graphs.GraphCache runs the sharded engine's programs
+on its side stream) the collectives are captured with the kernels around
+them.  Each runs on the caller's current stream, the cache's side stream
+while it captures and at a program's eager first use alike:
+ProcessGroupNCCL orders its NCCL stream after the current stream and the
+current stream after it, events a capture records as graph edges.  A
+wait (`all_reduce`'s own, `Work.wait` in `shift`) is such an event wait
+on the stream and never blocks the host (no blocking-wait setting is
+made).  NCCL creates a communicator at its first collective, which a
+capture cannot hold (it allocates and synchronizes): the eager first use
+of every program's key runs each collective the program holds before it
+is captured.
+
 Rank r is the mesh block d = (ix*ny + iy)*nz + iz, z fastest, as rxmd_tpu
 numbers its device blocks (rxmd_tpu/io/slab.py:136-137), so `distribute`
 and the slab writers agree across packages.  The process group comes from

@@ -8,11 +8,18 @@ waits at most `timeout` seconds, then ends every rank still running, so a
 collective that never completes fails the caller instead of hanging it.
 Every rank checks that neither `jax` nor `rxmd_tpu` was imported.
 
-`run(n, device)` is the dry run: prepare and one step of the sharded
-engine on the in-repo CHON deck over factor_mesh(n), each PE component
-held to the single-device md.Engine.  rxmd_tpu's dry run reads a deck
-outside the repository (rxmd_tpu/parallel/dryrun.py:49-50); this one does
-not.
+`run(n, device)` is the dry run: prepare and a step of the sharded engine
+on the in-repo CHON deck over factor_mesh(n), each PE component held to
+the single-device md.Engine; on cards three steps, run as CUDA graphs
+(the first eagerly, the second captured with its sends, receives and
+all-reduces, the third replayed).  rxmd_tpu's dry run reads a deck outside
+the repository (rxmd_tpu/parallel/dryrun.py:49-50); this one does not.
+
+`HostGraphs` is graphs.GraphCache's dispatch on the CPU, without captures
+(`install_host_graphs` puts two into an engine), and `HostReadGuard` makes
+every host read raise: the rank entries `guarded_programs`, `probe_case`,
+`capacity_case` and `window_case` hold the sharded engine's programs to
+what a capture needs.
 
     python -m rxmd_tpu_torch.parallel.dryrun N [cpu|cuda]
 """
@@ -26,6 +33,8 @@ import time
 import traceback
 
 import numpy as np
+
+from ..graphs import GraphCache
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -165,12 +174,14 @@ def trajectory(mc, cfg_kw, nsteps=1, seed=1, mesh=None, device="cpu",
         e.run(1, log=None)
         record()
     fin = e.to_state()
+    tm = e.timers.counters
     return dict(comps=np.array(comps), forces=np.array(forces),
                 q=np.array(charges), press=np.array(press), lines=lines,
                 n_atoms=e.n_atoms, pos=fin.pos.double().numpy(),
                 spos=fin.spos.double().numpy(), cg_iters=int(e.cg_iters),
                 ff_chi=ff.chi.copy(), ff_eta=ff.eta.copy(),
-                mesh=e.mesh_shape)
+                mesh=e.mesh_shape, captures=tm.get("graph captures", 0),
+                replays=tm.get("graph replays", 0))
 
 
 def halo_case(frac_blocks, valid_blocks, w_blocks, mesh, skin_frac, ncap,
@@ -304,16 +315,20 @@ def slab_case(mc, cfg_kw, mesh, outdir, nsteps=2):
     return e.comm.rank
 
 
-def scheduled_run(mc, cfg_kw, nsteps, seed=1, mesh=None):
+def scheduled_run(mc, cfg_kw, nsteps, seed=1, mesh=None, host_graphs=False):
     """Rank entry: ShardedEngine on the CHON deck, init_velocity(seed),
-    prepare, then `run(nsteps)` on its own schedule.  Returns the PE
-    components at each PRINTE (step, comps), the timers' dispatch and
-    rebuild counts and the final positions in gid order."""
+    prepare, then `run(nsteps)` on its own schedule; with `host_graphs`
+    its programs dispatched through `install_host_graphs`' caches.  Returns the PE
+    components at each PRINTE (step, comps), the timers' dispatch,
+    rebuild, capture and replay counts and the final positions in gid
+    order."""
     from ..config import RunConfig
     from .engine import ShardedEngine
     ff, st = load_deck(mc, "float64")
     e = ShardedEngine(ff, st, RunConfig(**cfg_kw), mesh_shape=mesh,
                       device="cpu")
+    if host_graphs:
+        install_host_graphs(e)
     e.init_velocity(seed=seed)
     e.prepare()
     printed = []
@@ -324,7 +339,281 @@ def scheduled_run(mc, cfg_kw, nsteps, seed=1, mesh=None):
                 blocks=tm.ncalls.get("MD block (dispatch)", 0),
                 steps=tm.ncalls.get("MD step (dispatch)", 0),
                 rebuilds=tm.ncalls.get("neighbor rebuild", 0),
-                in_blocks=tm.counters.get("MD steps in blocks", 0))
+                in_blocks=tm.counters.get("MD steps in blocks", 0),
+                captures=tm.counters.get("graph captures", 0),
+                replays=tm.counters.get("graph replays", 0))
+
+
+# ----------------------------------------------------------------------
+# the programs on the CPU: a stand-in graph cache and a host-read guard
+
+class HostGraphs(GraphCache):
+    """graphs.GraphCache's dispatch where no graph can be captured (the
+    CPU): its keys, first uses, static window and carry copies, window
+    drops and counts, with a "capture" that keeps the function and its
+    static inputs and a "replay" that runs it over them."""
+
+    def __init__(self, device=None):
+        self.pool, self.programs, self.seen, self.carries = (None, {},
+                                                             set(), {})
+        self.window = (None, None, None)
+        self.captures = self.replays = 0
+        self.capture_s = 0.0
+
+    run = GraphCache._run             # no stream to order against
+
+    def _new_pool(self):
+        return None
+
+    def _capture(self, fn, window, carry):
+        return _Rerun(fn, window, carry)
+
+
+class _Rerun:
+    """A HostGraphs program: `replay` runs the function over the cache's
+    static inputs (refreshed before each replay) into `out`."""
+
+    def __init__(self, fn, window, carry):
+        self.fn, self.window, self.carry, self.out = fn, window, carry, None
+
+    def replay(self):
+        self.out = self.fn(self.window, self.carry, None)
+
+
+def install_host_graphs(engine):
+    """Dispatch the engine's steps, blocks, prepare and probes through two
+    HostGraphs caches, as a card dispatches them through its
+    GraphCaches."""
+    engine._graphs, engine._probe_graphs = HostGraphs(), HostGraphs()
+    engine.uses_graphs = lambda: True
+
+
+class HostReadGuard:
+    """While entered, every way a tensor reaches the host raises
+    (`Tensor.item`, `__bool__`, `__int__`, `__float__`, `__index__`,
+    `tolist`, `numpy`, `cpu`, `nonzero`, `masked_select`; torch's
+    `nonzero`, `masked_select`, `argwhere`, `unique`, one-argument
+    `torch.where`; indexing with a boolean mask), and so does a tensor
+    made from host data (`torch.tensor`, `torch.as_tensor`,
+    `Tensor.new_tensor`: on a card a copy that a capture cannot make).
+    `loop` is the CG's chunk hook with the guard lifted for the finished
+    flag's read, the one read a program makes; `reads` counts them."""
+
+    def __init__(self):
+        self.active = False
+        self.reads = 0
+        self._saved = []
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        import torch
+        T = torch.Tensor
+
+        def blocked(what):
+            def make(orig):
+                def f(*a, **k):
+                    if self.active:
+                        raise AssertionError(f"host read in a program: {what}")
+                    return orig(*a, **k)
+                return f
+            return make
+
+        def host_data(what):
+            def make(orig):
+                def f(*a, **k):
+                    data = a[1] if what == "Tensor.new_tensor" else a[0]
+                    if self.active and not isinstance(data, torch.Tensor):
+                        raise AssertionError(
+                            f"host data in a program: {what}")
+                    return orig(*a, **k)
+                return f
+            return make
+
+        def masked(what):
+            def make(orig):
+                def f(t, idx, *v):
+                    if self.active and any(
+                            isinstance(i, torch.Tensor)
+                            and i.dtype == torch.bool for i in
+                            (idx if isinstance(idx, tuple) else (idx,))):
+                        raise AssertionError(
+                            f"host read in a program: boolean-mask {what}")
+                    return orig(t, idx, *v)
+                return f
+            return make
+
+        def where1(orig):
+            def f(*a, **k):
+                if self.active and len(a) + len(k) == 1:
+                    raise AssertionError("host read in a program: "
+                                         "torch.where(condition)")
+                return orig(*a, **k)
+            return f
+
+        for name in ("item", "__bool__", "__int__", "__float__",
+                     "__index__", "tolist", "numpy", "cpu", "nonzero",
+                     "masked_select"):
+            self._patch(T, name, blocked("Tensor." + name))
+        for name in ("nonzero", "masked_select", "argwhere", "unique"):
+            self._patch(torch, name, blocked("torch." + name))
+        for name in ("tensor", "as_tensor"):
+            self._patch(torch, name, host_data("torch." + name))
+        self._patch(T, "new_tensor", host_data("Tensor.new_tensor"))
+        self._patch(T, "__getitem__", masked("indexing"))
+        self._patch(T, "__setitem__", masked("assignment"))
+        self._patch(torch, "where", where1)
+        self.active = True
+        return self
+
+    def __exit__(self, *exc):
+        self.active = False
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved = []
+
+    def loop(self, chunk, carry, nchunks):
+        carry = chunk(carry)
+        for _ in range(nchunks - 1):
+            self.active = False
+            fin = bool(carry.fin)
+            self.reads += 1
+            self.active = True
+            if fin:
+                break
+            carry = chunk(carry)
+        return carry
+
+
+def _engine(mc, cfg_kw, mesh, seed=1, **kw):
+    """A prepared ShardedEngine on the CHON deck in float64 on the CPU."""
+    from ..config import RunConfig
+    from .engine import ShardedEngine
+    ff, st = load_deck(mc, "float64")
+    e = ShardedEngine(ff, st, RunConfig(**cfg_kw), mesh_shape=mesh,
+                      device="cpu", **kw)
+    e.init_velocity(seed=seed)
+    e.prepare()
+    return e
+
+
+def _moved(e, seed=5, amp=0.02):
+    """The engine's block positions moved by a seeded random `amp` [A]."""
+    import torch
+    pos = e.cg_positions()
+    d = np.random.default_rng(seed + e.comm.rank).uniform(
+        -amp, amp, tuple(pos.shape))
+    return torch.where(e.sstate.valid[:, None],
+                       pos + torch.as_tensor(d, dtype=pos.dtype), 0.0)
+
+
+def guarded_programs(mc, cases, mesh, engine_kw=None):
+    """Rank entry: for each (name, cfg_kw) of `cases`, the sharded
+    programs under a HostReadGuard after prepare and two steps: one step
+    and a block of 3 (`_block_fn`) and a probe (`_probe_fn`) at moved
+    positions.  Returns name -> (error or None, the chunk flags read,
+    whether every output is finite)."""
+    import torch
+    from .. import graphs
+    from .engine import ProbeIn, Window
+    out = {}
+    for name, cfg_kw in cases:
+        e = _engine(mc, cfg_kw, mesh, **(engine_kw or {}))
+        e.run(2, log=None)
+        window = Window(e._block, e._frac_ref)
+        carry = (e.sstate, e.force, e._astr,
+                 torch.full((), e.step_count, dtype=torch.int64))
+        probe = ProbeIn(e.sstate, _moved(e), e.ghost_cap, e.bond_cap,
+                        e.grid.ccap)
+        guard = HostReadGuard()
+        res = []
+        try:
+            with guard:
+                for K in (1, 3):
+                    res.append(e._block_fn(K, True, window, carry,
+                                           guard.loop))
+                res.append(e._probe_fn(probe, guard.loop))
+            err = None
+        except AssertionError as x:
+            err = str(x)
+        finite = all(bool(torch.isfinite(t.double()).all())
+                     for t in graphs.leaves(res))
+        out[name] = (err, guard.reads, finite)
+    return out
+
+
+def probe_case(mc, cfg_kw, mesh, host_graphs=False):
+    """Rank entry: `cg_evaluate` four times at moved positions of a
+    prepared engine (with `host_graphs` through `install_host_graphs`:
+    the sizing probe and the sized key's first use eagerly, then its
+    capture and a replay).  Returns the probes' PE, forces and charges in
+    gid order, the positions in gid order and the capture and replay
+    counts."""
+    e = _engine(mc, cfg_kw, mesh)
+    if host_graphs:
+        install_host_graphs(e)
+    pos = _moved(e)
+    probes = [e.cg_evaluate(pos) for _ in range(4)]
+    tm = e.timers.counters
+    return dict(pe=[p[0] for p in probes],
+                f=[by_gid(e, p[1]) for p in probes],
+                q=[by_gid(e, p[2]) for p in probes], pos=by_gid(e, pos),
+                captures=tm.get("graph captures", 0),
+                replays=tm.get("graph replays", 0))
+
+
+def capacity_case(mc, cfg_kw, mesh, cases, engine_kw=None):
+    """Rank entry: for each (where, attr, value) of `cases`, a prepared
+    engine whose capacity `attr` (an engine attribute, or "caps.<name>")
+    is set to `value`, then a rebuild (`where` "rebuild") or a probe at
+    moved positions ("probe").  Returns the errors this rank raised (None
+    for none), in order."""
+    errors = []
+    for where, attr, value in cases:
+        e = _engine(mc, cfg_kw, mesh, **(engine_kw or {}))
+        if attr.startswith("caps."):
+            e.caps[attr[5:]] = value
+        else:
+            setattr(e, attr, value)
+        try:
+            e.rebuild() if where == "rebuild" else e.cg_evaluate(_moved(e))
+            errors.append(None)
+        except RuntimeError as err:
+            errors.append(str(err))
+    return errors
+
+
+def window_case(mc, cfg_kw, mesh, nsteps=4, engine_kw=None):
+    """Rank entry: with `install_host_graphs`, `run(nsteps)`, then two
+    rebuilds: one at the same positions and one after `nsteps` more
+    steps.  Returns, per rebuild, whether the window's buckets (`_sizes`)
+    and the signature of the window the programs are keyed by stayed as
+    they were, and the captures and replays from the rebuild through the
+    two steps that follow it."""
+    from .. import graphs
+    from .engine import Window
+    e = _engine(mc, cfg_kw, mesh, **(engine_kw or {}))
+    install_host_graphs(e)
+    e.run(nsteps, log=None)
+    out = []
+    for more in (0, nsteps):
+        e.run(more, log=None)
+        before = (dict(e._sizes), graphs.signature(
+            Window(e._block, e._frac_ref)))
+        caps = e._graphs.captures
+        e.rebuild()
+        after = (dict(e._sizes), graphs.signature(
+            Window(e._block, e._frac_ref)))
+        reps = e._graphs.replays
+        e.run(2, log=None)
+        out.append(dict(sizes=before[0] == after[0],
+                        shapes=before[1] == after[1],
+                        captures=e._graphs.captures - caps,
+                        replays=e._graphs.replays - reps))
+    return out
 
 
 def md_trajectory(mc, cfg_kw, nsteps=1, seed=1, device="cpu"):
@@ -366,14 +655,16 @@ def pe_rel(a, b):
 
 def run(n, device="cpu", mc=(2, 2, 2), dtype="float64", timeout=600.0,
         tol=None):
-    """The dry run: prepare + one step (isQEq=2) on n ranks over
-    factor_mesh(n) against md.Engine on one device; returns (the largest PE difference
+    """The dry run: prepare + a step (on cards three: a program's first
+    use, its capture, a replay) at isQEq=2 on n ranks over factor_mesh(n)
+    against md.Engine on one device; returns (the largest PE difference
     over |PE|: every component in float64, the total in float32; the
     sharded record; the reference record) and raises beyond `tol` (1e-8
-    in float64, 1e-4 in float32)."""
+    in float64, 1e-4 in float32), or on cards where a rank's steps were
+    not captured and replayed as CUDA graphs."""
     from .engine import factor_mesh
     mesh = factor_mesh(n)
-    steps, isQEq = 1, 2
+    steps, isQEq = (1 if device == "cpu" else 3), 2
     cfg = dict(dtype=dtype, isQEq=isQEq, rebuild_every=1000)
     if dtype == "float64":
         # the full CG capped so both engines take the same iterations; in
@@ -400,6 +691,11 @@ def run(n, device="cpu", mc=(2, 2, 2), dtype="float64", timeout=600.0,
             and recs[0]["n_atoms"] == ref["pos"].shape[0]):
         raise RuntimeError(f"dryrun: PE {err:.3e} of |PE| > {tol} or atoms "
                            f"lost ({recs[0]['n_atoms']})")
+    if device != "cpu" and not all(r["captures"] and r["replays"]
+                                   for r in recs):
+        raise RuntimeError("dryrun: the steps did not run as CUDA graphs "
+                           f"({[(r['captures'], r['replays']) for r in recs]}"
+                           " captures and replays)")
     return err, recs[0], ref
 
 

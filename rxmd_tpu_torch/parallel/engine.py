@@ -26,21 +26,36 @@ and the pair context cover the residents only (the ghosts need bonded
 rows alone, for their bond orders); the values are the same.  The pair
 terms run over the pair list (no sweep, no dense form), as rxmd_tpu routes
 its sharded engine (rxmd_tpu/parallel/engine.py:488-499).
+
+The programs rxmd_tpu compiles with shard_map (engine.py:622-741,
+949-988) are pure functions here: a step or a K-step block (`_block_fn`,
+the thermostat's cadence read on the device from the first step's
+number), prepare's evaluation (`_prep_fn`) and the optimizer's probe
+(`_probe_fn`), each reading nothing on the host but the CG's chunk flags.
+On a card they run as CUDA graphs through graphs.GraphCache with their
+NCCL collectives inside (parallel/comm.py): a key's first use eagerly,
+its second captured, later ones replayed; every rank dispatches the same
+keys in the same order.  The rebuild stays eager and reads the host once
+for its mesh-wide counts; the window it leaves (the Block) is padded to
+buckets that only grow and are the same on every rank, so a rebuild
+within them keeps the programs.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import neighbors, pqeq, qeq, reax, units
+from .. import graphs, neighbors, pqeq, qeq, reax, units
 from ..config import RunConfig
 from ..ffield import ForceField, effective_maxrc
-from ..md import MDMODES, _skinned_cutoffs, _trim, probe_capacities
+from ..md import (CAP_NAMES, MDMODES, Engine as MDEngine, _max_or,
+                  _over_vector, _skinned_cutoffs, _trim, probe_capacities)
 from ..neighbors import _select_k
 from ..system import State, make_state
 from ..utils.timers import Timers
@@ -134,8 +149,9 @@ def distribute(state: State, mesh_shape, ncap) -> ShardedState:
 
 class Block(NamedTuple):
     """A rebuild's products: ext types and gids, the halo plan, the ext
-    rows computed on (`keep`) and their identity image, the neighbor lists
-    and the cached term lists."""
+    rows computed on (`keep`: the residents, the live ghosts, then empty
+    ghost rows up to the window's bucket) and their identity image, the
+    neighbor lists and the cached term lists (None: uncached terms)."""
     tex: torch.Tensor
     gex: torch.Tensor
     plan: halo.HaloPlan
@@ -143,6 +159,54 @@ class Block(NamedTuple):
     img: neighbors.ImageTable
     nbrs: neighbors.Neighbors
     lists: tuple
+
+
+class Window(NamedTuple):
+    """What a step program reads of its rebuild (rxmd_tpu's step_block
+    inputs, engine.py:632-633): the Block and the positions the drift is
+    measured from."""
+    block: Block
+    frac_ref: torch.Tensor
+
+
+class StepOut(NamedTuple):
+    """What a step or a block of steps returns, with no host read
+    (rxmd_tpu engine.py:667-678, 700-704)."""
+    state: ShardedState
+    force: torch.Tensor
+    comps: torch.Tensor   # (14,) global PE components of the last step
+    nq: torch.Tensor      # () int32 CG iterations of the last step
+    nq_sum: torch.Tensor  # () summed over the steps
+    astr: torch.Tensor    # (6,) accumulated global stress
+    stats: torch.Tensor   # float64, the mesh-wide maxima of the steps'
+                          # drift^2 and of the final v^2, then the uncached
+                          # terms' counts (md.CAP_NAMES), if any
+    natoms: torch.Tensor  # () the mesh's residents (rxmd_tpu's diag)
+
+
+class ProbeIn(NamedTuple):
+    """An optimizer probe's input (`ShardedEngine._probe_fn`)."""
+    state: ShardedState   # the engine's state (its rows stay as they are)
+    pos: torch.Tensor     # (ncap, 3) the probe's block positions
+    rows: int             # ghost rows kept (live ghosts, then empty rows)
+    brows: int            # rows that may get bonded lists
+    ccap: int             # the cell grid's depth
+
+
+class ProbeOut(NamedTuple):
+    """What a probe returns (rxmd_tpu engine.py:971: PE, forces, charges)."""
+    pe: torch.Tensor      # () global potential energy
+    force: torch.Tensor   # (ncap, 3)
+    q: torch.Tensor       # (ncap,)
+    nq: torch.Tensor      # () CG iterations
+    counts: torch.Tensor  # int64, PROBE_COUNTS' order, mesh-wide maxima
+
+
+# a probe's counts, in ProbeOut.counts' order: the largest halo send, the
+# largest bonded and nonbonded rows, the densest cell, the live ghosts,
+# the ghosts within the bonded depth plus the residents, then the uncached
+# terms' counts of md.CAP_NAMES
+PROBE_COUNTS = ("halo", "kb", "knb", "cells", "ghosts", "bonded") + CAP_NAMES
 
 
 class ShardedEngine:
@@ -245,6 +309,15 @@ class ShardedEngine:
                                   bcap=bcap)
         self.mext = ncap + 6 * bcap
         self.mylo = f(np.asarray(comm.coords) / np.asarray(self.mesh_shape))
+        self._local = f(local)
+        # the rows a window holds, padded to buckets that only grow
+        # (md.Engine._size) and the same on every rank, so the programs
+        # captured over one window serve the next: the live ghosts (at
+        # most `ghost_cap`), in a probe also the rows with bonded lists
+        # (at most `bond_cap`); a count past a cap raises, naming it
+        self.ghost_cap = 6 * bcap
+        self.bond_cap = self.mext
+        self._sizes = {}
 
         self.term_cache = cfg.term_cache
         self.term_slack = cfg.term_slack if self.term_cache else 1.0
@@ -294,6 +367,10 @@ class ShardedEngine:
         self.block_steps = max(int(cfg.block_steps), 1)
         self._vmax = self._last_maxdr = None
 
+        self._spring_types = (torch.as_tensor(
+            list(cfg.spring_types), device=device) if cfg.spring_types
+            else None)
+
         self.sstate = distribute(state0, self.mesh_shape, ncap).block(
             comm.rank, ncap, device)
         self.step_count = self.step0
@@ -303,6 +380,12 @@ class ShardedEngine:
         # "halo" and "allreduce" spans sit inside the others
         self.phases = None
         comm.phase = self._phase
+        # the programs (graphs.GraphCache, on a card): steps, blocks and
+        # prepare in one cache, the optimizer's probes in their own
+        self.graphs = True
+        self._graphs = self._probe_graphs = None
+        self._window_id = 0
+        self._over = None     # the steps' uncached-term counts, unchecked
 
     def _phase(self, name):
         return (contextlib.nullcontext() if self.phases is None
@@ -384,33 +467,28 @@ class ShardedEngine:
         return (ShardedState(valid=valid, **payload), out_extras, mig_max,
                 lost)
 
-    def _neighbors(self, frac_ext, valid_ext, tex):
-        """Skinned lists of this domain over the ext rows at `frac_ext`:
-        nonbonded rows for the live residents, bonded rows for them and for
-        the live ghosts within the bonded dependency depth of the domain
-        (`bond_depth`: two bonded layers and the drift; the ghosts beyond
-        only give positions to the nonbond and the third bonded layer);
-        other rows empty.  Returns (positions relative to the domain's
-        origin, lists).  A cell fuller than the grid's capacity makes the
-        grid's cells deeper and the build run again."""
+    def _near(self, frac_ext, valid_ext):
+        """Positions relative to the domain's origin, and the live rows
+        within the bonded dependency depth of the domain (`bond_depth`:
+        two bonded layers and the drift; the ghosts beyond only give
+        positions to the nonbond and the third bonded layer)."""
         pos_rel = (frac_ext - self.mylo) @ self.Hg.T
-        local = self.Hg.diagonal() / self.Hg.new_tensor(self.mesh_shape)
-        out = torch.clamp(torch.maximum(-pos_rel, pos_rel - local), min=0.0)
+        out = torch.clamp(torch.maximum(-pos_rel, pos_rel - self._local),
+                          min=0.0)
         near = torch.sum(out * out, dim=1) <= self.bond_depth ** 2
-        bond_rows = torch.nonzero(valid_ext & near).reshape(-1)
-        while True:
-            nbrs, occ = neighbors.build_neighbors_cells(
-                pos_rel, valid_ext, tex, self.grid, self.rc2b_ext,
-                self.rctap2_ext, self.kb, self.knb, nb_rows=self.ncap,
-                bond_rows=bond_rows)
-            occ = int(occ)
-            if occ <= self.grid.ccap:
-                break
-            self.grid = self.grid._replace(ccap=int(occ * 1.25) + 2)
+        return pos_rel, valid_ext & near
+
+    def _neighbors(self, pos_rel, valid_ext, tex, bond_rows, grid):
+        """Skinned lists of this domain over the ext rows at `pos_rel`:
+        nonbonded rows for the live residents, bonded rows for `bond_rows`
+        (-1 padded), other rows empty.  Returns (lists, the densest cell,
+        which must fit `grid.ccap`)."""
+        nbrs, occ = neighbors.build_neighbors_cells(
+            pos_rel, valid_ext, tex, grid, self.rc2b_ext, self.rctap2_ext,
+            self.kb, self.knb, nb_rows=self.ncap, bond_rows=bond_rows)
         vr = valid_ext[:self.ncap]
-        return pos_rel, nbrs._replace(
-            idxnb=torch.where(vr[:, None], nbrs.idxnb, -1),
-            cntnb=torch.where(vr, nbrs.cntnb, 0))
+        return nbrs._replace(idxnb=torch.where(vr[:, None], nbrs.idxnb, -1),
+                             cntnb=torch.where(vr, nbrs.cntnb, 0)), occ
 
     def _term_lists(self, pos_rel, tex, gex, img, nbrs, amask, slack,
                     margin):
@@ -431,56 +509,89 @@ class ShardedEngine:
                                   rowcap=caps["hb_row"], **kw))
 
     @torch.no_grad()
-    def _build_block(self, s: ShardedState, migrate=True, extras=None,
-                     term_lists=True, slack=None, margin=None):
-        """Wrap + migrate (with `migrate`) + halo plan + skinned neighbor
-        lists + term lists, then the mesh-wide maxima of every count
-        against its capacity (rxmd_tpu engine.py:406-461, 768-803).
-        Returns (state, extras, Block).  The domain computes over the ext
-        rows the plan filled: its ncap resident rows, then the live ghost
-        rows (`Block.keep`); the empty rows of the fixed-capacity ghost
-        blocks never enter a list or a sum."""
-        spec, comm, ncap = self.spec, self.comm, self.ncap
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        mig_max = lost = zero
-        if migrate:
-            frac = torch.where(s.valid[:, None], torch.remainder(s.frac, 1.0),
-                               0.0)
-            s = dataclasses.replace(s, frac=frac)
-            s, extras, mig_max, lost = self._migrate(s, extras)
+    def _build_block(self, s: ShardedState):
+        """Wrap + migrate + halo plan + skinned neighbor lists + term lists
+        (with `term_cache`), then in one read the mesh-wide maxima of every
+        count against its capacity and of the live ghosts and list lengths
+        the window's buckets take (rxmd_tpu engine.py:406-461, 768-803).
+        Returns (state, Block).  The domain computes over the residents'
+        ncap rows, then the live ghost rows, then empty ghost rows up to
+        the bucket; the empty rows of the fixed-capacity ghost blocks
+        never enter a list or a sum."""
+        spec, comm, ncap, dev = self.spec, self.comm, self.ncap, self.device
+        frac = torch.where(s.valid[:, None], torch.remainder(s.frac, 1.0),
+                           0.0)
+        s, _, mig_max, lost = self._migrate(dataclasses.replace(s, frac=frac))
         plan, frac_ext, valid_ext = halo.build_plan(s.frac, s.valid, spec,
                                                     comm)
-        keep = torch.cat([
-            torch.arange(ncap, device=self.device),
-            ncap + torch.nonzero(valid_ext[ncap:]).reshape(-1)])
-        tex = halo.apply_plan(plan, s.types, spec, comm)[keep]
-        gex = halo.apply_plan(plan, s.gid, spec, comm)[keep]
-        img = identity_image(keep.shape[0], self.dtype, self.device)
-        pos_rel, nbrs = self._neighbors(frac_ext[keep], valid_ext[keep], tex)
+        ghost = valid_ext[ncap:]
+        keep = torch.cat([torch.arange(ncap, device=dev),
+                          ncap + torch.nonzero(ghost).reshape(-1)])
+        tex_ext = halo.apply_plan(plan, s.types, spec, comm)
+        gex_ext = halo.apply_plan(plan, s.gid, spec, comm)
+        tex, gex = tex_ext[keep], gex_ext[keep]
+        img = identity_image(keep.shape[0], self.dtype, dev)
+        pos_rel, near = self._near(frac_ext[keep], valid_ext[keep])
+        bond_rows = torch.nonzero(near).reshape(-1)
+        while True:
+            # a cell fuller than the grid's capacity deepens the grid's
+            # cells and the build runs again
+            nbrs, occ = self._neighbors(pos_rel, valid_ext[keep], tex,
+                                        bond_rows, self.grid)
+            occ = int(occ)
+            if occ <= self.grid.ccap:
+                break
+            self.grid = self.grid._replace(ccap=int(occ * 1.25) + 2)
         lists = None
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
         cnts = [zero] * 3
-        if term_lists:
-            amask = torch.zeros(keep.shape[0], dtype=torch.bool,
-                                device=self.device)
+        if self.term_cache:
+            amask = torch.zeros(keep.shape[0], dtype=torch.bool, device=dev)
             amask[:ncap] = s.valid
-            lists = self._term_lists(
-                pos_rel, tex, gex, img, nbrs, amask,
-                self.term_slack if slack is None else slack,
-                self.term_margin if margin is None else margin)
+            lists = self._term_lists(pos_rel, tex, gex, img, nbrs, amask,
+                                     self.term_slack, self.term_margin)
             cnts = [lst.cnt for lst in lists]
-        diag = self.comm.pmax(torch.stack([
+        diag = [int(x) for x in self.comm.pmax(torch.stack([
             mig_max, lost, plan.cnt_send.max(), nbrs.cntb.max(),
-            nbrs.cntnb.max(), *cnts]).long()).cpu().numpy()
-        self._check_diag(diag, lists)
+            nbrs.cntnb.max(), *cnts, ghost.sum()]).long()).tolist()]
+        caps = None if lists is None else [lst.valid.shape[0]
+                                           for lst in lists]
+        self._check_diag(diag, caps)
+        rows = self._rows("ghost rows", diag[8], "ghost_cap")
+        # pad to the bucket with empty ghost rows, which no list reads
+        extra = ncap + rows - keep.shape[0]
+        keep = torch.cat([keep, ncap + torch.nonzero(~ghost).reshape(-1)
+                          [:extra]])
+        pad = lambda x, v: torch.nn.functional.pad(
+            x, (0, 0) * (x.ndim - 1) + (0, extra), value=v)
+        nbrs = nbrs._replace(idxb=pad(nbrs.idxb, -1), cntb=pad(nbrs.cntb, 0))
         if lists is not None:
-            lists = tuple(_trim(lst) for lst in lists)
-        return s, extras, Block(tex, gex, plan, keep, img, nbrs, lists)
+            lists = tuple(_trim(lst, self._size(nm, c, cap)) for lst, nm, c,
+                          cap in zip(lists, ("ang", "tor", "hbf"), diag[5:8],
+                                     caps))
+        return s, Block(tex_ext[keep], gex_ext[keep], plan, keep,
+                        identity_image(keep.shape[0], self.dtype, dev), nbrs,
+                        lists)
 
-    def _check_diag(self, d, lists):
+    _size = MDEngine._size
+
+    def _rows(self, name, n, attr):
+        """The bucket of `n` rows of `name` (`_size`), raising if `n`
+        passes the capacity `attr` names (every rank reads the same n)."""
+        cap = getattr(self, attr)
+        if n > cap:
+            raise RuntimeError(f"{name}: {n} > capacity {cap} ({attr})")
+        # never more rows than the ghost blocks or the ext rows hold
+        return self._size(name, n, min(cap, self.mext if attr == "bond_cap"
+                                       else 6 * self.bcap))
+
+    def _check_diag(self, d, caps=None):
         """Abort on any buffer or list overflow on any domain (ref:
-        comm.F90:467-472, main.F90:402-407): `d` is the mesh-wide maximum,
-        so every rank raises alike."""
-        mig, lost, hal, mb, mnb = (int(x) for x in d[:5])
+        comm.F90:467-472, main.F90:402-407): `d` is the mesh-wide maximum
+        (migration, lost atoms, halo sends, bonded and nonbonded rows,
+        then with `caps` the angle, torsion and hbond lists), so every rank
+        raises alike."""
+        mig, lost, hal, mb, mnb = d[:5]
         if mig > self.mcap:
             raise RuntimeError(
                 f"migration buffer overflow: {mig} > mcap={self.mcap} "
@@ -498,10 +609,9 @@ class ShardedEngine:
                                f"{self.kb} nonbonded {mnb}/{self.knb}")
         self.timers.peak("bonded nbr list", mb, self.kb)
         self.timers.peak("nonbonded nbr list", mnb, self.knb)
-        if lists is None:
+        if caps is None:
             return
-        got = [int(x) for x in d[5:8]]
-        caps = [lst.valid.shape[0] for lst in lists]
+        got = d[5:8]
         rows = [nm for nm, g in zip(("ang_row", "tor_row", "hb_row"), got)
                 if g >= reax.ROW_OVERFLOW]
         if rows:
@@ -517,22 +627,38 @@ class ShardedEngine:
                               got, caps):
             self.timers.peak(name, g, c)
 
+    # md.Engine's messages for the uncached terms' capacities (`caps`)
+    _check_over = MDEngine._check_over
+    _list_overflow = MDEngine._list_overflow
+
+    def _check_lists(self, vals=None):
+        """Raise if an uncached term list of the steps since the last check
+        passed its capacity (md.Engine._check_lists): one host read of the
+        mesh-wide counts, none if `vals` holds them already."""
+        if self._over is None:
+            return
+        vals = self._over.tolist() if vals is None else vals
+        self._over = None
+        self._check_over(dict(zip(CAP_NAMES, (int(v) for v in vals))))
+
     def rebuild(self):
-        """Wrap, migrate and rebuild the plan and the lists."""
+        """Wrap, migrate and rebuild the plan and the lists (eagerly)."""
+        self._check_lists()
         with self._phase("rebuild"):
-            self.sstate, _, self._block = self._build_block(
-                self.sstate, term_lists=self.term_cache)
+            self.sstate, self._block = self._build_block(self.sstate)
         self._frac_ref = self.sstate.frac
         self._steps_since_rebuild = 0
         self._maxdr2 = None
+        self._window_id += 1
 
     # ------------------------------------------------------------------
     def _compute(self, s: ShardedState, block, do_qeq, prep=False,
-                 isqeq=None):
+                 loop=None, counts=None):
         """Ghost refresh + pair context + QEq/PQEq + forces + virial for the
         domain's configuration `s` over the saved plan and lists
-        (rxmd_tpu engine.py:464-609).  `isqeq` overrides the solve (the
-        optimizer's full CG).  Returns (q, qsfp, qsfv, spos, force on the
+        (rxmd_tpu engine.py:464-609); `loop` runs the CG's chunks, and
+        with uncached terms (`block.lists` None) `counts` (a dict) takes
+        their counts.  Returns (q, qsfp, qsfv, spos, force on the
         residents, global PE components, global virial (3, 3), CG
         iterations)."""
         tex, gex, plan, keep, img, nbrs, lists = block
@@ -558,10 +684,11 @@ class ShardedEngine:
                 if not self.closed_form:
                     rows_pre = reax.pair_rows(ctx, tr, ffd)
 
-        if isqeq is None:
-            isqeq = 1 if (prep and cfg.isQEq == 2) else cfg.isQEq
-        spos_new, nq = s.spos, 0
+        # the extended Lagrangian's cold start is a full CG
+        isqeq = 1 if (prep and cfg.isQEq == 2) else cfg.isQEq
+        spos_new = s.spos
         q_new = s.q
+        nq = torch.zeros((), dtype=torch.int32, device=dev)
         if isqeq and do_qeq:
             with self._phase("qeq"):
                 if self.pq is not None:
@@ -572,7 +699,7 @@ class ShardedEngine:
                         lex_fqs=cfg.Lex_fqs,
                         efield_dir=cfg.eFieldDir if cfg.isEfield else None,
                         efield_strength=cfg.eFieldStrength,
-                        allreduce=self.comm.psum, refresh=refresh)
+                        allreduce=self.comm.psum, refresh=refresh, loop=loop)
                     spos_new = torch.where(valid[:, None], sp, 0.0)
                 else:
                     pre = (ctx, None, None) if rows_pre is None \
@@ -582,10 +709,9 @@ class ShardedEngine:
                         isqeq=isqeq, nmax=cfg.NMAXQEq, tol=cfg.QEq_tol,
                         lex_fqs=cfg.Lex_fqs, img=img, nbrs=nbrs, pre=pre,
                         allreduce=self.comm.psum, refresh=refresh,
-                        resident_ext=resident_ext)
+                        resident_ext=resident_ext, loop=loop)
                     qn, nq = res.q, res.iters
             q_new = torch.where(valid, qn, 0.0)
-            self.cg_iters += nq
         if isqeq == 1 and do_qeq and not (prep and cfg.isQEq == 2):
             # fictitious charges re-seeded from pre-QEq q (qeq.F90:42-43)
             qsfp, qsfv = s.q, torch.zeros_like(s.qsfv)
@@ -609,7 +735,7 @@ class ShardedEngine:
                 pr, q_ext, strain @ self.Hg, tex, gex, img, nbrs, ffd,
                 lists, amask=resident_ext, caps=self.caps,
                 include_nonbond=self.pq is not None, ctx=ctx, pq=self.pq,
-                spos=spos_ext)
+                spos=spos_ext, counts=counts if lists is None else None)
             g, ge = torch.autograd.grad(comps_l[0], (frac_res, eps))
         # d E / d pos = dE/dfrac Hi  (pos = frac H^T)
         f = -(g @ self.Hi)
@@ -660,9 +786,8 @@ class ShardedEngine:
             dfr = dfr - torch.round(dfr)
             fs = -cfg.spring_const * (dfr @ self.Hg.T)
             keep = s.valid
-            if cfg.spring_types:
-                keep = keep & torch.isin(s.types, torch.as_tensor(
-                    list(cfg.spring_types), device=self.device))
+            if self._spring_types is not None:
+                keep = keep & torch.isin(s.types, self._spring_types)
             fs = torch.where(keep[:, None], fs, 0.0)
             f_extra = fs if f_extra is None else f_extra + fs
         return f_extra
@@ -684,18 +809,20 @@ class ShardedEngine:
     def _thermostat(self, s: ShardedState, do_scale):
         """mdmode-dispatched velocity scaling with global reductions (ref:
         main.F90:45-61), md.Engine._thermostat's rules: velocities at rest
-        stay at rest."""
+        stay at rest.  `do_scale` is a device bool (rxmd_tpu
+        engine.py:370-403): the scaled velocities are computed every step
+        and taken where it is set."""
         cfg = self.cfg
-        if not do_scale or cfg.mdmode not in (4, 5, 7, 8):
+        if cfg.mdmode not in (4, 5, 7, 8):
             return s
         v = s.vel
         t0 = self.treq_red * units.UTEMP0
         if cfg.mdmode == 4:
-            v = cfg.vsfact * v
+            v2 = cfg.vsfact * v
         elif cfg.mdmode == 5:
             ke = self.comm.psum(self._ke_sum(s, v))
             ctmp = t0 / (ke / self.n * units.UTEMP)
-            v = torch.where(ke > 0, torch.sqrt(ctmp), 1.0) * v
+            v2 = torch.where(ke > 0, torch.sqrt(ctmp), 1.0) * v
         elif cfg.mdmode == 7:
             # per-element rescale to treq (ref: main.F90:722-763)
             nso = self.hmas.shape[0]
@@ -711,38 +838,81 @@ class ShardedEngine:
             scale = torch.sqrt(t0 / (ctmp * units.UTEMP))
             fac = torch.where(cnt > 1.0, torch.where(ket > 0, scale, 1.0),
                               0.0)
-            v = self._zero_momentum(s, fac[s.types][:, None] * v)
+            v2 = self._zero_momentum(s, fac[s.types][:, None] * v)
         else:
             # rescale only if >5% off target (ref: main.F90:684-718)
             ke = self.comm.psum(self._ke_sum(s, v)) / self.n
             ctmp = torch.sqrt(t0 / (ke * units.UTEMP))
             need = (ke > 0) & (torch.abs(ctmp - 1.0) > 0.05)
-            v = torch.where(need, self._zero_momentum(s, ctmp * v), v)
+            v2 = torch.where(need, self._zero_momentum(s, ctmp * v), v)
+        v = torch.where(do_scale, v2, v)
         return dataclasses.replace(
             s, vel=torch.where(s.valid[:, None], v, 0.0))
+
+    # ------------------------------------------------------------------
+    # The programs (rxmd_tpu engine.py:622-741): pure functions of their
+    # inputs that read the engine's constants, mutate nothing and read
+    # nothing on the host but the CG's chunk flags, so a CUDA graph can
+    # hold them with their collectives; `_dispatch` runs them.
+    def uses_graphs(self):
+        """Whether the programs run as CUDA graphs: on a card, for every
+        configuration, unless `graphs` is off or a PhaseTimer is set (its
+        events cannot time the inside of a graph)."""
+        return (self.graphs and self.device.type == "cuda"
+                and self.phases is None)
+
+    _run_graph = MDEngine._run_graph
+
+    def _dispatch(self, cache, key, fn, window, carry, window_id):
+        """fn(window, carry, loop) through the GraphCache named `cache`
+        where `uses_graphs()` (every rank dispatches the same keys in the
+        same order, so their collectives pair up), else eagerly."""
+        if not self.uses_graphs():
+            return fn(window, carry, None)
+        if getattr(self, cache) is None:
+            setattr(self, cache, graphs.GraphCache(self.device))
+        return self._run_graph(getattr(self, cache), key, fn, window, carry,
+                               window_id)
+
+    def _prep_fn(self, window: Window, carry, loop):
+        """prepare's force evaluation (rxmd_tpu's prep_block,
+        engine.py:728-734): (state, forces, PE components, CG iterations,
+        the uncached terms' mesh-wide counts or None)."""
+        (s,) = carry
+        counts = {}
+        q, qsfp, qsfv, spos, f, comps, _, nq = self._compute(
+            s, window.block, True, prep=True, loop=loop, counts=counts)
+        over = _over_vector(counts)
+        return (dataclasses.replace(s, q=q, qsfp=qsfp, qsfv=qsfv, spos=spos),
+                f, comps, nq, None if over is None else self.comm.pmax(over))
 
     @torch.no_grad()
     def prepare(self):
         """Initial rebuild, QEq and FORCE (ref: main.F90:27-32)."""
         self.rebuild()
-        q, qsfp, qsfv, spos, f, comps, _, nq = self._compute(
-            self.sstate, self._block, True, prep=True)
-        self.sstate = dataclasses.replace(self.sstate, q=q, qsfp=qsfp,
-                                          qsfv=qsfv, spos=spos)
-        self.force, self.comps, self.nqeq = f, comps, nq
+        self.sstate, self.force, self.comps, self.nqeq, over = self._dispatch(
+            "_graphs", "prepare", self._prep_fn,
+            Window(self._block, self._frac_ref), (self.sstate,),
+            self._window_id)
+        self.cg_iters = self.cg_iters + self.nqeq
+        self._over = over
         self._astr = torch.zeros((6,), dtype=self.dtype, device=self.device)
         self._astr_steps = 0
-        return comps
+        return self.comps
 
-    @torch.no_grad()
-    def step(self):
-        """One velocity-Verlet step of every domain (rxmd_tpu
-        engine.py:631-677; md.Engine.step's order)."""
+    def _step_fn(self, s: ShardedState, f, astr, step, window: Window,
+                 do_qeq, loop):
+        """One velocity-Verlet step of every domain (rxmd_tpu's
+        step_block, engine.py:632-677; md.Engine._step_fn's order), at the
+        step number `step` (a device int64: the thermostat's cadence is
+        read from it).  Returns (state, forces, PE components, CG
+        iterations, stress, this domain's largest drift^2 since the
+        rebuild, the uncached terms' counts or None)."""
         cfg, dt = self.cfg, self.dt
-        s = self._thermostat(self.sstate, self.step_count % cfg.sstep == 0)
+        s = self._thermostat(s, step % cfg.sstep == 0)
         w = s.valid[:, None]
         dthm = self.dthm[s.types][:, None]
-        v = torch.where(w, s.vel + dthm * self.force, 0.0)
+        v = torch.where(w, s.vel + dthm * f, 0.0)
         qsfv = s.qsfv + 0.5 * dt * self.lex_w2 * (s.q - s.qsfp)
         qsfp = s.qsfp + dt * qsfv
         if cfg.isEfield:
@@ -753,65 +923,101 @@ class ShardedEngine:
         # rebuilds, so the saved plan stays index-consistent
         frac = torch.where(w, s.frac + (v @ self.Hi.T) * dt, 0.0)
         s = dataclasses.replace(s, frac=frac, vel=v, qsfp=qsfp, qsfv=qsfv)
+        counts = {}
         q, qsfp, qsfv, spos, f2, comps, wvir, nq = self._compute(
-            s, self._block, self.step_count % cfg.qstep == 0)
+            s, window.block, do_qeq, loop=loop, counts=counts)
         # per-step stress: kinetic m v_a v_b with the half-kicked velocity
         # + the potential virial (ref: main.F90:86-94 + pot.F90:65-72)
         m = torch.where(s.valid, (2.0 * self.hmas)[s.types], 0.0)
         sw = (self.comm.psum(torch.einsum("i,ia,ib->ab", m, v, v))
               + 0.5 * (wvir + wvir.T))
-        self._astr = self._astr + torch.stack(
+        astr = astr + torch.stack(
             [sw[0, 0], sw[1, 1], sw[2, 2], sw[1, 2], sw[2, 0], sw[0, 1]])
-        self._astr_steps += 1
         v = torch.where(w, v + dthm * f2, 0.0)
         qsfv = qsfv + 0.5 * dt * self.lex_w2 * (q - qsfp)
         # Verlet-drift monitor: this domain's largest displacement since
-        # the rebuild (reduced over the mesh when polled)
-        dr = (frac - self._frac_ref) @ self.Hg.T
-        self._maxdr2 = torch.max(torch.where(s.valid, torch.sum(dr * dr, 1),
-                                             0.0))
-        self.sstate = dataclasses.replace(s, vel=v, q=q, qsfp=qsfp,
-                                          qsfv=qsfv, spos=spos)
-        self.force, self.comps, self.nqeq = f2, comps, nq
-        self._steps_since_rebuild += 1
-        self.step_count += 1
+        # the rebuild
+        dr = (frac - window.frac_ref) @ self.Hg.T
+        maxdr2 = torch.max(torch.where(s.valid, torch.sum(dr * dr, 1), 0.0))
+        s = dataclasses.replace(s, vel=v, q=q, qsfp=qsfp, qsfv=qsfv,
+                                spos=spos)
+        return s, f2, comps, nq, astr, maxdr2, _over_vector(counts)
+
+    def _block_fn(self, K, do_qeq, window: Window, carry, loop):
+        """The program a dispatch runs, as graphs.GraphCache takes it: K
+        steps (rxmd_tpu's step_block for one, multi_block's scan for more,
+        engine.py:679-704) from carry = (state, forces, stress, the first
+        step's number), each step's thermostat cadence from that number +
+        i; a StepOut whose reductions (the running drift maximum, the
+        final max v^2, the uncached terms' counts, the residents) are
+        mesh-wide."""
+        s, f, astr, step0 = carry
+        nq_sum = mdr = over = None
+        for i in range(K):
+            s, f, comps, nq, astr, maxdr2, ov = self._step_fn(
+                s, f, astr, step0 + i, window, do_qeq, loop)
+            nq_sum = nq if nq_sum is None else nq_sum + nq
+            mdr = maxdr2 if mdr is None else torch.maximum(mdr, maxdr2)
+            over = _max_or(over, ov)
+        vmax2 = torch.max(torch.where(s.valid, torch.sum(s.vel * s.vel, 1),
+                                      0.0))
+        stats = torch.stack([mdr, vmax2]).double()
+        if over is not None:
+            stats = torch.cat([stats, over.double()])
+        return StepOut(s, f, comps, nq, nq_sum, astr, self.comm.pmax(stats),
+                       self.comm.psum(s.valid.sum()))
+
+    @torch.no_grad()
+    def _advance(self, K):
+        """Dispatch K steps (one, or a block of K) and keep the host's
+        bookkeeping; returns the StepOut.  A block solves QEq every step
+        (the schedule forms blocks only at qstep 1, as rxmd_tpu's
+        multi_block); a single step where the step count says."""
+        do_qeq = K > 1 or self.step_count % self.cfg.qstep == 0
+        carry = (self.sstate, self.force, self._astr, torch.full(
+            (), self.step_count, dtype=torch.int64, device=self.device))
+        out = self._dispatch(
+            "_graphs", (K, do_qeq),
+            functools.partial(self._block_fn, K, do_qeq),
+            Window(self._block, self._frac_ref), carry, self._window_id)
+        self.sstate, self.force, self.comps, self.nqeq = (
+            out.state, out.force, out.comps, out.nq)
+        self._astr = out.astr
+        self.cg_iters = self.cg_iters + out.nq_sum
+        self._over = _max_or(self._over, out.stats[2:] if
+                             out.stats.shape[0] > 2 else None)
+        self._maxdr2 = out.stats[0] if K == 1 else None
+        self._astr_steps += K
+        self._steps_since_rebuild += K
+        self.step_count += K
+        return out
+
+    def step(self):
+        """One velocity-Verlet step of every domain (after `prepare`)."""
+        self._advance(1)
 
     def _drifted(self):
-        """md.Engine.run's drift test on the mesh-wide displacement; every
-        rank reads the same maximum."""
+        """md.Engine.run's drift test on the mesh-wide displacement of the
+        last single step; every rank reads the same maximum."""
         ssr = self._steps_since_rebuild
         return (self._maxdr2 is not None and ssr >= self.drift_check_from
                 and ssr % self.drift_check_every == 0
-                and float(self.comm.pmax(self._maxdr2)) ** 0.5
-                > 0.8 * self.drift_trigger)
-
-    @torch.no_grad()
-    def _run_block(self, K):
-        """K steps, eagerly (rxmd_tpu's multi_block, engine.py:679-704):
-        the mesh-wide running maximum of the drift^2 and the final max v^2,
-        one all-reduce."""
-        mdr = None
-        for _ in range(K):
-            self.step()
-            mdr = (self._maxdr2 if mdr is None
-                   else torch.maximum(mdr, self._maxdr2))
-        s = self.sstate
-        vmax2 = torch.max(torch.where(s.valid, torch.sum(s.vel * s.vel, 1),
-                                      0.0))
-        self._maxdr2 = None
-        return self.comm.pmax(torch.stack([mdr, vmax2])).tolist()
+                and float(self._maxdr2) ** 0.5 > 0.8 * self.drift_trigger)
 
     def run(self, nsteps=None, log=print, writer=None):
         """Host loop of every rank, rxmd_tpu's sharded schedule (rxmd_tpu
         engine.py:840-900; md.Engine.run's): redraws (mdmodes 0, 6), PRINTE
         every pstep, `writer(engine)` every fstep, a rebuild on the cadence
-        or the drift trigger, then a block of `block_steps` steps (run
-        eagerly) where the boundaries and the drift budget allow it, else
-        one step; blocks end on pstep only when logging, and qstep > 1
-        runs single steps.  The atom-count check at every PRINTE and at the
-        end.  Every rank must call it alike (it runs collectives); pass the
-        same `log` on every rank (a rank whose output is not wanted may
-        print to a null stream).  Returns the loop's wall seconds."""
+        or the drift trigger, then a block of `block_steps` steps where
+        the boundaries and the drift budget allow it, else one step; blocks
+        end on pstep only when logging, and qstep > 1 runs single steps.
+        Steps and blocks are programs (`_block_fn`), CUDA graphs where
+        `uses_graphs()`; a block's end reads its drift, max v^2, residents
+        and list counts in one transfer.  The atom-count check at every
+        PRINTE, block end and the run's end.  Every rank must call it alike
+        (it runs collectives); pass the same `log` on every rank (a rank
+        whose output is not wanted may print to a null stream).  Returns
+        the loop's wall seconds."""
         cfg, tm = self.cfg, self.timers
         nsteps = nsteps if nsteps is not None else cfg.ntime_step
         if not hasattr(self, "force"):
@@ -867,17 +1073,27 @@ class ShardedEngine:
 
             if nb >= self.block_steps > 1:
                 with tm("MD block (dispatch)"):
-                    mdr, vmax2 = self._run_block(self.block_steps)
+                    out = self._advance(self.block_steps)
+                    # one read: the drift, max v^2, residents, list counts
+                    pend = [] if self._over is None else [self._over]
+                    mdr, vmax2, nat, *over = torch.cat(
+                        [out.stats[:2], out.natoms.reshape(1).double()]
+                        + pend).tolist()
+                    if int(nat) != self.n:
+                        raise RuntimeError(
+                            f"atom count changed: {int(nat)} != {self.n}")
+                    self._check_lists(over)
                 self._last_maxdr = mdr ** 0.5
                 self._vmax = vmax2 ** 0.5
                 nadv = self.block_steps
                 tm.count("MD steps in blocks", nadv)
             else:
                 with tm("MD step (dispatch)"):
-                    self.step()
+                    self._advance(1)
                 nadv = 1
             k += nadv
             tm.count("MD steps", nadv)
+        self._check_lists()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -905,20 +1121,89 @@ class ShardedEngine:
         s = self.sstate
         return torch.where(s.valid[:, None], s.frac @ self.Hg.T, 0.0)
 
+    def _probe_fn(self, carry: ProbeIn, loop=None):
+        """One optimizer probe as a program (rxmd_tpu's eval_block,
+        engine.py:950-971): the positions to fractions, no migration (the
+        rows stay aligned with the caller's vectors), a fresh halo plan,
+        the ghost rows compacted to `carry.rows` (live first), the
+        neighbor lists with exact gates over the cell grid of depth
+        `carry.ccap`, bonded rows for up to `carry.brows` rows, the
+        uncached terms at the engine's capacities, a full solve as
+        rxmd_tpu's probe makes it (`_compute(prep=(isQEq == 2))`: none at
+        isQEq=0) and the forces.  Every count a capacity bounds leaves in
+        `counts`, maximal over the mesh, for the host to check
+        (`cg_evaluate`)."""
+        s, pos, rows, brows, ccap = carry
+        spec, comm, ncap, dev = self.spec, self.comm, self.ncap, self.device
+        s = dataclasses.replace(s, frac=torch.where(
+            s.valid[:, None], pos @ self.Hi.T, 0.0))
+        with self._phase("rebuild"):
+            plan, frac_ext, valid_ext = halo.build_plan(s.frac, s.valid,
+                                                        spec, comm)
+            ghost = valid_ext[ncap:]
+            order = torch.argsort((~ghost).to(torch.int8), stable=True)
+            keep = torch.cat([torch.arange(ncap, device=dev),
+                              ncap + order[:rows]])
+            tex = halo.apply_plan(plan, s.types, spec, comm)[keep]
+            gex = halo.apply_plan(plan, s.gid, spec, comm)[keep]
+            img = identity_image(keep.shape[0], self.dtype, dev)
+            pos_rel, near = self._near(frac_ext[keep], valid_ext[keep])
+            nbrs, occ = self._neighbors(
+                pos_rel, valid_ext[keep], tex, _select_k(near[None],
+                                                         brows)[0],
+                self.grid._replace(ccap=ccap))
+        counts = {}
+        q, _, _, _, f, comps, _, nq = self._compute(
+            s, Block(tex, gex, plan, keep, img, nbrs, None), True,
+            prep=self.cfg.isQEq == 2, loop=loop, counts=counts)
+        over = _over_vector(counts)
+        vec = torch.stack([t.to(torch.int64) for t in (
+            plan.cnt_send.max(), nbrs.cntb.max(), nbrs.cntnb.max(), occ,
+            ghost.sum(), near.sum())])
+        return ProbeOut(comps[0], f, q, nq, comm.pmax(torch.cat(
+            [vec, vec.new_zeros(len(CAP_NAMES)) if over is None else over])))
+
     @torch.no_grad()
     def cg_evaluate(self, pos_blk):
-        """(total PE, forces, charges) at block positions: a fresh plan and
-        lists with exact gates (slack 1, margin 0) and no migration, so
-        rows stay aligned with the caller's vectors; then a full CG (PQEq:
-        from the engine's shells) and the forces, as the single-device
-        adapter's probe (ref: EvaluateEnergyWithStep cg.F90:358-387)."""
-        s = self.sstate
-        s = dataclasses.replace(s, frac=torch.where(
-            s.valid[:, None], pos_blk @ self.Hi.T, 0.0))
-        s, _, block = self._build_block(s, migrate=False, slack=1.0,
-                                        margin=0.0)
-        q, _, _, _, f, comps, _, _ = self._compute(s, block, True, isqeq=1)
-        return comps[0], f, q
+        """(total PE as a float, forces, charges) at block positions, as
+        the single-device probe (ref: EvaluateEnergyWithStep
+        cg.F90:358-387): the probe program (`_probe_fn`) as a CUDA graph
+        where `uses_graphs()` (a cache of its own, keyed by its row and
+        cell sizes), else eagerly, then one host read of its PE and
+        counts, the same on every rank.  The first probe keeps every ghost
+        row and gives every row a bonded list; its counts size the rows'
+        buckets (`_size`), and a probe that outgrows them, or the cell
+        grid, grows them and runs again.  A count past a capacity raises,
+        naming it."""
+        while True:
+            sz = self._sizes
+            carry = ProbeIn(self.sstate, pos_blk,
+                            sz.get("probe ghost rows", self.ghost_cap),
+                            sz.get("probe bond rows", self.bond_cap),
+                            self.grid.ccap)
+            out = self._dispatch(
+                "_probe_graphs", "probe",
+                lambda _, c, loop: self._probe_fn(c, loop), (), carry, 0)
+            self.cg_iters = self.cg_iters + out.nq
+            pe, *vals = torch.cat([out.pe[None].double(),
+                                   out.counts.double()]).tolist()
+            got = dict(zip(PROBE_COUNTS, (int(v) for v in vals)))
+            self._check_diag([0, 0, got["halo"], got["kb"], got["knb"]])
+            self._check_over(got)
+            grown = got["cells"] > carry.ccap
+            if grown:
+                self.grid = self.grid._replace(
+                    ccap=int(got["cells"] * 1.25) + 2)
+            for name, n, attr, have in (
+                    ("probe ghost rows", got["ghosts"], "ghost_cap",
+                     carry.rows),
+                    ("probe bond rows", got["bonded"], "bond_cap",
+                     carry.brows)):
+                self._rows(name, n, attr)
+                grown |= n > have
+            if not grown:
+                return pe, out.force, out.q
+            self.timers.count("probe regrowths", 1)
 
     @torch.no_grad()
     def cg_resync(self, pos_blk, g, p):
@@ -1040,7 +1325,8 @@ class ShardedEngine:
                 f"{str(self.dtype)[6:]} on {self.device}; charges {charges}"
                 f"{'; LG dispersion' if self.ff.is_lg else ''}; taper "
                 f"{self.rctap} A; ncap {self.ncap} bcap {self.bcap} mcap "
-                f"{self.mcap}")
+                f"{self.mcap}; blocks of {self.block_steps} steps, "
+                f"{'as CUDA graphs' if self.uses_graphs() else 'eager'}")
 
     def summary(self):
         return [self.describe()] + self.timers.summary_lines(

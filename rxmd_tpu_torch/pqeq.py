@@ -366,7 +366,11 @@ def solve(pos, spos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
         hs1 = gs1 + (gnew1[0] / gsafe[0]) * c.hs
         ht1 = gt1 + (gnew1[1] / gsafe[1]) * c.ht
         # rxmd_tpu's cond (it < nmax and not done); a stop keeps the
-        # previous iterate
+        # previous iterate.  `fin` comes from all-reduced scalars alone
+        # (Est and the products above): under `allreduce` every domain
+        # reads the same flag and runs (or replays) the same number of
+        # chunks; a domain running one chunk more would wait forever in
+        # its collectives
         run = (c.it < nmax_eff) & ~c.done
         take = run & ~(ex1 | ex2)
         sel = lambda new, old: torch.where(take, new, old)

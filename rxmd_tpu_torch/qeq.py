@@ -259,7 +259,11 @@ def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
         q1 = torch.where(amask, X1[:, 0] - mu * X1[:, 1], 0.0)
         gsafe = torch.where(torch.abs(c.gnew) > 0.0, c.gnew, 1.0)
         H1 = G1 + (gnew1 / gsafe)[None, :] * c.Hv
-        # rxmd_tpu's cond (it < nmax and not done) and sel(old, new)
+        # rxmd_tpu's cond (it < nmax and not done) and sel(old, new).
+        # `fin` comes from all-reduced scalars alone (Est, g.h and h.Hh
+        # above): under `allreduce` every domain reads the same flag and
+        # runs (or replays) the same number of chunks; a domain running
+        # one chunk more would wait forever in its collectives
         run = (c.it < nmax_eff) & ~c.done
         take = run & ~(ex1 | ex2)
         sel = lambda new, old: torch.where(take, new, old)
