@@ -35,7 +35,11 @@ first failure ends the run with a non-zero exit code and no result line.
      opt.conjugate_gradient takes two iterations (each probe the engine's
      probe program, a CUDA graph after its first uses); each run's launch
      counts (as in phase 4), its PRINTE lines and files are checked, and
-     its atom-steps/s, summary() table and optimizer seconds printed;
+     its atom-steps/s, summary() table and optimizer seconds printed; the
+     .xyz writer it ran (traj.write_xyz: the port's csrc/trajio.cpp,
+     built by the host C++ compiler, through ctypes) against the Python
+     formatting on one frame, ms each and bytes equal, and the
+     trajectory output's share of the first run's loop;
   7. pair paths: the engines besides the sweep at --mc, each asserting
      `Engine.pair_engine` and that no sweep kernel ran, prepare + 5 steps
      timed by phase beside the sweep's own: (a) the dense forms and (b)
@@ -132,6 +136,21 @@ first failure ends the run with a non-zero exit code and no result line.
      iteration and per probe.  With two or more cards the multi-rank dry
      run (dryrun.run, its steps captured with their sends and receives);
      else a line saying it needs them.
+ 14. rebuild programs: the rebuild as a device program (md.Engine's and
+     ShardedEngine's `_rebuild_fn`, a CUDA graph in a cache of its own,
+     read once a rebuild), checked inside phases 10, 11 and 13 on each
+     graphs run's engine, for the sweep at isQEq 2 and 1, every
+     configuration of phase 11 and the sharded engine at isQEq 2 and 1:
+     in each run a drift rebuild, and every rebuild but each key's first
+     use a replay (none eagerly), so the runs' PE bars hold the graph
+     rebuilds against eager ones; then from one state a rebuild as a
+     graph and eagerly, one host read each (dryrun.HostReadGuard
+     counting), the lists, slot map, positions, QEq list capacity and
+     buckets (the sharded: the migrated state, window, buckets and cell
+     depth) equal entry for entry, and ms of each by CUDA events and
+     wall; phase 13's optimizer also holds each `cg_resync` to one host
+     read, a program after its first use.  The phase prints the table
+     and checks every configuration was covered.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -362,7 +381,7 @@ def phase_kernels(engine, seed):
     blocks = grid.tc_n[0] * grid.tc_n[1] * grid.n_zb
     old = blocks * grid.C * len(grid.cols) * (
         grid.block_zc + 2 * grid.zreach) * grid.ccap
-    cand = ps.walk_candidates(grid, walk)
+    cand = int(ps.walk_candidates(grid, walk))
     i, tsl, src = ps.walk_pairs_plain(grid, walk, qeq_planes[:3], qeq_fn.rc2)
     d, ok, *_ = ps._pair_geometry(nb_fn, nb_planes[:, tsl], nb_planes[:, src])
     n_nb = int((ok & (nb_planes[4, tsl] != nb_planes[4, src])).sum())
@@ -1201,6 +1220,151 @@ def replay_after_rebuild(e):
             float(np.abs(got[1] - ref[1]).max()))
 
 
+# phase 14's records, one per configuration whose rebuild program phases
+# 10, 11 and 13 checked on their graphs run's engine
+REBUILDS = []
+
+
+def same_leaves(a, b):
+    """Every tensor of two nests equal, shape and entries."""
+    from rxmd_tpu_torch import graphs
+    la, lb = graphs.leaves(a), graphs.leaves(b)
+    return len(la) == len(lb) > 0 and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def counted_reads(fn):
+    """(fn()'s result, the host reads it made: dryrun.HostReadGuard
+    counting)."""
+    from rxmd_tpu_torch.parallel.dryrun import HostReadGuard
+    with HostReadGuard(count=True) as guard:
+        out = fn()
+    return out, guard.seen
+
+
+def rebuild_check(label, e, rebuild, products, reps=3):
+    """Phase 14's check of a rebuild program on the engine `e` of a graphs
+    run (phases 10, 11, 13), whose rebuilds the run captured and
+    replayed: `rebuild()` from one state as a CUDA graph and eagerly
+    (`e.graphs` on and off), each reading the host once, their
+    `products()` ((tensors, other values)) equal entry for entry, and the
+    ms of each (CUDA events and host wall over `reps` rebuilds, each
+    ending in its read)."""
+    g = e._rebuild_graphs
+    check(g is not None and g.captures >= 1 and g.replays >= 1,
+          f"rebuild programs | {label}: the run's rebuilds captured and "
+          f"replayed ({None if g is None else (g.captures, g.replays)})")
+    caps0, reps0 = g.captures, g.replays
+    fresh_peak()
+    got, ms = {}, {}
+    for mode in (True, False):
+        e.graphs = mode
+        _, reads = counted_reads(rebuild)
+        check(len(reads) == 1, f"rebuild programs | {label}: one host read "
+              f"a rebuild, graphs {mode} ({reads})")
+        got[mode] = products()
+        ms[mode] = (cuda_ms(rebuild, reps), wall_ms(rebuild, reps)[0])
+    e.graphs = True
+    check(g.captures == caps0 and g.replays == reps0 + 2 * reps + 3,
+          f"rebuild programs | {label}: every graph rebuild a replay "
+          f"({g.captures - caps0} captures, {g.replays - reps0} replays)")
+    check(same_leaves(got[True][0], got[False][0])
+          and got[True][1] == got[False][1],
+          f"rebuild programs | {label}: the graph rebuild's products equal "
+          f"the eager rebuild's entry for entry ({got[True][1]} against "
+          f"{got[False][1]})")
+    rec = dict(label=label, n=e.n if hasattr(e, "sstate") else e.state.n,
+               dtype=str(e.dtype)[6:], graph_ms=ms[True], eager_ms=ms[False],
+               capture_ms=g.capture_s * 1e3 / g.captures,
+               peak=torch.cuda.max_memory_allocated() / 2**20)
+    REBUILDS.append(rec)
+    log(f"rebuild programs | {label} | {rec['n']} atoms, {rec['dtype']}: "
+        f"rebuild ms as a graph {ms[True][0]:.2f} (CUDA events) / "
+        f"{ms[True][1]:.2f} (wall), eagerly {ms[False][0]:.2f} / "
+        f"{ms[False][1]:.2f}; one host read each; capture "
+        f"{rec['capture_ms']:.1f} ms; products equal entry for entry; "
+        f"peak device memory over these rebuilds {rec['peak']:.1f} MB | "
+        f"{nvidia_smi()}")
+    return rec
+
+
+def rebuild_counts(e):
+    """(captures, replays, keys first run eagerly) of an engine's rebuild
+    programs so far."""
+    g = e._rebuild_graphs
+    return (0, 0, 0) if g is None else (g.captures, g.replays, len(g.seen))
+
+
+def check_rebuilds(what, a, b):
+    """A run pair's rebuilds (phase 14): a drift rebuild in each, and in
+    the graphs run every rebuild but each key's first use (prepare's, and
+    the sharded engine's first within its window's buckets) a CUDA graph
+    (`rb`: rebuild_counts after the run), none in the eager run."""
+    caps, reps, first = a["rb"]
+    check(a["counts"][3] >= 1 and first >= 1 and caps <= first
+          and reps == a["counts"][2] + 1 - first and b["rb"] == (0, 0, 0),
+          f"{what}: a drift rebuild, every rebuild but each key's first "
+          f"use a graph ({a['counts'][2]} rebuilds after prepare's, "
+          f"{a['counts'][3]} on drift; rebuild captures, replays, first "
+          f"uses {a['rb']} with graphs, {b['rb']} eagerly)")
+
+
+def md_rebuild_check(label, e, profile=False):
+    """rebuild_check on an md.Engine from its state: the neighbor and term
+    lists, slot map and wrapped positions, the QEq list's capacity and
+    the window's buckets.  With `profile`, where a rebuild's time goes:
+    the device idle share of a graph rebuild and an eager rebuild's aten
+    ops with the most device time (torch.profiler)."""
+    s0 = e.state
+    rec = rebuild_check(
+        label, e, lambda: e._rebuild(s0),
+        lambda: ((e.nbrs, e.tlists, e._slotmap, e._pos_ref),
+                 (e._qcap, dict(e._sizes))))
+    if profile:
+        busy, wall, idle, top = idle_share(lambda: e._rebuild(s0))
+        e.graphs = False
+        ops = op_profile(lambda: e._rebuild(s0), top=6)
+        e.graphs = True
+        log(f"rebuild programs | {label} | a graph rebuild under "
+            f"torch.profiler: device {busy:.2f} of {wall:.2f} ms, idle "
+            f"share {'not measured' if idle is None else f'{idle:.3f}'}; "
+            f"kernels with the most device time (name, ms, calls) {top}; "
+            f"an eager rebuild's aten ops with the most device time (op, "
+            f"shapes, ms, calls) {ops} | {nvidia_smi()}")
+    return rec
+
+
+def sharded_rebuild_check(label, e):
+    """rebuild_check on a ShardedEngine from its state: the migrated state,
+    the window (Block), its buckets and the cell grid's depth."""
+    s0 = e.sstate
+
+    def rebuild():
+        e.sstate = s0
+        e.rebuild()
+    return rebuild_check(label, e, rebuild,
+                         lambda: ((e.sstate, e._block),
+                                  (dict(e._sizes), e.grid.ccap)))
+
+
+def phase_rebuild_programs(smi):
+    """Phase 14 (see the module docstring): the rebuild programs that
+    phases 10, 11 and 13 checked, one line each, and every configuration
+    covered."""
+    want = (["sweep isQEq=2", "sweep isQEq=1"]
+            + [label for label, _, _ in graph_path_configs()]
+            + ["sharded isQEq=2", "sharded isQEq=1"])
+    got = [r["label"] for r in REBUILDS]
+    check(got == want, f"rebuild programs: every configuration checked "
+          f"({got} against {want})")
+    for r in REBUILDS:
+        g, e = r["graph_ms"], r["eager_ms"]
+        log(f"rebuild programs | table | {r['label']}: {r['n']} atoms, "
+            f"{r['dtype']}, ms graph {g[0]:.2f} / {g[1]:.2f}, eager "
+            f"{e[0]:.2f} / {e[1]:.2f} (CUDA events / wall), "
+            f"graph/eager {g[1] / e[1]:.3f} | {smi}")
+
+
 def phase_graphs(mc, seed, steps=GRAPH_STEPS):
     """The step program as CUDA graphs (see the module docstring, phase
     10): at --mc, float32, the sweep, NVE, isQEq=2 then 1, the same
@@ -1229,6 +1393,7 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
             printed = []
             wall = e.run(steps, log=lambda line, e=e: printed.append(
                 (e.state.step, float(e.comps[0]))))
+            rb = rebuild_counts(e)
             got = read_launches(f"graphs isQEq={isq} {mode}", e)
             iters = int(e.cg_iters)
             check(got["nonbond"] == steps + 1,
@@ -1241,7 +1406,7 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
                 lambda e=e: e.run(10, log=None))
             runs[mode] = dict(e=e, printed=printed, wall=wall, counts=counts,
                               peak=peak, busy=busy, pwall=pwall, idle=idle,
-                              launches=got, iters=iters,
+                              launches=got, iters=iters, rb=rb,
                               caps=tm.counters.get("graph captures", 0),
                               reps=tm.counters.get("graph replays", 0),
                               cap_ms=tm.acc.get("graph capture", 0.0) * 1e3,
@@ -1253,6 +1418,7 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
               f"{b['counts']})")
         check([s for s, _ in a["printed"]] == [s for s, _ in b["printed"]],
               "graphs: the same PRINTE steps")
+        check_rebuilds(f"graphs isQEq={isq}", a, b)
         err = max(abs(x - y) / abs(y) for (_, x), (_, y)
                   in zip(a["printed"], b["printed"]))
         check(np.isfinite(err) and err <= TOL_GRAPH_PE,
@@ -1262,6 +1428,7 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
         check(pe_err <= TOL_GRAPH_PE and pos_err <= TOL_GRAPH_POS,
               f"graphs isQEq={isq}: the replay after a rebuild against the "
               f"eager step (PE {pe_err:.3e}, positions {pos_err:.3e} A)")
+        md_rebuild_check(f"sweep isQEq={isq}", a["e"], profile=isq == 1)
         n = a["e"].state.n
         for mode, r in runs.items():
             idle = ("not measured" if r["idle"] is None
@@ -1333,6 +1500,7 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
             printed = []
             wall = e.run(steps, log=lambda line, e=e: printed.append(
                 (e.state.step, float(e.comps[0]))))
+            rb = rebuild_counts(e)
             no_sweep(f"graph paths | {label} {mode}")
             tm = e.timers
             counts = [tm.ncalls.get(k, 0) for k in names] + [
@@ -1344,7 +1512,7 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
             prof = [b - a for a, b in zip(before, graph_counts(tm))]
             runs[mode] = dict(e=e, printed=printed, wall=wall, counts=counts,
                               peak=peak, busy=busy, pwall=pwall, idle=idle,
-                              checked=checked, prof=prof,
+                              checked=checked, prof=prof, rb=rb,
                               caps=tm.counters.get("graph captures", 0),
                               reps=tm.counters.get("graph replays", 0),
                               cap_ms=tm.acc.get("graph capture", 0.0) * 1e3,
@@ -1359,6 +1527,7 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
               f"{b['counts']})")
         check([s for s, _ in a["printed"]] == [s for s, _ in b["printed"]],
               f"graph paths | {label}: the same PRINTE steps")
+        check_rebuilds(f"graph paths | {label}", a, b)
         err = max(abs(x - y) / abs(y) for (_, x), (_, y)
                   in zip(a["printed"], b["printed"]))
         f64 = a["e"].dtype == torch.float64
@@ -1370,6 +1539,7 @@ def phase_graph_paths(mc, seed, steps=GRAPH_PATH_STEPS, only=None):
         check(pe_err <= tol and pos_err <= TOL_GRAPH_POS,
               f"graph paths | {label}: the replay after a rebuild against "
               f"the eager step (PE {pe_err:.3e}, positions {pos_err:.3e} A)")
+        md_rebuild_check(label, a["e"])
         ncheck = [len(r["checked"]) for r in (a, b)]
         if not a["e"].term_cache or a["e"].cfg.tighten_lists:
             check(min(ncheck) >= 1, f"graph paths | {label}: the steps' "
@@ -1693,12 +1863,14 @@ def phase_sharded_graphs(mc, seed, steps=GRAPH_PATH_STEPS, iters=OPT_ITERS):
                 caps, cap_s, reps = graph_counts(tm)
                 # prepare, then every block and single step: each key's
                 # first use runs eagerly, every later dispatch replays
+                # (in the step cache: the rebuilds replay in their own)
                 runs_n = 1 + counts[0] + counts[1]
                 if e.graphs:
                     first = len(e._graphs.seen)
-                    check(caps >= 1 and reps == runs_n - first,
-                          f"sharded graphs isQEq={isq}: {caps:.0f} "
-                          f"captures, {reps:.0f} replays of {runs_n} "
+                    g = e._graphs
+                    check(g.captures >= 1 and g.replays == runs_n - first,
+                          f"sharded graphs isQEq={isq}: {g.captures} "
+                          f"captures, {g.replays} replays of {runs_n} "
                           f"dispatches ({first} keys first run eagerly): "
                           "every other dispatch a replay")
                 else:
@@ -1706,6 +1878,7 @@ def phase_sharded_graphs(mc, seed, steps=GRAPH_PATH_STEPS, iters=OPT_ITERS):
                     check(caps == reps == 0,
                           "sharded graphs: no graph eagerly")
                 peak = torch.cuda.max_memory_allocated() / 2**20
+                rb = rebuild_counts(e)
                 # the window's buckets grow at the first rebuilds of the
                 # heating deck (its angle and torsion lists): 10 steps
                 # more, then 10 profiled
@@ -1718,7 +1891,7 @@ def phase_sharded_graphs(mc, seed, steps=GRAPH_PATH_STEPS, iters=OPT_ITERS):
                                   counts=counts, caps=caps,
                                   cap_ms=cap_s * 1e3, reps=reps, first=first,
                                   peak=peak, busy=busy, pwall=pwall,
-                                  idle=idle, prof=prof,
+                                  idle=idle, prof=prof, rb=rb,
                                   iters=int(e.cg_iters),
                                   sizes=dict(e._sizes))
             a, b = runs["graphs"], runs["eager"]
@@ -1729,6 +1902,7 @@ def phase_sharded_graphs(mc, seed, steps=GRAPH_PATH_STEPS, iters=OPT_ITERS):
             check([s for s, _ in a["printed"]]
                   == [s for s, _ in b["printed"]],
                   "sharded graphs: the same PRINTE steps")
+            check_rebuilds(f"sharded graphs isQEq={isq}", a, b)
             err = max(abs(x - y) / abs(y) for (_, x), (_, y)
                       in zip(a["printed"], b["printed"]))
             check(np.isfinite(err) and err <= TOL_GRAPH_PE,
@@ -1739,6 +1913,7 @@ def phase_sharded_graphs(mc, seed, steps=GRAPH_PATH_STEPS, iters=OPT_ITERS):
                   f"sharded graphs isQEq={isq}: the replay after a rebuild "
                   f"against the eager step (PE {pe_err:.3e}, positions "
                   f"{pos_err:.3e} A)")
+            sharded_rebuild_check(f"sharded isQEq={isq}", a["e"])
             no_sweep(f"sharded graphs isQEq={isq}")
             e = a["e"]
             n = e.n
@@ -1795,10 +1970,16 @@ def sharded_optimizer(mc, iters, smi):
     for mode in ("graphs", "eager"):
         e = sharded_engine(mc, mdmode=10)
         e.graphs = mode == "graphs"
-        seen = []
+        seen, resyncs = [], []
         evaluate = e.cg_evaluate
         e.cg_evaluate = lambda pos, f=evaluate: (seen.append(pos),
                                                  f(pos))[1]
+
+        def resync(*a, f=e.cg_resync):
+            out, reads = counted_reads(lambda: f(*a))
+            resyncs.append(len(reads))
+            return out
+        e.cg_resync = resync
         lines, ends = [], []
         zero_launches()
         torch.cuda.synchronize()
@@ -1817,22 +1998,33 @@ def sharded_optimizer(mc, iters, smi):
         tm = e.timers
         caps, cap_s, reps = graph_counts(tm)
         runs_n = len(seen) + tm.counters.get("probe regrowths", 0)
+        check(len(resyncs) == iters and set(resyncs) == {1},
+              f"sharded optimizer {mode}: one host read a resync "
+              f"({resyncs})")
+        rb = rebuild_counts(e)
         if e.graphs:
-            first = len(e._probe_graphs.seen)
-            check(caps >= 1 and reps == runs_n - first,
-                  f"sharded optimizer: {caps:.0f} captures, {reps:.0f} "
-                  f"replays of {runs_n} probes run ({first} keys first run "
-                  "eagerly): every other probe a replay")
+            pg = e._probe_graphs
+            first = len(pg.seen)
+            check(pg.captures >= 1 and pg.replays == runs_n - first,
+                  f"sharded optimizer: {pg.captures} captures, "
+                  f"{pg.replays} replays of {runs_n} probes run ({first} "
+                  "keys first run eagerly): every other probe a replay")
+            # the resync program: its first use eagerly, then a capture
+            # and replays
+            check(rb == (1, iters - 1, 1),
+                  f"sharded optimizer: the resyncs a program after their "
+                  f"first use (captures, replays, first uses {rb})")
         else:
-            check(caps == reps == 0, "sharded optimizer: no graph eagerly")
+            check(caps == reps == 0 and rb == (0, 0, 0),
+                  "sharded optimizer: no graph eagerly")
         ts = [t0] + [t for _, t, _ in ends]
         nps = [0] + [k for _, _, k in ends]
         runs[mode] = dict(e=e, seen=seen, seq=seq, caps=caps,
-                          cap_ms=cap_s * 1e3, reps=reps, runs=runs_n,
+                          cap_ms=cap_s * 1e3, reps=reps, runs=runs_n, rb=rb,
                           per_it=[y - x for x, y in zip(ts, ts[1:])],
                           probes=[y - x for x, y in zip(nps, nps[1:])])
     e = runs["graphs"]["e"]
-    del e.cg_evaluate
+    del e.cg_evaluate, e.cg_resync
     seen = runs["graphs"]["seen"]
     diffs = []
     for i in np.linspace(0, len(seen) - 1, 3).astype(int):
@@ -1853,7 +2045,9 @@ def sharded_optimizer(mc, iters, smi):
             f"{spi}, probes per iteration {r['probes']} (the first with "
             f"the start's), seconds per probe {spp}; PE {r['seq']}; "
             f"captures {r['caps']:.0f} in {r['cap_ms']:.1f} ms, replays "
-            f"{r['reps']:.0f} of {r['runs']} probes run | {smi}")
+            f"{r['reps']:.0f} of {r['runs']} probes run and {iters} "
+            f"resyncs (one host read each; resync captures, replays, "
+            f"first uses {r['rb']}) | {smi}")
     log(f"sharded graphs | optimizer: graph vs eager probe at "
         f"{len(diffs)} recorded positions: max PE {worst[0]:.3e}, forces "
         f"{worst[1]:.3e} of max|f|, charges {worst[2]:.3e} e (bounds "
@@ -1938,6 +2132,42 @@ def printe_pe(text):
     return [(int(r[1]), float(r[3])) for r in rows]
 
 
+def xyz_writer(eng, tmp, reps=3):
+    """Phase 6's .xyz writer: which one `traj.write_xyz` ran (the port's
+    csrc/trajio.cpp, built by the host C++ compiler, through ctypes), its
+    ms against the Python formatting (`write_xyz_plain`) on one frame of
+    the engine's state, the two files' bytes equal, and the trajectory
+    output's share of the run's loop (all four formats)."""
+    import filecmp
+    from rxmd_tpu_torch.io import traj
+    st, names = eng.state, eng.ff.atom_names
+    ms = {}
+    for name, write in (("native", traj.write_xyz),
+                        ("plain", traj.write_xyz_plain)):
+        path = os.path.join(tmp, f"frame_{name}.xyz")
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            write(path, st, names)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(ts))
+    same = filecmp.cmp(os.path.join(tmp, "frame_native.xyz"),
+                       os.path.join(tmp, "frame_plain.xyz"), shallow=False)
+    check(same and traj._lib is not None,
+          "program: the native .xyz writer ran, its bytes the plain "
+          "writer's")
+    tm = eng.timers
+    out, loop = tm.acc["trajectory output"], tm.acc["MD loop (wall)"]
+    log(f"program | xyz writer: traj.write_xyz through "
+        f"{os.path.relpath(traj.build(), REPO)} (rxmd_tpu_torch/csrc/"
+        f"trajio.cpp, host C++ compiler, ctypes); one {st.n}-atom frame "
+        f"{ms['native']:.2f} ms native, {ms['plain']:.2f} ms plain (Python "
+        f"formatting), median of {reps}, bytes equal; trajectory output "
+        f"{out:.3f} s of the {loop:.3f} s loop ({out / loop:.4f}; "
+        f"{tm.ncalls['trajectory output']} frames in xyz, pdb, bnd and "
+        f"bin) | {nvidia_smi()}")
+
+
 def phase_program(mc, steps):
     """The port as a program at full width: geninit, then `main` from
     rxff.bin (mdmode 5, frames in all four formats), a restart from its
@@ -1987,6 +2217,7 @@ def phase_program(mc, steps):
             check(int(z["step"]) == steps, "rxff.npz step")
         log(f"program: {n} atoms, launches {got}, CG iterations "
             f"{int(eng.cg_iters)}")
+        xyz_writer(eng, tmp)
         # the last PRINTE line's PE comes from the term lists cached at the
         # last rebuild; a restart builds them anew, so hold it to the same
         # state evaluated on fresh lists (prepare, as the restart does)
@@ -2095,6 +2326,7 @@ def main():
     phase_graph_paths(mc, args.seed)
     phase_optimizer_program(mc, args.seed)
     phase_sharded_graphs(mc, args.seed)
+    phase_rebuild_programs(smi)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -104,6 +104,9 @@ def _run(args, cfg, device, sharded):
                                 dtype=dtype, device=device)
         else:
             eng = md.Engine(ff, st, cfg, dtype=dtype, device=device)
+        # the engine's copy: under mdmode 0 it runs (and the header names)
+        # isQEq=1, and the caller's RunConfig keeps its own
+        cfg = eng.cfg
         say("-" * 64)
         say(f"{'parameter set:':>30s} {ff.header}")
         say(f"{'time step[fs]:':>30s} {cfg.dt_fs:10.2e}")

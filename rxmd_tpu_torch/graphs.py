@@ -1,16 +1,18 @@
 """The MD step as a device program: CUDA graphs of single steps and K-step
 blocks (counterpart of rxmd_tpu's jitted step and its `lax.scan` blocks,
-rxmd_tpu/md.py:298-299, 717-738, and of its sharded engine's
-shard_map'd programs, rxmd_tpu/parallel/engine.py:622-741, 949-974).
+rxmd_tpu/md.py:298-299, 545-604, 717-738, and of its sharded engine's
+shard_map'd programs, rxmd_tpu/parallel/engine.py:622-741, 949-988).
 
 rxmd_tpu compiles a step, or K steps, into one XLA program that the host
 dispatches with one call, whatever its configuration, and so the
-optimizer's evaluation.  Here a program is a Python function of tensors
-(`md.Engine._block_fn`, for every pair engine, box, term cache, QEq or
-PQEq mode and force field; `md.Engine._probe_fn`, whose window is empty
-and whose cache is its own, so a rebuild never drops it; the sharded
-engine's `_block_fn`, `_prep_fn` and `_probe_fn`, whose NCCL collectives
-are captured with them, parallel/comm.py) recorded into
+optimizer's evaluation and the rebuild.  Here a program is a Python
+function of tensors (`md.Engine._block_fn`, for every pair engine, box,
+term cache, QEq or PQEq mode and force field; `md.Engine._probe_fn` and
+`_rebuild_fn`, whose windows are empty and whose caches are their own,
+so a rebuild's new shapes never drop them; the sharded engine's
+`_block_fn`, `_prep_fn`, `_probe_fn`, `_rebuild_fn` and `_resync_fn`,
+whose NCCL collectives are captured with them, parallel/comm.py)
+recorded into
 CUDA graphs over static input tensors and replayed after `copy_`-ing the
 current inputs into them.  A graph holds the addresses of its inputs
 (the sweep's kernels take raw pointers, ops/pairsweep.py; every captured

@@ -1,16 +1,81 @@
 """Trajectory writers: .xyz, .pdb, .bnd — reference-format compatible
-(counterpart of rxmd_tpu.io.traj, its Python formatting path).
+(counterpart of rxmd_tpu.io.traj).
 
 Single-process file writers replacing the reference's MPI-IO shared-file
 machinery (ref: fileio.F90:27-355).  Each writer copies the state to host
 memory once and formats there; the bytes are rxmd_tpu's for the same state.
+
+`write_xyz` formats its rows in C++, as rxmd_tpu does through
+native/libtrajio.so: the port's copy of that source, csrc/trajio.cpp, is
+built at first use with the host C++ compiler ($CXX, else g++) into
+build/rxmd_tpu_torch/ and loaded by ctypes.  A failed build or load raises
+with the compiler's message, and so does a failed write; nothing falls back
+to the Python formatting, which stays as `write_xyz_plain`.  The two agree
+byte for byte but where C and Python format differently: a negative NaN
+(glibc "-nan", Python "nan"), a name longer than 3 characters (C cuts it
+to 3) and a type outside the name table (C takes type 0).  `write_pdb` and
+`write_bnd` are Python, as rxmd_tpu's are.
 """
 from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shlex
+import subprocess
 
 import numpy as np
 
 from ..system import State
 from . import host
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "trajio.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rxmd_tpu_torch")
+_CXX_FLAGS = ["-O2", "-fPIC", "-shared"]
+_lib = None
+
+
+def _compiler():
+    """The host C++ compiler: $CXX (split as a shell would), else g++."""
+    return shlex.split(os.environ.get("CXX") or "g++")
+
+
+def build():
+    """Compile csrc/trajio.cpp into build/rxmd_tpu_torch (keyed by a hash
+    of the source, the compiler and its flags) unless that library exists;
+    returns its path.  Raises with the compiler's message if it fails."""
+    cxx = _compiler()
+    with open(_SRC, "rb") as fh:
+        key = hashlib.sha256(fh.read() + " ".join(cxx + _CXX_FLAGS).encode())
+    so = os.path.join(_BUILD_DIR, f"libtrajio_{key.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        res = subprocess.run([*cxx, *_CXX_FLAGS, "-o", tmp, _SRC],
+                             capture_output=True, text=True)
+    except OSError as err:
+        raise RuntimeError(f"C++ compiler {cxx} failed on {_SRC}: "
+                           f"{err}") from err
+    if res.returncode != 0:
+        raise RuntimeError(f"C++ compiler {cxx} failed on {_SRC}:\n"
+                           f"{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.trajio_write_xyz.argtypes = [ctypes.c_char_p, ctypes.c_int, i64,
+                                         vp, vp, vp, vp, vp, vp, i64]
+        lib.trajio_write_xyz.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def cell_params(H):
@@ -24,14 +89,35 @@ def cell_params(H):
             np.degrees(np.arccos(np.clip(cosg, -1, 1))))
 
 
+def _xyz_columns(state: State):
+    """The cell parameters and the per-atom columns of an .xyz frame, on
+    the host: float64 positions and charges, int32 types and gids."""
+    c = lambda x, dt: np.ascontiguousarray(host(x), dt)
+    return (cell_params(state.H), c(state.pos, np.float64),
+            c(state.q, np.float64), c(state.types, np.int32),
+            c(state.gid, np.int32))
+
+
 def write_xyz(path: str, state: State, atom_names, append=False):
     """Reference .xyz format (ref: fileio.F90:241-339): natoms / cell line /
-    'name x y z q gid' rows."""
-    la, lb, lc, al, be, ga = cell_params(state.H)
-    pos = host(state.pos).astype(np.float64)
-    q = host(state.q).astype(np.float64)
-    types = host(state.types).astype(np.int32)
-    gid = host(state.gid).astype(np.int32)
+    'name x y z q gid' rows, formatted by csrc/trajio.cpp (see the module
+    docstring) with rxmd_tpu's arguments (rxmd_tpu/io/traj.py:56-69)."""
+    cell, pos, q, types, gid = _xyz_columns(state)
+    names = np.zeros((len(atom_names), 3), np.int8)
+    for i, s in enumerate(atom_names):
+        names[i] = np.frombuffer(s.encode()[:3].ljust(3), np.int8)
+    cell = np.asarray(cell, np.float64)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    rc = _library().trajio_write_xyz(
+        os.fsencode(path), int(append), state.n, ptr(cell), ptr(pos), ptr(q),
+        ptr(types), ptr(gid), ptr(names), len(atom_names))
+    if rc != 0:
+        raise OSError(f"trajio_write_xyz could not write {path} (rc {rc})")
+
+
+def write_xyz_plain(path: str, state: State, atom_names, append=False):
+    """write_xyz's frame formatted in Python (rxmd_tpu's Python path)."""
+    (la, lb, lc, al, be, ga), pos, q, types, gid = _xyz_columns(state)
     with open(path, "a" if append else "w") as fh:
         fh.write(f"{state.n:9d}\n")
         fh.write(f"{la:12.5f}{lb:12.5f}{lc:12.5f}{al:8.3f}{be:8.3f}{ga:8.3f}\n")

@@ -48,7 +48,13 @@ The optimizer's probe (mdmode 10, `probe`) is a program too: rxmd_tpu's
 jitted evaluation (`_probe_fn`: wrap, neighbor lists, the sweep's slot
 layout, a full QEq solve, the uncached terms' forces at the engine's
 capacities), run as a CUDA graph on a card in a cache of its own, its PE
-and every count a capacity bounds read by the host in one transfer.
+and every count a capacity bounds read by the host in one transfer.  So
+is the rebuild (`_rebuild`): rxmd_tpu's jitted rebuild programs
+(`_rebuild_fn`: wrap, neighbor lists, the bond order and the term lists
+at their full capacities, the sweep's slot layout and its walk's
+candidates), a CUDA graph on a card in a cache of its own, its counts and
+the steps' pending ones read in one transfer, the lists then cut to the
+window's buckets on the host.
 """
 from __future__ import annotations
 
@@ -224,6 +230,33 @@ class ProbeOut(NamedTuple):
 PROBE_COUNTS = ("cells", "kb", "knb", "slots", "qeq") + CAP_NAMES
 
 
+class RebuildIn(NamedTuple):
+    """A rebuild's input (`Engine._rebuild_fn`)."""
+    pos: torch.Tensor     # (n, 3) positions, unwrapped
+    H: torch.Tensor       # (3, 3) the box
+    types: torch.Tensor   # (n,)
+    gid: torch.Tensor     # (n,)
+    hinv: torch.Tensor    # (3, 3) H^-1
+
+
+class RebuildOut(NamedTuple):
+    """What a rebuild returns (rxmd_tpu md.py:591-603)."""
+    pos: torch.Tensor     # (n, 3) the positions wrapped into the box
+    nbrs: neighbors.Neighbors   # the skinned neighbor lists
+    lists: tuple          # (angle, torsion, hbond) lists at their full
+                          # capacities (caps "ang", "tor", "hbf"), or None
+    sm: object            # the sweep's pairsweep.SlotMap, or None
+    counts: torch.Tensor  # int64, REBUILD_COUNTS' order
+
+
+# a rebuild's counts, in RebuildOut.counts' order: the densest neighbor
+# cell, the largest bonded and nonbonded neighbor rows, the angle, torsion
+# and hbond lists' entries, the densest slot cell and the QEq list's
+# candidates of the sweep's walk (pairsweep.walk_candidates); 0 where a
+# configuration has none
+REBUILD_COUNTS = ("cells", "kb", "knb", "ang", "tor", "hbf", "slots", "qeq")
+
+
 # mdmodes of the reference main loop (ref: main.F90:25,45-61): 1 NVE, 0 and
 # 6 velocity redraws, 4 vsfact scaling, 5 scaling to treq, 7 per-element
 # scaling, 8 scaling when >5% off treq, 10 structural optimization
@@ -377,7 +410,9 @@ class Engine:
                 "torch.float32), or nonbond_closed_form=False for the "
                 "pair-list engine, or run on the CPU")
         if cfg.mdmode == 0:
-            cfg.isQEq = 1      # ref: init.F90:56-63
+            # ref: init.F90:56-63, on a copy: the caller's RunConfig keeps
+            # its own
+            cfg = dataclasses.replace(cfg, isQEq=1)
         self.ff = ff
         self.cfg = cfg
         self.device = device
@@ -435,6 +470,10 @@ class Engine:
         # the optimizer's probe programs (`probe`): a cache of their own,
         # which a rebuild's new window shapes never drop
         self._probe_graphs = None
+        # the rebuild program (`_rebuild_fn`): a cache of its own too, and
+        # H^-1 of the box it last wrapped into
+        self._rebuild_graphs = None
+        self._hinv = None
         # steps per block dispatch (rxmd_tpu md.py:308), the schedule's
         # velocity bound and last block drift, the rebuild window's id,
         # the QEq list's capacity and its entries since the last check,
@@ -793,73 +832,103 @@ class Engine:
                                               dr, dim=-1))
 
     # ------------------------------------------------------------------
-    def _build_lists(self, pos, s: State, slack, margin, term_lists=True):
-        """Skinned neighbor lists, with `term_lists` the angle / torsion /
-        hbond lists with gates scaled by `slack` and `margin`, and for the
-        sweep the slot layout, for wrapped positions `pos`.  Raises on any
-        overflow; returns (nbrs, (angle, torsion, hbond) cut to their
-        counts or None, slot map or None)."""
+    def _rebuild_fn(self, carry: RebuildIn):
+        """A rebuild as a function of its inputs (rxmd_tpu's jitted rebuild
+        programs, md.py:545-604): a RebuildOut.  The positions wrapped
+        into the box (by `carry.hinv`), the skinned neighbor lists, with
+        cached terms the bond order and the angle, torsion and hbond lists
+        (slackened gates, `term_slack`/`term_margin`) at their full
+        capacities, and for the sweep the slot layout and its walk's QEq
+        list candidates.  It reads the engine's constants, mutates nothing
+        and reads nothing on the host, so a CUDA graph can hold it; every
+        count a capacity bounds comes out in `counts`, for the host to
+        check (`_rebuild`)."""
+        pos0, H, types, gid, hinv = carry
+        counts = {}
         lists = sm = None
         with self._phase("rebuild"):
-            nbrs = self._build_nbrs(pos, s.H, s.types)
-            if term_lists:
-                bo = reax.bond_order(pos, s.H, s.types, self.img, nbrs,
-                                     self.ffd)
-                amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
-                kw = dict(slack=slack, margin=margin)
+            pos = self._wrap(pos0, H, hinv)
+            nbrs = self._build_nbrs(pos, H, types, counts)
+            z = nbrs.cntb.new_zeros(())
+            if self.term_cache:
+                bo = reax.bond_order(pos, H, types, self.img, nbrs, self.ffd)
+                amask = torch.ones(pos.shape[0], dtype=torch.bool,
+                                   device=pos.device)
+                kw = dict(slack=self.term_slack, margin=self.term_margin)
                 caps = self.caps
                 lists = (
                     reax.build_angle_list(
-                        s.types, self.img, nbrs, bo, amask, self.ffd,
+                        types, self.img, nbrs, bo, amask, self.ffd,
                         cap=caps["ang"], ks=caps["ks"],
                         rowcap=caps["ang_row"], **kw),
                     reax.build_torsion_list(
-                        s.types, s.gid, self.img, nbrs, bo, amask, self.ffd,
+                        types, gid, self.img, nbrs, bo, amask, self.ffd,
                         cap=caps["tor"], ks=caps["ks"],
                         rowcap=caps["tor_row"], **kw),
                     reax.build_hbond_list(
-                        pos, s.H, s.types, self.img, nbrs, bo, amask,
-                        self.ffd, cap=caps["hbf"], kh=caps["kh"],
+                        pos, H, types, self.img, nbrs, bo, amask, self.ffd,
+                        cap=caps["hbf"], kh=caps["kh"],
                         rowcap=caps["hb_row"], **kw))
             if self.pair_engine == "sweep":
-                sm = self._bin_pair_slots(pos, s.H)
-        mb, mnb = neighbors.check_overflow(nbrs)
-        self.timers.peak("bonded nbr list", mb, self.kb)
-        self.timers.peak("nonbonded nbr list", mnb, self.knb)
-        if lists is not None:
-            counts = [int(lst.cnt) for lst in lists]
-            caps = [lst.valid.shape[0] for lst in lists]
-            err = self._list_overflow(("ang", "tor", "hbf"), counts, caps)
-            if err:
-                raise RuntimeError(err)
-            for name, c, cap in zip(("angle list", "torsion list",
-                                     "hbond list"), counts, caps):
-                self.timers.peak(name, c, cap)
-            lists = tuple(
-                _trim(lst, self._size(nm, lst.cnt, lst.valid.shape[0]))
-                for nm, lst in zip(("ang", "tor", "hbf"), lists))
-        if sm is not None:
-            self._check_slot_overflow(int(sm.overflow))
-        return nbrs, lists, sm
+                sm = self._bin_pair_slots(pos, H)
+                cand = pairsweep.walk_candidates(self.pairk,
+                                                 pairsweep.atom_walk(sm))
+        vec = torch.stack([t.to(torch.int64) for t in (
+            counts.get("cells", z), nbrs.cntb.max(), nbrs.cntnb.max(),
+            *((z,) * 3 if lists is None else (lst.cnt for lst in lists)),
+            z if sm is None else sm.overflow, z if sm is None else cand)])
+        return RebuildOut(pos, nbrs, lists, sm, vec)
 
     @torch.no_grad()
     def _rebuild(self, s: State):
         """Wrap positions into the box, rebuild the skinned neighbor lists,
         the cached many-body lists (slackened gates; none for uncached
         terms) and the sweep's slot layout with its QEq list capacity:
-        the walk's candidates (pairsweep.walk_candidates), padded as the
-        window's lists are (`_size`).  First the lists of the steps since
-        the last check are checked (`_check_lists`)."""
-        self._check_lists()
-        pos = self._wrap(s.pos, s.H)
-        self.nbrs, self.tlists, self._slotmap = self._build_lists(
-            pos, s, self.term_slack, self.term_margin,
-            term_lists=self.term_cache)
-        if self._slotmap is not None:
-            self._qcap = self._size("qeq list", pairsweep.walk_candidates(
-                self.pairk, pairsweep.atom_walk(self._slotmap)))
-        self.state = dataclasses.replace(s, pos=pos)
-        self._pos_ref = pos
+        the rebuild program (`_rebuild_fn`) as a CUDA graph where
+        `uses_graphs()` (a cache of its own), else eagerly, then one host
+        read of its counts together with the steps' counts since the last
+        check.  The steps' lists are checked first (`_check_lists`), then
+        the rebuild's, each raising with its message; the term lists are
+        then cut to the window's padded lengths (`_size`, views of the
+        program's output) and the QEq list's capacity is the walk's
+        candidates, padded so (`_qcap`)."""
+        H = s.H
+        if self._hinv is None or self._hinv[0] is not H:
+            self._hinv = (H, torch.linalg.inv(H))
+        carry = RebuildIn(s.pos, H, s.types, s.gid, self._hinv[1])
+        if self.uses_graphs():
+            if self._rebuild_graphs is None:
+                self._rebuild_graphs = graphs.GraphCache(self.device)
+            out = self._run_graph(
+                self._rebuild_graphs, "rebuild",
+                lambda _, c, loop: self._rebuild_fn(c), (), carry, 0)
+        else:
+            out = self._rebuild_fn(carry)
+        vals = torch.cat([out.counts.double()] + [
+            t.double() for t in self._pending()]).tolist()
+        self._check_lists(vals[len(REBUILD_COUNTS):])
+        got = dict(zip(REBUILD_COUNTS, (int(v) for v in vals)))
+        self._check_grids(got)
+        self.timers.peak("bonded nbr list", got["kb"], self.kb)
+        self.timers.peak("nonbonded nbr list", got["knb"], self.knb)
+        lists = out.lists
+        if lists is not None:
+            names = ("ang", "tor", "hbf")
+            cnts = [got[nm] for nm in names]
+            caps = [lst.valid.shape[0] for lst in lists]
+            err = self._list_overflow(names, cnts, caps)
+            if err:
+                raise RuntimeError(err)
+            for name, c, cap in zip(("angle list", "torsion list",
+                                     "hbond list"), cnts, caps):
+                self.timers.peak(name, c, cap)
+            lists = tuple(_trim(lst, self._size(nm, c, cap)) for lst, nm, c,
+                          cap in zip(lists, names, cnts, caps))
+        if out.sm is not None:
+            self._qcap = self._size("qeq list", got["qeq"])
+        self.nbrs, self.tlists, self._slotmap = out.nbrs, lists, out.sm
+        self.state = dataclasses.replace(s, pos=out.pos)
+        self._pos_ref = out.pos
         self._steps_since_rebuild = 0
         self._maxdr2_dev = None
         self._window_id += 1
@@ -1222,15 +1291,21 @@ class Engine:
                     self._sizes["probe qeq list"])
         return pe, out.force, out.q
 
-    def _check_probe(self, got):
-        """Raise where a probe's count (`got`: PROBE_COUNTS -> value)
-        passed one of the engine's capacities, with the messages of the
-        rebuild's checks."""
+    def _check_grids(self, got):
+        """Raise where a rebuild's or probe's densest neighbor cell, largest
+        neighbor rows or densest slot cell (`got`: "cells", "kb", "knb",
+        "slots" -> value) passed the engine's capacity."""
         if self.grid is not None:
             _check_cells(got["cells"], self.grid)
         neighbors.check_counts(got["kb"], got["knb"], self.kb, self.knb)
         if self.pairk is not None:
             self._check_slot_overflow(got["slots"])
+
+    def _check_probe(self, got):
+        """Raise where a probe's count (`got`: PROBE_COUNTS -> value)
+        passed one of the engine's capacities, with the messages of the
+        rebuild's checks."""
+        self._check_grids(got)
         self._check_over(got)
 
     def step(self):

@@ -604,23 +604,23 @@ class QeqList(NamedTuple):
     need: torch.Tensor     # () int32 the walk's entries, rowptr[-1]
 
 
-def walk_candidates(grid: PairGrid, walk: Walk) -> int:
-    """Filled slots the walk tests: per target and stencil column, the
-    filled slots of the column's reach around the target's z-cell.  Every
-    QEq list entry is one of them, and they depend on the slot map alone,
-    so their count bounds the list of every solve over that map (one host
-    read)."""
-    dev = walk.tslot.device
+def walk_candidates(grid: PairGrid, walk: Walk):
+    """Filled slots the walk tests, a () int64 tensor on the walk's device:
+    per target and stencil column, the filled slots of the column's reach
+    around the target's z-cell.  Every QEq list entry is one of them, and
+    they depend on the slot map alone, so their count bounds the list of
+    every solve over that map.  No host read: the stencil's tables are
+    made on the device once per grid (`_device_tables`)."""
     ccap, nz = grid.ccap, grid.nc[2]
-    coloffs = torch.as_tensor(_target_tables(grid)[1], device=dev).long()
-    zr = torch.as_tensor(_reach_table(grid), device=dev).long()
+    coloffs, zr = (t.long() for t in _device_tables(grid,
+                                                     walk.tslot.device))
     start = walk.cell_start.long()
     ts = walk.tslot.long()
     tz = (ts % (nz * ccap)) // ccap
     cb = ((ts - ts % (nz * ccap))[:, None] + coloffs) // ccap
     z0 = torch.clamp(tz[:, None] - zr, min=0)
     z1 = torch.clamp(tz[:, None] + zr, max=nz - 1)
-    return int((start[cb + z1 + 1] - start[cb + z0]).sum())
+    return (start[cb + z1 + 1] - start[cb + z0]).sum()
 
 
 def qeq_build_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,

@@ -16,10 +16,11 @@ all-reduces, the third replayed).  rxmd_tpu's dry run reads a deck outside
 the repository (rxmd_tpu/parallel/dryrun.py:49-50); this one does not.
 
 `HostGraphs` is graphs.GraphCache's dispatch on the CPU, without captures
-(`install_host_graphs` puts two into an engine), and `HostReadGuard` makes
-every host read raise: the rank entries `guarded_programs`, `probe_case`,
-`capacity_case` and `window_case` hold the sharded engine's programs to
-what a capture needs.
+(`install_host_graphs` puts three into an engine), and `HostReadGuard`
+makes every host read raise, or counts them: the rank entries
+`guarded_programs`, `probe_case`, `rebuild_case`, `capacity_case` and
+`window_case` hold the sharded engine's programs to what a capture
+needs.
 
     python -m rxmd_tpu_torch.parallel.dryrun N [cpu|cuda]
 """
@@ -381,10 +382,11 @@ class _Rerun:
 
 
 def install_host_graphs(engine):
-    """Dispatch the engine's steps, blocks, prepare and probes through two
-    HostGraphs caches, as a card dispatches them through its
-    GraphCaches."""
-    engine._graphs, engine._probe_graphs = HostGraphs(), HostGraphs()
+    """Dispatch the engine's steps, blocks, prepare, probes, rebuilds and
+    resyncs through three HostGraphs caches, as a card dispatches them
+    through its GraphCaches."""
+    engine._graphs, engine._probe_graphs, engine._rebuild_graphs = (
+        HostGraphs(), HostGraphs(), HostGraphs())
     engine.uses_graphs = lambda: True
 
 
@@ -397,12 +399,25 @@ class HostReadGuard:
     made from host data (`torch.tensor`, `torch.as_tensor`,
     `Tensor.new_tensor`: on a card a copy that a capture cannot make).
     `loop` is the CG's chunk hook with the guard lifted for the finished
-    flag's read, the one read a program makes; `reads` counts them."""
+    flag's read, the one read a program makes; `reads` counts them.
 
-    def __init__(self):
+    With `count` the guard refuses nothing: it lists in `seen` each host
+    read made while active (a tensor made from host data is no read), as
+    a run on a card counts the reads between two points."""
+
+    def __init__(self, count=False):
         self.active = False
+        self.count = count
         self.reads = 0
+        self.seen = []
         self._saved = []
+
+    def _read(self, what):
+        """A host read while active: listed with `count`, else refused."""
+        if self.count:
+            self.seen.append(what)
+        else:
+            raise AssertionError(f"host read in a program: {what}")
 
     def _patch(self, owner, name, make):
         orig = getattr(owner, name)
@@ -417,7 +432,7 @@ class HostReadGuard:
             def make(orig):
                 def f(*a, **k):
                     if self.active:
-                        raise AssertionError(f"host read in a program: {what}")
+                        self._read(what)
                     return orig(*a, **k)
                 return f
             return make
@@ -426,7 +441,8 @@ class HostReadGuard:
             def make(orig):
                 def f(*a, **k):
                     data = a[1] if what == "Tensor.new_tensor" else a[0]
-                    if self.active and not isinstance(data, torch.Tensor):
+                    if (self.active and not self.count
+                            and not isinstance(data, torch.Tensor)):
                         raise AssertionError(
                             f"host data in a program: {what}")
                     return orig(*a, **k)
@@ -440,8 +456,7 @@ class HostReadGuard:
                             isinstance(i, torch.Tensor)
                             and i.dtype == torch.bool for i in
                             (idx if isinstance(idx, tuple) else (idx,))):
-                        raise AssertionError(
-                            f"host read in a program: boolean-mask {what}")
+                        self._read(f"boolean-mask {what}")
                     return orig(t, idx, *v)
                 return f
             return make
@@ -449,8 +464,7 @@ class HostReadGuard:
         def where1(orig):
             def f(*a, **k):
                 if self.active and len(a) + len(k) == 1:
-                    raise AssertionError("host read in a program: "
-                                         "torch.where(condition)")
+                    self._read("torch.where(condition)")
                 return orig(*a, **k)
             return f
 
@@ -563,6 +577,78 @@ def probe_case(mc, cfg_kw, mesh, host_graphs=False):
                 q=[by_gid(e, p[2]) for p in probes], pos=by_gid(e, pos),
                 captures=tm.get("graph captures", 0),
                 replays=tm.get("graph replays", 0))
+
+
+def rebuild_case(mc, cfg_kw, mesh, engine_kw=None):
+    """Rank entry: the rebuild and the optimizer's resync as programs, on
+    an engine prepared and run two steps through `install_host_graphs`:
+    `_rebuild_fn` and `_resync_fn` (at moved positions, with seeded g and
+    p) under a HostReadGuard against the same programs unguarded; the
+    host reads of `rebuild` and of `cg_resync` (HostReadGuard counting);
+    then from the same state a rebuild whose ghost-row bucket and cell
+    depth are cut below its counts, which grows both and runs again, and
+    a rebuild within the grown bucket, whose window must equal it."""
+    import torch
+    from .. import graphs
+    from .engine import RebuildIn
+    e = _engine(mc, cfg_kw, mesh, **(engine_kw or {}))
+    install_host_graphs(e)
+    e.run(2, log=None)
+    s0 = e.sstate
+    rng = np.random.default_rng(11 + e.comm.rank)
+    g, p = (torch.as_tensor(rng.normal(size=(e.ncap, 3)), dtype=e.dtype)
+            for _ in range(2))
+    carry = RebuildIn(s0, e._sizes["ghost rows"], e.grid.ccap)
+    rcarry = (s0, _moved(e), g, p)
+    out = {}
+    with torch.no_grad():
+        ref = (e._rebuild_fn(carry), e._resync_fn(rcarry))
+        try:
+            with HostReadGuard():
+                got = (e._rebuild_fn(carry), e._resync_fn(rcarry))
+            out["guard"] = None
+            out["same"] = all(torch.equal(a, b) for a, b in zip(
+                graphs.leaves(got), graphs.leaves(ref)))
+        except AssertionError as err:
+            out["guard"], out["same"] = str(err), False
+
+    def reads(fn):
+        with HostReadGuard(count=True) as guard:
+            fn()
+        return guard.seen
+
+    out["rebuild_reads"] = reads(e.rebuild)
+    e.sstate = s0
+    out["resync_reads"] = reads(lambda: e.cg_resync(*rcarry[1:]))
+    e.sstate = s0
+    e._sizes["ghost rows"] = 8
+    e.grid = e.grid._replace(ccap=2)
+    out["regrow_reads"] = reads(e.rebuild)
+    out["regrowths"] = e.timers.counters.get("rebuild regrowths", 0)
+    grown = (e.sstate, e._block)
+    e.sstate = s0
+    out["after_reads"] = reads(e.rebuild)
+    again = (e.sstate, e._block)
+    la, lb = graphs.leaves(grown), graphs.leaves(again)
+    out["same_window"] = len(la) == len(lb) and all(
+        a.shape == b.shape and torch.equal(a, b) for a, b in zip(la, lb))
+    out["rows"] = e._block.keep.shape[0]
+    return out
+
+
+def resync_case(mc, cfg_kw, mesh, amp=2.0):
+    """Rank entry: `cg_resync` of a prepared engine at positions moved by
+    a seeded `amp` [A] (some leave the box) with seeded g and p.  Returns
+    the positions, g and p given and those it returned, in gid order."""
+    import torch
+    e = _engine(mc, cfg_kw, mesh)
+    pos = _moved(e, amp=amp)
+    rng = np.random.default_rng(13 + e.comm.rank)
+    g, p = (torch.where(e.sstate.valid[:, None], torch.as_tensor(
+        rng.normal(size=(e.ncap, 3)), dtype=e.dtype), 0.0) for _ in range(2))
+    given = [by_gid(e, x) for x in (pos, g, p)]
+    pos2, g2, p2 = e.cg_resync(pos, g, p)
+    return dict(given=given, got=[by_gid(e, x) for x in (pos2, g2, p2)])
 
 
 def capacity_case(mc, cfg_kw, mesh, cases, engine_kw=None):

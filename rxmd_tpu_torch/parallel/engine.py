@@ -30,15 +30,16 @@ its sharded engine (rxmd_tpu/parallel/engine.py:488-499).
 The programs rxmd_tpu compiles with shard_map (engine.py:622-741,
 949-988) are pure functions here: a step or a K-step block (`_block_fn`,
 the thermostat's cadence read on the device from the first step's
-number), prepare's evaluation (`_prep_fn`) and the optimizer's probe
-(`_probe_fn`), each reading nothing on the host but the CG's chunk flags.
-On a card they run as CUDA graphs through graphs.GraphCache with their
-NCCL collectives inside (parallel/comm.py): a key's first use eagerly,
-its second captured, later ones replayed; every rank dispatches the same
-keys in the same order.  The rebuild stays eager and reads the host once
-for its mesh-wide counts; the window it leaves (the Block) is padded to
-buckets that only grow and are the same on every rank, so a rebuild
-within them keeps the programs.
+number), prepare's evaluation (`_prep_fn`), the optimizer's probe
+(`_probe_fn`), the rebuild (`_rebuild_fn`) and the optimizer's resync
+(`_resync_fn`), each reading nothing on the host but the CG's chunk
+flags.  On a card they run as CUDA graphs through graphs.GraphCache with
+their NCCL collectives inside (parallel/comm.py): a key's first use
+eagerly, its second captured, later ones replayed; every rank dispatches
+the same keys in the same order.  The host reads a rebuild's mesh-wide
+counts once (twice when its window's rows outgrow their bucket); the
+window it leaves (the Block) is padded to buckets that only grow and are
+the same on every rank, so a rebuild within them keeps the programs.
 """
 from __future__ import annotations
 
@@ -209,6 +210,28 @@ class ProbeOut(NamedTuple):
 PROBE_COUNTS = ("halo", "kb", "knb", "cells", "ghosts", "bonded") + CAP_NAMES
 
 
+class RebuildIn(NamedTuple):
+    """A rebuild's input (`ShardedEngine._rebuild_fn`)."""
+    state: ShardedState   # the domain's state, its atoms not yet migrated
+    rows: int             # ghost rows kept (live first, then empty rows)
+    ccap: int             # the cell grid's depth
+
+
+class RebuildOut(NamedTuple):
+    """What a rebuild returns (rxmd_tpu's rebuild_fn, engine.py:622-628)."""
+    state: ShardedState   # wrapped and migrated
+    block: Block          # the plan and lists over `rows` ghost rows
+    diag: torch.Tensor    # int64, REBUILD_COUNTS' order, mesh-wide maxima
+
+
+# a rebuild's counts, in RebuildOut.diag's order: the largest migration
+# send, the atoms without a free slot, the largest halo send, the largest
+# bonded and nonbonded rows, the angle, torsion and hbond lists' entries
+# (0 for uncached terms), the live ghosts and the densest cell
+REBUILD_COUNTS = ("mig", "lost", "halo", "kb", "knb", "ang", "tor", "hbf",
+                  "ghosts", "cells")
+
+
 class ShardedEngine:
     """MD engine of one domain of a 3-D mesh, one process per domain.
 
@@ -250,7 +273,9 @@ class ShardedEngine:
                 "halo skins are per-axis slabs); use md.Engine for "
                 "triclinic cells")
         if cfg.mdmode == 0:
-            cfg.isQEq = 1      # ref: init.F90:56-63
+            # ref: init.F90:56-63, on a copy: the caller's RunConfig keeps
+            # its own
+            cfg = dataclasses.replace(cfg, isQEq=1)
         if rctap is None:
             rctap = units.RCTAP0_PQEQ if cfg.isPQEq else units.RCTAP0
         self.rctap = rctap = float(rctap)
@@ -384,6 +409,9 @@ class ShardedEngine:
         # prepare in one cache, the optimizer's probes in their own
         self.graphs = True
         self._graphs = self._probe_graphs = None
+        # the rebuild and the optimizer's resync: a cache of their own,
+        # which a window's new shapes never drop
+        self._rebuild_graphs = None
         self._window_id = 0
         self._over = None     # the steps' uncached-term counts, unchecked
 
@@ -455,14 +483,17 @@ class ShardedEngine:
                 arrived = slot < torch.clamp(rcnt, max=mcap)
                 place = arrived & (free >= 0)
                 lost = lost + (arrived & (free < 0)).sum()
-                dst = free[place]
+                # the placed atoms' rows; the others go to a dump row past
+                # the residents, which is cut off
+                dst = torch.where(place, free, ncap)
                 recv = {**unpack(rf, fkeys), **unpack(ri, ikeys)}
                 for k in payload:
-                    v = payload[k].clone()
-                    v[dst] = recv[k][place]
-                    payload[k] = v
-                valid = valid.clone()
+                    v = torch.cat([payload[k], payload[k][:1]])
+                    v[dst] = recv[k].to(v.dtype)
+                    payload[k] = v[:ncap]
+                valid = torch.cat([valid, valid[:1]])
                 valid[dst] = True
+                valid = valid[:ncap]
         out_extras = {k: payload.pop(k) for k in (extras or {})}
         return (ShardedState(valid=valid, **payload), out_extras, mig_max,
                 lost)
@@ -490,6 +521,31 @@ class ShardedEngine:
         return nbrs._replace(idxnb=torch.where(vr[:, None], nbrs.idxnb, -1),
                              cntnb=torch.where(vr, nbrs.cntnb, 0)), occ
 
+    def _window_rows(self, s: ShardedState, rows, brows, ccap):
+        """A fresh halo plan of `s` and the skinned lists over its rows:
+        the residents, then the ghost rows compacted to `rows` (live
+        first), bonded lists for up to `brows` rows within the bonded
+        depth, over the cell grid of depth `ccap`; no host read.  Returns
+        (Block without term lists, the rows' positions relative to the
+        domain, the live-ghost mask, the near-row mask, the densest
+        cell)."""
+        spec, comm, ncap, dev = self.spec, self.comm, self.ncap, self.device
+        plan, frac_ext, valid_ext = halo.build_plan(s.frac, s.valid, spec,
+                                                    comm)
+        ghost = valid_ext[ncap:]
+        order = torch.argsort((~ghost).to(torch.int8), stable=True)
+        keep = torch.cat([torch.arange(ncap, device=dev),
+                          ncap + order[:rows]])
+        tex = halo.apply_plan(plan, s.types, spec, comm)[keep]
+        gex = halo.apply_plan(plan, s.gid, spec, comm)[keep]
+        pos_rel, near = self._near(frac_ext[keep], valid_ext[keep])
+        nbrs, occ = self._neighbors(
+            pos_rel, valid_ext[keep], tex, _select_k(near[None], brows)[0],
+            self.grid._replace(ccap=ccap))
+        img = identity_image(keep.shape[0], self.dtype, dev)
+        return (Block(tex, gex, plan, keep, img, nbrs, None), pos_rel, ghost,
+                near, occ)
+
     def _term_lists(self, pos_rel, tex, gex, img, nbrs, amask, slack,
                     margin):
         """The cached angle / torsion / hbond lists over the residents'
@@ -508,70 +564,40 @@ class ShardedEngine:
                                   ffd, cap=caps["hbf"], kh=caps["kh"],
                                   rowcap=caps["hb_row"], **kw))
 
-    @torch.no_grad()
-    def _build_block(self, s: ShardedState):
-        """Wrap + migrate + halo plan + skinned neighbor lists + term lists
-        (with `term_cache`), then in one read the mesh-wide maxima of every
-        count against its capacity and of the live ghosts and list lengths
-        the window's buckets take (rxmd_tpu engine.py:406-461, 768-803).
-        Returns (state, Block).  The domain computes over the residents'
+    def _rebuild_fn(self, carry: RebuildIn):
+        """A rebuild as a program (rxmd_tpu's rebuild_fn, engine.py:406-461,
+        622-628): wrap + migrate + halo plan + skinned neighbor lists over
+        the cell grid of depth `carry.ccap` + term lists (with
+        `term_cache`, at their full capacities), and the mesh-wide maxima
+        of every count (`diag`).  The domain computes over the residents'
         ncap rows, then the live ghost rows, then empty ghost rows up to
-        the bucket; the empty rows of the fixed-capacity ghost blocks
-        never enter a list or a sum."""
-        spec, comm, ncap, dev = self.spec, self.comm, self.ncap, self.device
-        frac = torch.where(s.valid[:, None], torch.remainder(s.frac, 1.0),
-                           0.0)
-        s, _, mig_max, lost = self._migrate(dataclasses.replace(s, frac=frac))
-        plan, frac_ext, valid_ext = halo.build_plan(s.frac, s.valid, spec,
-                                                    comm)
-        ghost = valid_ext[ncap:]
-        keep = torch.cat([torch.arange(ncap, device=dev),
-                          ncap + torch.nonzero(ghost).reshape(-1)])
-        tex_ext = halo.apply_plan(plan, s.types, spec, comm)
-        gex_ext = halo.apply_plan(plan, s.gid, spec, comm)
-        tex, gex = tex_ext[keep], gex_ext[keep]
-        img = identity_image(keep.shape[0], self.dtype, dev)
-        pos_rel, near = self._near(frac_ext[keep], valid_ext[keep])
-        bond_rows = torch.nonzero(near).reshape(-1)
-        while True:
-            # a cell fuller than the grid's capacity deepens the grid's
-            # cells and the build runs again
-            nbrs, occ = self._neighbors(pos_rel, valid_ext[keep], tex,
-                                        bond_rows, self.grid)
-            occ = int(occ)
-            if occ <= self.grid.ccap:
-                break
-            self.grid = self.grid._replace(ccap=int(occ * 1.25) + 2)
-        lists = None
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        cnts = [zero] * 3
-        if self.term_cache:
-            amask = torch.zeros(keep.shape[0], dtype=torch.bool, device=dev)
-            amask[:ncap] = s.valid
-            lists = self._term_lists(pos_rel, tex, gex, img, nbrs, amask,
-                                     self.term_slack, self.term_margin)
-            cnts = [lst.cnt for lst in lists]
-        diag = [int(x) for x in self.comm.pmax(torch.stack([
-            mig_max, lost, plan.cnt_send.max(), nbrs.cntb.max(),
-            nbrs.cntnb.max(), *cnts, ghost.sum()]).long()).tolist()]
-        caps = None if lists is None else [lst.valid.shape[0]
-                                           for lst in lists]
-        self._check_diag(diag, caps)
-        rows = self._rows("ghost rows", diag[8], "ghost_cap")
-        # pad to the bucket with empty ghost rows, which no list reads
-        extra = ncap + rows - keep.shape[0]
-        keep = torch.cat([keep, ncap + torch.nonzero(~ghost).reshape(-1)
-                          [:extra]])
-        pad = lambda x, v: torch.nn.functional.pad(
-            x, (0, 0) * (x.ndim - 1) + (0, extra), value=v)
-        nbrs = nbrs._replace(idxb=pad(nbrs.idxb, -1), cntb=pad(nbrs.cntb, 0))
-        if lists is not None:
-            lists = tuple(_trim(lst, self._size(nm, c, cap)) for lst, nm, c,
-                          cap in zip(lists, ("ang", "tor", "hbf"), diag[5:8],
-                                     caps))
-        return s, Block(tex_ext[keep], gex_ext[keep], plan, keep,
-                        identity_image(keep.shape[0], self.dtype, dev), nbrs,
-                        lists)
+        `carry.rows`; the empty rows of the fixed-capacity ghost blocks
+        never enter a list or a sum.  It reads the engine's constants,
+        mutates nothing and reads nothing on the host, so a CUDA graph
+        can hold it with its sends, receives and all-reduce."""
+        s, rows, ccap = carry
+        ncap, dev = self.ncap, self.device
+        with self._phase("rebuild"):
+            frac = torch.where(s.valid[:, None], torch.remainder(s.frac, 1.0),
+                               0.0)
+            s, _, mig_max, lost = self._migrate(dataclasses.replace(
+                s, frac=frac))
+            m = ncap + rows
+            block, pos_rel, ghost, _, occ = self._window_rows(s, rows, m,
+                                                             ccap)
+            lists, cnts = None, [mig_max.new_zeros(())] * 3
+            if self.term_cache:
+                amask = torch.zeros(m, dtype=torch.bool, device=dev)
+                amask[:ncap] = s.valid
+                lists = self._term_lists(pos_rel, block.tex, block.gex,
+                                         block.img, block.nbrs, amask,
+                                         self.term_slack, self.term_margin)
+                cnts = [lst.cnt for lst in lists]
+        nbrs = block.nbrs
+        diag = self.comm.pmax(torch.stack([t.to(torch.int64) for t in (
+            mig_max, lost, block.plan.cnt_send.max(), nbrs.cntb.max(),
+            nbrs.cntnb.max(), *cnts, ghost.sum(), occ)]))
+        return RebuildOut(s, block._replace(lists=lists), diag)
 
     _size = MDEngine._size
 
@@ -642,10 +668,62 @@ class ShardedEngine:
         self._check_over(dict(zip(CAP_NAMES, (int(v) for v in vals))))
 
     def rebuild(self):
-        """Wrap, migrate and rebuild the plan and the lists (eagerly)."""
-        self._check_lists()
-        with self._phase("rebuild"):
-            self.sstate, self._block = self._build_block(self.sstate)
+        """Wrap, migrate and rebuild the plan and the lists: the rebuild
+        program (`_rebuild_fn`) as a CUDA graph where `uses_graphs()` (a
+        cache of its own, keyed by its ghost rows and cell depth), else
+        eagerly, then one host read of its mesh-wide counts together with
+        the steps' uncached-term counts since the last check, the same on
+        every rank.  The steps' lists are checked first (`_check_lists`),
+        then every count against its capacity (`_check_diag`, `_rows`).
+        The ghost rows come from the window's bucket (`_size`; at the
+        first rebuild every ghost row, cut to the bucket after the read),
+        the term lists at their capacities are cut to theirs; a rebuild
+        whose live ghosts outgrow the bucket, or whose densest cell the
+        grid's depth, grows it and runs again (a second read)."""
+        pend = [] if self._over is None else [self._over.double()]
+        while True:
+            carry = RebuildIn(self.sstate,
+                              self._sizes.get("ghost rows", 6 * self.bcap),
+                              self.grid.ccap)
+            out = self._dispatch(
+                "_rebuild_graphs", "rebuild",
+                lambda _, c, loop: self._rebuild_fn(c), (), carry, 0)
+            vals = [int(v) for v in torch.cat(
+                [out.diag.double()] + pend).tolist()]
+            d = vals[:len(REBUILD_COUNTS)]
+            if pend:
+                self._check_lists(vals[len(d):])
+                pend = []
+            got = dict(zip(REBUILD_COUNTS, d))
+            lists = out.block.lists
+            caps = None if lists is None else [lst.valid.shape[0]
+                                               for lst in lists]
+            grown = got["cells"] > carry.ccap
+            if grown:
+                # a cell fuller than the grid's capacity deepens the
+                # grid's cells and the rebuild runs again
+                self.grid = self.grid._replace(
+                    ccap=int(got["cells"] * 1.25) + 2)
+            else:
+                self._check_diag(d, caps)
+            rows = self._rows("ghost rows", got["ghosts"], "ghost_cap")
+            grown |= rows > carry.rows
+            if not grown:
+                break
+            self.timers.count("rebuild regrowths", 1)
+        # the bucket's rows: the live ghosts come first, so the rows past
+        # it are empty and no list reads them
+        m = self.ncap + rows
+        tex, gex, plan, keep, _, nbrs, _ = out.block
+        nbrs = nbrs._replace(idxb=nbrs.idxb[:m], cntb=nbrs.cntb[:m])
+        if lists is not None:
+            lists = tuple(_trim(lst, self._size(nm, got[nm], cap))
+                          for lst, nm, cap in zip(lists, ("ang", "tor", "hbf"),
+                                                  caps))
+        self.sstate = out.state
+        self._block = Block(tex[:m], gex[:m], plan, keep[:m],
+                            identity_image(m, self.dtype, self.device), nbrs,
+                            lists)
         self._frac_ref = self.sstate.frac
         self._steps_since_rebuild = 0
         self._maxdr2 = None
@@ -1134,33 +1212,21 @@ class ShardedEngine:
         `counts`, maximal over the mesh, for the host to check
         (`cg_evaluate`)."""
         s, pos, rows, brows, ccap = carry
-        spec, comm, ncap, dev = self.spec, self.comm, self.ncap, self.device
         s = dataclasses.replace(s, frac=torch.where(
             s.valid[:, None], pos @ self.Hi.T, 0.0))
         with self._phase("rebuild"):
-            plan, frac_ext, valid_ext = halo.build_plan(s.frac, s.valid,
-                                                        spec, comm)
-            ghost = valid_ext[ncap:]
-            order = torch.argsort((~ghost).to(torch.int8), stable=True)
-            keep = torch.cat([torch.arange(ncap, device=dev),
-                              ncap + order[:rows]])
-            tex = halo.apply_plan(plan, s.types, spec, comm)[keep]
-            gex = halo.apply_plan(plan, s.gid, spec, comm)[keep]
-            img = identity_image(keep.shape[0], self.dtype, dev)
-            pos_rel, near = self._near(frac_ext[keep], valid_ext[keep])
-            nbrs, occ = self._neighbors(
-                pos_rel, valid_ext[keep], tex, _select_k(near[None],
-                                                         brows)[0],
-                self.grid._replace(ccap=ccap))
+            block, _, ghost, near, occ = self._window_rows(s, rows, brows,
+                                                           ccap)
         counts = {}
         q, _, _, _, f, comps, _, nq = self._compute(
-            s, Block(tex, gex, plan, keep, img, nbrs, None), True,
-            prep=self.cfg.isQEq == 2, loop=loop, counts=counts)
+            s, block, True, prep=self.cfg.isQEq == 2, loop=loop,
+            counts=counts)
         over = _over_vector(counts)
+        nbrs = block.nbrs
         vec = torch.stack([t.to(torch.int64) for t in (
-            plan.cnt_send.max(), nbrs.cntb.max(), nbrs.cntnb.max(), occ,
+            block.plan.cnt_send.max(), nbrs.cntb.max(), nbrs.cntnb.max(), occ,
             ghost.sum(), near.sum())])
-        return ProbeOut(comps[0], f, q, nq, comm.pmax(torch.cat(
+        return ProbeOut(comps[0], f, q, nq, self.comm.pmax(torch.cat(
             [vec, vec.new_zeros(len(CAP_NAMES)) if over is None else over])))
 
     @torch.no_grad()
@@ -1205,21 +1271,36 @@ class ShardedEngine:
                 return pe, out.force, out.q
             self.timers.count("probe regrowths", 1)
 
+    def _resync_fn(self, carry):
+        """The optimizer's resync as a program (rxmd_tpu's _cg_resync,
+        engine.py:976-988): carry = (state, block positions, g, p); the
+        positions committed and wrapped, the atoms migrated with `g` and
+        `p` riding along, and the mesh-wide largest send and atoms
+        without a free slot.  It reads nothing on the host."""
+        s, pos, g, p = carry
+        frac = torch.where(s.valid[:, None],
+                           torch.remainder(pos @ self.Hi.T, 1.0), 0.0)
+        s, ex, mig, lost = self._migrate(dataclasses.replace(s, frac=frac),
+                                         {"g": g, "p": p})
+        return s, ex["g"], ex["p"], self.comm.pmax(torch.stack([mig, lost]))
+
     @torch.no_grad()
     def cg_resync(self, pos_blk, g, p):
         """Commit positions and migrate atoms with the CG vectors `g` and
-        `p` riding along (MigrateVec3D, ref: cg.F90:292-314)."""
-        s = self.sstate
-        frac = torch.where(s.valid[:, None],
-                           torch.remainder(pos_blk @ self.Hi.T, 1.0), 0.0)
-        s, ex, mig, lost = self._migrate(dataclasses.replace(s, frac=frac),
-                                         {"g": g, "p": p})
-        mig, lost = (int(x) for x in self.comm.pmax(torch.stack([mig, lost])))
+        `p` riding along (MigrateVec3D, ref: cg.F90:292-314): the resync
+        program (`_resync_fn`) as a CUDA graph where `uses_graphs()` (in
+        the rebuild's cache), else eagerly, then one host read of its
+        mesh-wide counts, raising on an overflow."""
+        s, g, p, diag = self._dispatch(
+            "_rebuild_graphs", "resync",
+            lambda _, c, loop: self._resync_fn(c), (),
+            (self.sstate, pos_blk, g, p), 0)
+        mig, lost = (int(x) for x in diag.tolist())
         if mig > self.mcap or lost:
             raise RuntimeError(f"migration overflow: {mig} sent (mcap="
                                f"{self.mcap}), {lost} without a free slot")
         self.sstate = s
-        return self.cg_positions(), ex["g"], ex["p"]
+        return self.cg_positions(), g, p
 
     def cg_commit(self, pos_blk, q_blk):
         """Write optimized positions and charges into the engine state."""

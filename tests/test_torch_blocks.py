@@ -235,7 +235,8 @@ def test_qeq_list_capacity_overflow(monkeypatch):
                                                    q)).all())
     # an engine whose capacity falls short raises, at prepare's solve or
     # at the end of a run
-    monkeypatch.setattr(tps, "walk_candidates", lambda grid, walk: 64)
+    monkeypatch.setattr(tps, "walk_candidates",
+                        lambda grid, walk: torch.tensor(64))
     with pytest.raises(RuntimeError, match="QEq list overflow"):
         _engine(isQEq=1, NMAXQEq=4).prepare()
     monkeypatch.undo()

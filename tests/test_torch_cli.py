@@ -303,6 +303,39 @@ def test_default_block_steps(tmp_path):
             assert np.abs(a[k] - b[k]).max() <= _bar(k), k
 
 
+def test_header_under_mdmode0(tmp_path):
+    """mdmode 0 runs full-CG QEq (ref: init.F90:56-63) on the engine's copy
+    of the RunConfig: the header names isQEq 1, as rxmd_tpu's does, and
+    the caller's RunConfig keeps the 2 its rxmd.in gave."""
+    rxmdin = tmp_path / "rxmd.in"
+    rxmdin.write_text(RXMD_IN.replace("mdmode       4", "mdmode       0")
+                      .replace("0.25  10", "0.25  2")
+                      .replace("T  T  T  T", "F  F  F  F")
+                      .replace("QEq          1", "QEq          2"))
+    seen = []
+
+    def apply_cli(cfg, args):
+        cfg = APPLY_CLI["port"](cfg, args)
+        seen.append(cfg)
+        return cfg
+    heads = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcfg, "apply_cli", apply_cli)
+        for name, main, kw in (("port", tmain.main, {"device": "cpu"}),
+                               ("jax", jmain.main, {})):
+            rc, out, err = _run(main, _argv(rxmdin, tmp_path / name / "DAT",
+                                            "--run_from_xyz", CELL), **kw)
+            assert rc == 0, err
+            heads[name] = [ln for ln in out.splitlines() if any(
+                k in ln for k in ("parameter set:", "time step[fs]:",
+                                  "MDMODE CURRENTSTEP", "isQEq,QEq_tol",
+                                  "NATOMS:"))]
+    assert heads["port"] == heads["jax"]
+    line = [ln for ln in heads["port"] if "isQEq,QEq_tol" in ln]
+    assert line and line[0].split()[1] == "1"
+    assert len(seen) == 1 and seen[0].isQEq == 2
+
+
 def test_structural_optimization(tmp_path):
     """mdmode 10 through main: one CG iteration (CG_tol 10 per atom stops
     after the first), then rxff.npz and rxff.bin of the relaxed state."""

@@ -2,15 +2,17 @@
 what lets md.Engine run its steps and blocks as CUDA graphs beyond the
 sweep.
 
-* A host-read guard: `Engine._block_fn` for one step and for a block of 3
-  on the pair-list engine (closed form and tables), the dense engine, a
-  triclinic box, uncached terms, tighten_lists, PQEq at isQEq 1 and 2 and
-  LG, with every way a tensor reaches the host made to raise
-  (`Tensor.item`, `__bool__`, `__int__`, `__float__`, `__index__`,
-  `tolist`, `numpy`, `cpu`, `nonzero`, `masked_select`, torch's
-  `nonzero`, `masked_select`, `argwhere`, `unique`, one-argument
-  `torch.where`, and indexing with a boolean mask).  The CG's finished
-  flag, read by the `loop` hook between chunks, is the one read allowed.
+* A host-read guard (`parallel/dryrun.HostReadGuard`): `Engine._block_fn`
+  for one step and for a block of 3 on the pair-list engine (closed form
+  and tables), the dense engine, a triclinic box, uncached terms,
+  tighten_lists, PQEq at isQEq 1 and 2 and LG, and `Engine._probe_fn`,
+  with every way a tensor reaches the host made to raise (`Tensor.item`,
+  `__bool__`, `__int__`, `__float__`, `__index__`, `tolist`, `numpy`,
+  `cpu`, `nonzero`, `masked_select`, torch's `nonzero`, `masked_select`,
+  `argwhere`, `unique`, one-argument `torch.where`, and indexing with a
+  boolean mask), and every tensor made from host data.  The CG's
+  finished flag, read by the `loop` hook between chunks, is the one read
+  allowed.
   (The sweep's plain versions read counts on the host by design and run
   eagerly: they are exempt.)
 * `uses_graphs()` on a card for every configuration, and the rebuild
@@ -41,6 +43,7 @@ import torch
 from rxmd_tpu import config as jcfg, ffield as jff, md as jmd, system as jsys
 from rxmd_tpu_torch import config as tcfg, ffield as tff, md as tmd, \
     reax as trx, system as tsys
+from rxmd_tpu_torch.parallel import dryrun
 
 torch.set_num_threads(1)
 
@@ -69,75 +72,16 @@ def _deck(kind, lg=False):
 # ----------------------------------------------------------------------
 # the host-read guard
 
-_ACTIVE = [False]
-
-
-def _blocked(name, orig):
-    def f(*a, **k):
-        if _ACTIVE[0]:
-            raise AssertionError(f"host read inside the step: {name}")
-        return orig(*a, **k)
-    return f
-
-
-def _has_mask(idx):
-    return any(isinstance(t, torch.Tensor) and t.dtype == torch.bool
-               for t in (idx if isinstance(idx, tuple) else (idx,)))
-
-
 @pytest.fixture
-def guard(monkeypatch):
-    """Patches every host read to raise while `_ACTIVE[0]` is set."""
-    T = torch.Tensor
-    for name in ("item", "__bool__", "__int__", "__float__", "__index__",
-                 "tolist", "numpy", "cpu", "nonzero", "masked_select"):
-        monkeypatch.setattr(T, name, _blocked("Tensor." + name,
-                                              getattr(T, name)))
-    for name in ("nonzero", "masked_select", "argwhere", "unique"):
-        monkeypatch.setattr(torch, name, _blocked("torch." + name,
-                                                  getattr(torch, name)))
-    where = torch.where
-
-    def where1(*a, **k):
-        if _ACTIVE[0] and len(a) + len(k) == 1:
-            raise AssertionError("host read inside the step: torch.where"
-                                 "(condition)")
-        return where(*a, **k)
-    monkeypatch.setattr(torch, "where", where1)
-    getitem, setitem = T.__getitem__, T.__setitem__
-
-    def get(self, idx):
-        if _ACTIVE[0] and _has_mask(idx):
-            raise AssertionError("host read inside the step: boolean-mask "
-                                 "indexing")
-        return getitem(self, idx)
-
-    def put(self, idx, value):
-        if _ACTIVE[0] and _has_mask(idx):
-            raise AssertionError("host read inside the step: boolean-mask "
-                                 "assignment")
-        return setitem(self, idx, value)
-    monkeypatch.setattr(T, "__getitem__", get)
-    monkeypatch.setattr(T, "__setitem__", put)
-    yield
-    _ACTIVE[0] = False
-
-
-def _guarded_loop(reads):
-    """The `loop` hook with the guard lifted for the finished flag's read
-    between chunks (the graphs' chunk loop reads it so)."""
-    def loop(chunk, carry, nchunks):
-        carry = chunk(carry)
-        for _ in range(nchunks - 1):
-            _ACTIVE[0] = False
-            fin = bool(carry.fin)
-            reads.append(fin)
-            _ACTIVE[0] = True
-            if fin:
-                break
-            carry = chunk(carry)
-        return carry
-    return loop
+def guard():
+    """dryrun.HostReadGuard, entered for the test and inactive until the
+    test sets its `active`: then every host read raises, and so does a
+    tensor made from host data (on a card a copy to the device, which a
+    captured stream cannot make); its `loop` lifts it for the CG's
+    finished flags and counts them in `reads`."""
+    with dryrun.HostReadGuard() as g:
+        g.active = False
+        yield g
 
 
 GUARD_BASE = dict(dtype="float64", NMAXQEq=12, QEq_tol=1e-10)
@@ -190,18 +134,16 @@ def test_no_host_read_inside_the_step(prepared, guard, name, steps):
     window = (e.nbrs, e.tlists, e._slotmap, e._pos_ref)
     carry = (dataclasses.replace(e.state, step=0), e.force, e._astr)
     pattern = ((False, True),) * steps
-    reads = []
-    _ACTIVE[0] = True
+    guard.active = True
     with torch.no_grad():
-        out = e._block_fn(pattern, e._qcap, window, carry,
-                          _guarded_loop(reads))
-    _ACTIVE[0] = False
+        out = e._block_fn(pattern, e._qcap, window, carry, guard.loop)
+    guard.active = False
     assert bool(torch.isfinite(out.comps).all())
     assert torch.equal(out.state.pos, out.state.pos)
     isq = e.cfg.isQEq
     # the full CG reads its flag between chunks; the extended Lagrangian's
     # one iteration reads nothing
-    assert (len(reads) > 0) == (isq == 1), reads
+    assert (guard.reads > 0) == (isq == 1), guard.reads
     over = out.over
     if e.term_cache and not e.cfg.tighten_lists:
         assert over is None
@@ -214,43 +156,29 @@ def test_no_host_read_inside_the_step(prepared, guard, name, steps):
             assert min(counts["kb_t"], counts["knb_t"]) > 0
 
 
-@pytest.fixture
-def no_host_data(guard, monkeypatch):
-    """The guard, and no tensor made from host data either: on a card that
-    is a copy to the device, which a captured stream cannot make."""
-    for name in ("tensor", "as_tensor"):
-        def made(data, *a, orig=getattr(torch, name), name=name, **k):
-            if _ACTIVE[0] and not isinstance(data, torch.Tensor):
-                raise AssertionError("host data inside the program: torch."
-                                     + name)
-            return orig(data, *a, **k)
-        monkeypatch.setattr(torch, name, made)
-
-
-def _plain_sweeps_unguarded(monkeypatch):
+def _plain_sweeps_unguarded(monkeypatch, guard):
     """The sweep's plain versions read counts on the host by design (the
     card runs the kernels): the guard is lifted inside them."""
     from rxmd_tpu_torch.ops import pairsweep as tps
     for name in ("nonbond_plain", "qeq_build_plain", "qeq_apply_plain"):
         def plain(*a, orig=getattr(tps, name), **k):
-            was, _ACTIVE[0] = _ACTIVE[0], False
+            was, guard.active = guard.active, False
             try:
                 return orig(*a, **k)
             finally:
-                _ACTIVE[0] = was
+                guard.active = was
         monkeypatch.setattr(tps, name, plain)
 
 
 @pytest.mark.parametrize("name", list(PROBE_CONFIGS))
-def test_no_host_read_inside_the_probe(prepared, no_host_data, monkeypatch,
-                                       name):
+def test_no_host_read_inside_the_probe(prepared, guard, monkeypatch, name):
     """Engine._probe_fn, the optimizer's probe program, at positions moved
     by a numpy-seeded step, reads nothing on the host but the CG's chunk
     flags, after one eager run (a graph's first use, which makes the
     grids' device constants); its counts are within the caps."""
     import numpy as np
     e = prepared(name)
-    _plain_sweeps_unguarded(monkeypatch)
+    _plain_sweeps_unguarded(monkeypatch, guard)
     rng = np.random.default_rng(3)
     pos = e.state.pos + torch.as_tensor(
         rng.normal(scale=0.02, size=(e.state.n, 3)), dtype=e.dtype)
@@ -262,11 +190,10 @@ def test_no_host_read_inside_the_probe(prepared, no_host_data, monkeypatch,
                         e._sizes["probe qeq list"] if sweep else None)
     with torch.no_grad():
         ref = e._probe_fn(carry)
-        reads = []
-        _ACTIVE[0] = True
-        out = e._probe_fn(carry, _guarded_loop(reads))
-        _ACTIVE[0] = False
-    assert len(reads) > 0            # a full CG reads its flag per chunk
+        guard.active = True
+        out = e._probe_fn(carry, guard.loop)
+        guard.active = False
+    assert guard.reads > 0           # a full CG reads its flag per chunk
     assert bool(torch.isfinite(out.pe)) and float(out.pe) == float(ref.pe)
     assert torch.equal(out.force, ref.force)
     got = dict(zip(tmd.PROBE_COUNTS, out.counts.tolist()))

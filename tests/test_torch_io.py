@@ -4,7 +4,14 @@
   npz checkpoint: round trips in the port, and files written by either
   package read by the other to equal arrays.
 * the .xyz, .pdb and .bnd writers: byte-identical to rxmd_tpu's for the
-  same state (the .bnd writers take the same bond table).
+  same state (the .bnd writers take the same bond table).  The .xyz
+  writer formats in C++ (the port's csrc/trajio.cpp, built at first use):
+  its bytes are rxmd_tpu's native library's and both packages' Python
+  formatting's, for float64 and float32 states, negative zeros, names of
+  1-3 characters and appended frames; where C and Python differ (a
+  negative NaN, a 4-character name, a type past the names) it is
+  rxmd_tpu's native path.  A failing compiler and an unwritable file
+  raise.
 * the bond table of both engines: the same partners, bond orders within
   1e-10 (float64, the same bond-order expressions in another order).
 * geninit: the same three files as rxmd_tpu's geninit.
@@ -174,6 +181,115 @@ def test_xyz_append_and_read_frames(states, tmp_path):
     assert np.array_equal(frames[1]["types"], ts.types.numpy())
     assert np.array_equal(frames[0]["gid"], ts.gid.numpy())
     assert frames[0]["cell"] == pytest.approx(ttr.cell_params(ts.H), abs=5e-6)
+
+
+# ----------------------------------------------------------------------
+# the .xyz writer: the port's csrc/trajio.cpp against rxmd_tpu's native
+# library (native/libtrajio.so) and its Python formatting
+
+XYZ_CASES = ("float64", "float32", "negative_zero", "names_1_to_3", "append")
+
+
+def _xyz_case(ff, ts, case):
+    """(port state, rxmd_tpu state, atom names) of an .xyz case: the deck
+    with seeded charges in float64 or float32; negative zeros (and values
+    that print as -0.00000) in positions and charges; names of 1, 2 and 3
+    characters."""
+    import jax.numpy as jnp
+    pos, q = ts.pos.numpy().copy(), ts.q.numpy().copy()
+    types, H = ts.types.numpy(), ts.H.numpy()
+    names = list(ff.atom_names)
+    if case == "negative_zero":
+        pos[:4, 0], q[:4] = -0.0, -0.0
+        pos[4:8, 1], q[4:8] = -1e-7, -1e-5
+    if case == "names_1_to_3":
+        names = [("H", "Cx", "Nit")[k % 3] for k in range(len(names))]
+    f32 = case == "float32"
+    t = tsys.make_state(pos, types, H, q=q,
+                        dtype=torch.float32 if f32 else torch.float64)
+    j = jsys.make_state(pos, types, H, q=q,
+                        dtype=jnp.float32 if f32 else jnp.float64)
+    return t, j, names
+
+
+@pytest.mark.parametrize("case", XYZ_CASES)
+def test_xyz_native_bytes(states, tmp_path, monkeypatch, case):
+    """The port's native bytes equal rxmd_tpu's native bytes and its Python
+    bytes (rxmd_tpu's `_NATIVE` switched off by a monkeypatch), and the
+    port's plain formatting's; with `append`, two frames in one file."""
+    ff, _, ts = states
+    t, j, names = _xyz_case(ff, ts, case)
+    frames = 2 if case == "append" else 1
+    paths = {k: str(tmp_path / f"{k}.xyz")
+             for k in ("port", "port_plain", "jax", "jax_plain")}
+    for k in range(frames):
+        kw = dict(append=k > 0)
+        ttr.write_xyz(paths["port"], t, names, **kw)
+        ttr.write_xyz_plain(paths["port_plain"], t, names, **kw)
+        assert jtr._native()
+        jtr.write_xyz(paths["jax"], j, names, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(jtr, "_NATIVE", False)
+            jtr.write_xyz(paths["jax_plain"], j, names, **kw)
+    for k in ("port_plain", "jax", "jax_plain"):
+        assert filecmp.cmp(paths["port"], paths[k], shallow=False), k
+    text = open(paths["port"]).read()
+    assert text.count("\n") == frames * (ts.n + 2)
+    if case == "negative_zero":
+        assert "-0.00000" in text and "  -0.000" in text
+    if case == "names_1_to_3":
+        assert "\nH  " in text and "\nCx " in text
+
+
+def test_xyz_native_and_plain_differ_where_c_and_python_do(states,
+                                                           tmp_path):
+    """Where C and Python format differently, the port's native path is
+    rxmd_tpu's native path and its plain path rxmd_tpu's Python path: a
+    negative NaN ("-nan" against "nan"), a name of 4 characters (cut to 3
+    in C) and a type past the name table (type 0 in C, an IndexError in
+    Python)."""
+    ff, _, ts = states
+    q = ts.q.numpy().copy()
+    q[0] = -np.nan
+    t = tsys.make_state(ts.pos.numpy(), ts.types.numpy(), ts.H.numpy(), q=q)
+    j = jsys.make_state(ts.pos.numpy(), ts.types.numpy(), ts.H.numpy(), q=q)
+    names = ["Hxyz"] + list(ff.atom_names[1:])
+    paths = {k: str(tmp_path / f"{k}.xyz") for k in ("port", "plain", "jax")}
+    ttr.write_xyz(paths["port"], t, names)
+    ttr.write_xyz_plain(paths["plain"], t, names)
+    jtr.write_xyz(paths["jax"], j, names)
+    assert filecmp.cmp(paths["port"], paths["jax"], shallow=False)
+    native, plain = open(paths["port"]).read(), open(paths["plain"]).read()
+    assert "-nan" in native and "-nan" not in plain and "nan" in plain
+    assert "Hxy" in native and "Hxyz" not in native and "Hxyz" in plain
+    bad = tsys.make_state(ts.pos.numpy(), np.full(ts.n, len(names) + 2),
+                          ts.H.numpy())
+    ttr.write_xyz(paths["port"], bad, names)
+    first = open(paths["port"]).read().splitlines()[2]
+    assert first.startswith(names[0][:3])
+    with pytest.raises(IndexError):
+        ttr.write_xyz_plain(paths["plain"], bad, names)
+
+
+def test_xyz_native_build(monkeypatch, tmp_path, states):
+    """The library is built from csrc/trajio.cpp into build/rxmd_tpu_torch
+    (keyed by the source, compiler and flags); a compiler that fails
+    raises with its message, and a file that cannot be opened raises."""
+    so = ttr.build()
+    assert os.path.dirname(so).endswith(os.path.join("build",
+                                                      "rxmd_tpu_torch"))
+    assert os.path.basename(so).startswith("libtrajio_")
+    ff, _, ts = states
+    monkeypatch.setattr(ttr, "_lib", None)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        ttr.write_xyz(str(tmp_path / "x.xyz"), ts, ff.atom_names)
+    monkeypatch.setenv("CXX", "false")
+    with pytest.raises(RuntimeError, match="C\\+\\+ compiler"):
+        ttr.build()
+    monkeypatch.delenv("CXX")
+    with pytest.raises(OSError, match="could not write"):
+        ttr.write_xyz(str(tmp_path / "no-dir" / "x.xyz"), ts, ff.atom_names)
 
 
 @pytest.fixture(scope="module")

@@ -98,13 +98,30 @@ def _moved(e, seed=5, scale=0.03):
         rng.normal(scale=scale, size=(e.state.n, 3)), dtype=e.dtype)
 
 
+def _exact_gate_lists(e, pos, s):
+    """The rebuild program's products at `pos` with exact gates (slack 1,
+    margin 0) and term lists whatever the engine caches: the wrapped
+    positions, the neighbor lists, the term lists cut to their counts and
+    the slot map."""
+    kept = e.term_slack, e.term_margin, e.term_cache
+    e.term_slack, e.term_margin, e.term_cache = 1.0, 0.0, True
+    try:
+        out = e._rebuild_fn(tmd.RebuildIn(pos, s.H, s.types, s.gid,
+                                          torch.linalg.inv(s.H)))
+    finally:
+        e.term_slack, e.term_margin, e.term_cache = kept
+    for lst in out.lists:
+        assert int(lst.cnt) <= lst.valid.shape[0]
+    return out.pos, out.nbrs, tuple(tmd._trim(lst) for lst in out.lists), \
+        out.sm
+
+
 @torch.no_grad()
 def _eager_probe(e, pos):
     """The port's probe before the program: fresh lists with exact gates
     (slack 1, margin 0), the rebuild's checks, an exact-size QEq list."""
     s = e.state
-    pw = e._wrap(pos, s.H)
-    nbrs, lists, sm = e._build_lists(pw, s, slack=1.0, margin=0.0)
+    pw, nbrs, lists, sm = _exact_gate_lists(e, pos, s)
     pairs = e._pair_data(pw, s, nbrs, sm)
     q, _, _, _, spos = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs, pairs,
                                    isqeq=1, spos=s.spos)

@@ -35,6 +35,13 @@ rxmd_tpu); the rank entries live in `parallel/dryrun.py`.
   rank, naming it.
 * Rebuilds within a bucket keep the window's shapes, so the programs
   captured over it serve the next window without a capture.
+* The rebuild (`_rebuild_fn`) and the optimizer's resync (`_resync_fn`)
+  under the guard on (1, 1, 1) and (2, 1, 1), equal to the same programs
+  unguarded; `rebuild` and `cg_resync` reading the host once each
+  (the guard counting); a rebuild whose ghost-row bucket and cell depth
+  fall short growing both and running again (two reads), into the window
+  a rebuild within the grown bucket leaves; and `cg_resync` on (1, 1, 1)
+  against rxmd_tpu's `_cg_resync` per gid.
 """
 import os
 import re
@@ -99,6 +106,81 @@ def test_no_host_read_inside_the_sharded_programs(guarded, mesh, name):
     # full CG of 24 iterations reads them between its chunks
     assert len(set(reads)) == 1, reads
     assert reads[0] >= (1 if name == "qeq2" else 2), reads
+
+
+# ----------------------------------------------------------------------
+# the rebuild and the optimizer's resync
+
+@pytest.fixture(scope="module")
+def rebuilt():
+    got = {}
+
+    def get(mesh):
+        if mesh not in got:
+            m = MESHES[mesh]
+            got[mesh] = _ranks(dryrun.rebuild_case, m, CELL1,
+                               dict(F64, isQEq=1), m,
+                               None if m == (1, 1, 1) else REDUCED)
+        return got[mesh]
+    return get
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_no_host_read_inside_the_rebuild_and_resync(rebuilt, mesh):
+    for rec in rebuilt(mesh):
+        assert rec["guard"] is None, rec["guard"]
+        assert rec["same"]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_one_host_read_per_rebuild_and_resync(rebuilt, mesh):
+    for rec in rebuilt(mesh):
+        assert len(rec["rebuild_reads"]) == 1, rec["rebuild_reads"]
+        assert len(rec["resync_reads"]) == 1, rec["resync_reads"]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_rebuild_reruns_when_its_bucket_is_outgrown(rebuilt, mesh):
+    """A ghost-row bucket and a cell depth below the rebuild's counts: both
+    grow after its read and it runs again (two reads, one regrowth); a
+    rebuild from the same state within the grown bucket reads once and
+    leaves the same state and window."""
+    recs = rebuilt(mesh)
+    for rec in recs:
+        assert len(rec["regrow_reads"]) == 2, rec["regrow_reads"]
+        assert rec["regrowths"] == 1
+        assert len(rec["after_reads"]) == 1
+        assert rec["same_window"] and rec["rows"] > 8
+    assert len({rec["rows"] for rec in recs}) == 1
+
+
+def test_resync_against_rxmd_tpu():
+    """cg_resync on (1, 1, 1) against rxmd_tpu's _cg_resync at the same
+    moved positions, per gid: the wrapped positions within 1e-12 A, g and
+    p as given."""
+    kw = dict(F64, mdmode=10, isQEq=1)
+    rec = _ranks(dryrun.resync_case, CELL1, CELL1, kw, CELL1)[0]
+    ff = jff.parse_ffield(FF)
+    je = JShardedEngine(ff, jsys.from_cellfile(CELL, ff.name_to_type,
+                                               mc=CELL1),
+                        jcfg.RunConfig(**kw), mesh_shape=CELL1)
+    je.init_velocity(seed=1)
+    je.prepare()
+    s = je.sstate
+    gid, valid = np.asarray(s.gid), np.asarray(s.valid)
+    order = np.argsort(gid[valid], kind="stable")
+
+    def blk(a):
+        out = np.zeros((gid.shape[0], 3))
+        out[valid] = a[gid[valid]]
+        return jnp.asarray(out)
+    got = je.cg_resync(*(blk(a) for a in rec["given"]))
+    ref = [np.asarray(x)[valid][order] for x in got]
+    pos0 = rec["given"][0]
+    assert np.abs(ref[0] - pos0).max() > 1.0       # some atoms wrapped
+    assert np.abs(rec["got"][0] - ref[0]).max() <= 1e-12
+    for a, b in zip(rec["got"][1:], ref[1:]):
+        assert np.array_equal(a, b)
 
 
 # ----------------------------------------------------------------------
