@@ -13,11 +13,15 @@ first failure ends the run with a non-zero exit code and no result line.
      prints ptxas's registers and spills per kernel;
   3. kernels: on the deck's real slot layout and the engine's walk, each
      CUDA kernel against its plain PyTorch version on the card (nonbond;
-     qeq_build: the same entries per row and h within 1e-5 of max|h|;
-     qeq_apply on the same list), build + apply and the nonbond kernel
-     against `sweep_plain`, each timed by CUDA events beside its plain
-     version and its bound, and the QEq apply beside torch.sparse.mm over
-     the same list;
+     qeq_build: the same offsets and counts per row, the same sources in
+     each row's records in walk order and h within 1e-5 of max|h|;
+     qeq_apply on the same list and (n, 2) state, with q and without
+     it), build + apply and the nonbond
+     kernel on the engine's walk against `gather_rows` of `sweep_plain`,
+     each timed by CUDA events beside its plain version and its bound;
+     the apply with q and without timed in turns in one call, and the
+     apply beside torch.sparse.mm over the same list, with their ratio
+     (scripts/qeq_apply_forms.py times other forms of the apply);
   4. slice: prepare + --steps NVE steps with full-CG QEq (isQEq=1), PRINTE
      lines (every step, so each step is a single-step dispatch, a CUDA
      graph after its key's first use); launch counts: nonbond once a step,
@@ -80,7 +84,9 @@ first failure ends the run with a non-zero exit code and no result line.
      4, and one step replayed right after a rebuild against the eager
      step; printed, never checked: ms/step and atom-steps/s of both,
      captures and capture ms, steps in blocks, peak memory, and the device
-     idle share of 10 more steps by torch.profiler;
+     idle share of 10 more steps by torch.profiler, and in the isQEq=1
+     graphs run each QEq kernel's device ms per step and share of the
+     steps' device time;
  11. graph paths: the step program of every other configuration at --mc,
      each from one start with graphs and eagerly under the same schedule
      (GRAPH_PATH_STEPS steps, blocks of GRAPH_BLOCK): the pair list at
@@ -192,7 +198,7 @@ TOL_H = 1e-5
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # operations per pair that passes the gates, counted from csrc/pairsweep.cu
 # (each +, -, *, / and each sqrtf, powf, expf as one): nonbond_kernel's
-# pair body; the hessian element of qeq_fill_kernel; qeq_apply_kernel's
+# pair body; the hessian element of qeq_build_kernel; qeq_apply_kernel's
 # three products and sums and the image weight
 OPS_NONBOND, OPS_QEQ_BUILD, OPS_QEQ_APPLY = 101, 27, 7
 # per-step total energy of the kernel run against the plain-sweep run on
@@ -312,6 +318,34 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean device ms of fn() over reps launches captured into one CUDA
+    graph, by CUDA events around a replay: the kernels back to back with
+    no host work between them (cuda_ms's loop pays the wrapper's host time
+    per launch, which a kernel shorter than it does not hide)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
 def bound(nbytes, nops):
     """(ms, "bytes" or "operations"): the least time the card could take to
     move nbytes and do nops float32 operations."""
@@ -350,7 +384,7 @@ def check_qeq_rows(name, got, ref):
 def phase_kernels(engine, seed):
     """Each CUDA kernel against its plain version on the deck's slot layout
     and the engine's walk (the path `Engine.step` runs), then build + apply
-    and the nonbond kernel through `sweep` against `sweep_plain`.  Returns
+    and the nonbond kernel on that walk against `sweep_plain`.  Returns
     {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms)}."""
     from rxmd_tpu_torch.ops import pairsweep as ps
@@ -406,7 +440,9 @@ def phase_kernels(engine, seed):
     ref = ps.nonbond_plain(grid, walk, nb_planes, nb_fn)
     check(got.shape == ref.shape == (11, n), f"nonbond rows {got.shape}")
     err = check_nonbond("nonbond", got, ref)
-    ms = cuda_ms(lambda: ps.nonbond(grid, walk, nb_planes, nb_fn), 20)
+    eager = {"nonbond": cuda_ms(lambda: ps.nonbond(grid, walk, nb_planes,
+                                                   nb_fn), 20)}
+    ms = graph_ms(lambda: ps.nonbond(grid, walk, nb_planes, nb_fn), 20)
     plain_ms = cuda_ms(lambda: ps.nonbond_plain(grid, walk, nb_planes, nb_fn),
                        3)
     # 6 planes and the rows' targets in, 11 rows out
@@ -421,89 +457,127 @@ def phase_kernels(engine, seed):
     lst = ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n, cap)
     torch.cuda.synchronize()
     ref = ps.qeq_build_plain(grid, walk, qeq_planes, qeq_fn, own, n, cap)
-    E = int(lst.need)
-    check(torch.equal(lst.rowptr, ref.rowptr) and E == int(ref.need) <= cap,
-          f"qeq_build: entries per row (kernel {E}, plain "
-          f"{int(ref.need)}, capacity {cap})")
-    check(torch.equal(lst.src[:E], ref.src[:E]), "qeq_build: the same sources")
-    hmax = float(ref.h[:E].abs().max())
-    err = float((lst.h[:E] - ref.h[:E]).abs().max())
-    check(bool(torch.isfinite(lst.h[:E]).all()) and err <= TOL_H * hmax,
+    need, E = int(lst.need), int(ref.count.sum())
+    check(torch.equal(lst.start, ref.start) and torch.equal(lst.count,
+                                                            ref.count)
+          and need == int(ref.need) == cand <= cap,
+          f"qeq_build: entries per row (kernel {int(lst.count.sum())}, "
+          f"plain {E}; need {need}, candidates {cand}, capacity {cap})")
+    live = live_records(ref)
+    check(torch.equal(lst.code[live], ref.code[live]),
+          "qeq_build: the same sources per row, in walk order")
+    hmax = float(ref.h[live].abs().max())
+    err = float((lst.h[live] - ref.h[live]).abs().max())
+    check(bool(torch.isfinite(lst.h[live]).all()) and err <= TOL_H * hmax,
           f"qeq_build: h within {TOL_H} of max|h| ({err:.3e} of {hmax:.3e})")
-    ms = cuda_ms(lambda: ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n,
-                                      cap), 20)
+    eager["qeq_build"] = cuda_ms(lambda: ps.qeq_build(
+        grid, walk, qeq_planes, qeq_fn, own, n, cap), 20)
+    ms = graph_ms(lambda: ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n,
+                                       cap), 10)
     plain_ms = cuda_ms(lambda: ps.qeq_build_plain(grid, walk, qeq_planes,
                                                   qeq_fn, own, n, cap), 3)
-    # 5 planes and the owners in, the row pointers and the list out
-    nbytes = 4 * 6 * M + walk_bytes + 4 * (T + 1) + 8 * E
+    # 5 planes and the owners in, the offsets in, the counts and the
+    # list's records out
+    nbytes = 4 * 6 * M + walk_bytes + 4 * (T + 1) + 4 * T + 8 * E
     bms, by = bound(nbytes, E * OPS_QEQ_BUILD)
     res["qeq_build"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bms, bound_by=by, library_ms=None)
-    log(f"QEq list: {E} entries, {8 * E / 1e6:.1f} MB, of a capacity of "
-        f"{cap} (the walk's candidates, padded)")
+    blocks, threads, smem = ps.qeq_build_occupancy(grid, qeq_fn)
+    sizes = walk.qblocks[:, 1] - walk.qblocks[:, 0]
+    log(f"qeq_build: {blocks} blocks of {threads} threads resident an SM, "
+        f"{smem / 1024:.1f} KB of shared memory a block; "
+        f"{int((sizes > 0).sum())} blocks hold targets (at most "
+        f"{ps.BUILD_TARGETS} of one column, {int(sizes.max())} the largest) "
+        f"of {sizes.shape[0]} launched")
+    log(f"QEq list: {E} entries, {8 * E / 1e6:.1f} MB, in a layout of "
+        f"{need} records (the walk's candidates) of a capacity of {cap} "
+        f"(padded so)")
 
     # qeq_apply: the kernel against qeq_apply_plain on the kernel's list,
-    # hs and ht the columns of an (n, 2) state, as the CG passes them
+    # on an (n, 2) state as the CG passes it
     X = torch.stack([hs, ht], dim=1)
-    got = ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q)
+    got = ps.qeq_apply(lst, walk, X, q)
     torch.cuda.synchronize()
-    ref = ps.qeq_apply_plain(lst, walk, hs, ht, q)
+    ref = ps.qeq_apply_plain(lst, walk, X, q)
     check(got.shape == ref.shape == (3, n), f"qeq_apply rows {got.shape}")
     err = check_qeq_rows("qeq_apply", got, ref)
-    ms = cuda_ms(lambda: ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q), 50)
-    plain_ms = cuda_ms(lambda: ps.qeq_apply_plain(lst, walk, hs, ht, q), 10)
-    nbytes = 4 * (T + 1) + 8 * E + 4 * T + 4 * 3 * n + 4 * 3 * n
+    grad = ps.qeq_apply(lst, walk, X)
+    check_qeq_rows("qeq_apply without q", grad[:2], ref[:2])
+    check(not bool(grad[2].any()), "qeq_apply without q: an Est row of 0")
+    eager["qeq_apply"] = cuda_ms(lambda: ps.qeq_apply(lst, walk, X, q), 50)
+    ms = graph_ms(lambda: ps.qeq_apply(lst, walk, X, q), 50)
+    plain_ms = cuda_ms(lambda: ps.qeq_apply_plain(lst, walk, X, q), 10)
+    # (start, count) and the rows' targets in, the records of the rows'
+    # entries, the (n, 2) state and q in, 3 rows out
+    nbytes = 8 * T + 8 * E + 4 * T + 4 * 3 * n + 4 * 3 * n
     bms, by = bound(nbytes, E * OPS_QEQ_APPLY)
     res["qeq_apply"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bms, bound_by=by,
-                            library_ms=library_apply_ms(lst, walk, hs, ht))
-    # what the strided read costs: the apply on the columns, on contiguous
-    # vectors, and on contiguous copies of the columns (copies included),
-    # in turns
-    forms = {
-        "columns": lambda: ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q),
-        "contiguous": lambda: ps.qeq_apply(lst, walk, hs, ht, q),
-        "copies + apply": lambda: ps.qeq_apply(
-            lst, walk, X[:, 0].contiguous(), X[:, 1].contiguous(), q)}
+                            library_ms=library_apply_ms(lst, walk, X, live))
+    # with q and without (the CG's gradient) in turns, device time
+    # (graph_ms), beside torch.sparse.mm
+    forms = {"with q": lambda: ps.qeq_apply(lst, walk, X, q),
+             "no q": lambda: ps.qeq_apply(lst, walk, X)}
     order = list(forms) + list(forms)[::-1]
-    times = [(k, cuda_ms(forms[k], 50)) for k in order]
-    log("qeq_apply us per launch in turns: " + ", ".join(
-        f"{k} {t * 1e3:.1f}" for k, t in times))
+    times = [(k, graph_ms(forms[k], 50)) for k in order]
+    log("qeq_apply us per launch in turns, device time: " + ", ".join(
+        f"{k} {t * 1e3:.2f}" for k, t in times) + f" (bound "
+        f"{bms * 1e3:.2f} us)")
+    if res["qeq_apply"]["library_ms"] is not None:
+        log(f"qeq_apply / torch.sparse.mm over the same list: "
+            f"{ms / res['qeq_apply']['library_ms']:.3f}")
 
-    # build + apply (the engine's sweep3) and the nonbond kernel through
-    # `sweep` (every filled target, ghosts included) against sweep_plain
+    # build + apply (the engine's sweep3) and the nonbond kernel on the
+    # engine's walk against sweep_plain over the TPU kernel's target
+    # layout (every filled target, ghosts included), rows gathered
     okf = (e._slotmap.slot_src >= 0).to(e.dtype)
     packed = torch.cat([qeq_planes,
                         torch.stack([hs, ht, q])[:, own.long()] * okf])
-    ref = ps.sweep_plain(grid, packed, qeq_fn)
-    got = torch.stack(ops.sweep3(hs, ht, q))
-    check_qeq_rows("sweep3 (build + apply)", got,
-                   ps.gather_rows(grid, ref, e._slotmap.slot_of_atom))
-    check_qeq_rows("sweep (qeq)", ps.sweep(grid, packed, qeq_fn), ref)
-    check_nonbond("sweep (nonbond)", ps.sweep(grid, nb_planes, nb_fn),
-                  ps.sweep_plain(grid, nb_planes, nb_fn))
+    slot_of_atom = e._slotmap.slot_of_atom
+    got = torch.stack(ops.sweep3(X, q))
+    check_qeq_rows("sweep3 (build + apply)", got, ps.gather_rows(
+        grid, ps.sweep_plain(grid, packed, qeq_fn), slot_of_atom))
+    check_nonbond("nonbond on the walk vs sweep_plain",
+                  ps.nonbond(grid, walk, nb_planes, nb_fn),
+                  ps.gather_rows(grid, ps.sweep_plain(grid, nb_planes, nb_fn),
+                                 slot_of_atom))
     for name in KERNELS:
         r = res[name]
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.1f} us")
         log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3e}; "
-            f"{r['ms'] * 1e3:.1f} us/launch, plain {r['plain_ms'] * 1e3:.1f} "
+            f"{r['ms'] * 1e3:.1f} us/launch device time (graph_ms), "
+            f"{eager[name] * 1e3:.1f} us/launch eagerly (cuda_ms, the "
+            f"wrapper's host time included), plain {r['plain_ms'] * 1e3:.1f} "
             f"us/call, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.1%} of it), library {lib}")
     return res
 
 
-def library_apply_ms(lst, walk, hs, ht):
-    """ms of torch.sparse.mm over the same list as a CSR matrix (h only:
-    H·[hs, ht]), the yardstick of the QEq apply; None if it does not run."""
-    E = int(lst.need)
-    code = lst.src[:E]
+def live_records(lst):
+    """The indices of the list's records that rows hold, row by row in
+    walk order."""
+    start, count = lst.start.long(), lst.count.long()
+    row = torch.repeat_interleave(torch.arange(start.shape[0],
+                                               device=start.device), count)
+    first = torch.cumsum(count, 0) - count
+    return start[row] + torch.arange(row.shape[0], device=row.device) - first[
+        row]
+
+
+def library_apply_ms(lst, walk, X, live):
+    """ms of torch.sparse.mm over the same list's entries as a CSR matrix
+    (h only: H·X), the yardstick of the QEq apply; None if it does not
+    run."""
+    code = lst.code[live]
     col = torch.where(code >= 0, code, ~code)
-    x = torch.stack([hs, ht], dim=1)
+    crow = torch.zeros(lst.count.shape[0] + 1, dtype=torch.int32,
+                       device=X.device)
+    crow[1:] = torch.cumsum(lst.count, 0, dtype=torch.int32)
     try:
-        H = torch.sparse_csr_tensor(lst.rowptr, col, lst.h[:E],
+        H = torch.sparse_csr_tensor(crow, col, lst.h[live].contiguous(),
                                     size=(walk.tslot.shape[0], lst.nown))
-        return cuda_ms(lambda: torch.sparse.mm(H, x), 50)
+        return cuda_ms(lambda: torch.sparse.mm(H, X), 50)
     except RuntimeError as exc:
         log(f"torch.sparse.mm over the QEq list does not run: {exc}")
         return None
@@ -1142,12 +1216,13 @@ def row_layout_cost(e):
             f"{e_err:.2e}, forces {f_err:.2e}, charges {q_err:.2e} apart")
 
 
-def idle_share(fn):
+def idle_share(fn, by=None):
     """(device ms, wall ms, idle share, top) of fn() under torch.profiler
     (CUDA activity only): the summed device time of its kernels, copies
     and fills against the host wall of the window, which ends in a
     synchronize; the share is None when the trace holds no device time.
-    `top`: the eight names with the most device time, (name, ms, calls).
+    `top`: the eight names with the most device time, (name, ms, calls);
+    `by`, a dict if given, gets every name's (ms, calls).
     The trace's raw events are summed: building the profiler's event
     tree (`key_averages`) takes tens of seconds for a window of 1e5
     kernels."""
@@ -1159,7 +1234,7 @@ def idle_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by = {}
+    by = {} if by is None else by
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == DeviceType.CUDA:
             ms, calls = by.get(ev.name(), (0.0, 0))
@@ -1402,8 +1477,11 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
             counts = [tm.ncalls.get(k, 0) for k in names] + [
                 tm.counters.get("drift-triggered rebuilds", 0)]
             peak = torch.cuda.max_memory_allocated() / 2**20
+            by = {}
             busy, pwall, idle, _ = idle_share(
-                lambda e=e: e.run(10, log=None))
+                lambda e=e: e.run(10, log=None), by)
+            if isq == 1 and mode == "graphs":
+                qeq_kernel_share(by, busy, 10, smi)
             runs[mode] = dict(e=e, printed=printed, wall=wall, counts=counts,
                               peak=peak, busy=busy, pwall=pwall, idle=idle,
                               launches=got, iters=iters, rb=rb,
@@ -1448,6 +1526,22 @@ def phase_graphs(mc, seed, steps=GRAPH_STEPS):
             f"eager: PE {pe_err:.3e}, positions {pos_err:.3e} A")
         del runs, a, b
     log(f"graphs: phase took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def qeq_kernel_share(by, busy, steps, smi):
+    """Print each QEq kernel's device ms per step and its share of the
+    steps' device time, from a profiled window's names (idle_share's
+    `by`); "not measured" where the trace holds none of its launches."""
+    parts = []
+    for kernel in ("qeq_build_kernel", "qeq_apply_kernel"):
+        ms = sum(t for k, (t, _) in by.items() if kernel in k)
+        calls = sum(c for k, (_, c) in by.items() if kernel in k)
+        parts.append(f"{kernel} {ms / steps:.4f} ms/step ({calls} launches, "
+                     f"{ms / busy:.2%} of the device time)" if calls
+                     else f"{kernel} not measured (no launch in the trace)")
+    log(f"graphs | isQEq=1 graphs, {steps} profiled steps, "
+        f"{busy / steps:.3f} ms/step of device time: " + "; ".join(parts)
+        + f" | {smi}")
 
 
 def graph_path_configs():

@@ -570,13 +570,15 @@ class Engine:
 
     def _make_pair_ops(self, pos, H, types, sm, qcap=None, gid=None):
         """Closures running the pair kernels for this step's positions over
-        the slot map's walk (the primary atoms in slot order): sweep3 (QEq
-        matvec + Est rows; the hessian list, of capacity `qcap` (None: its
-        exact size, one host read), is built at its first call, once per
+        the slot map's walk (the primary atoms in slot order): sweep3 (the
+        QEq matvec of the CG's (n, 2) state and, unless q is None, the Est
+        rows; the hessian list, of capacity `qcap` (None: the size its
+        layout asks, one host read), is built at its first call, once per
         QEq solve, and applied at every call) and nonbond (energy/force/
-        virial rows), each (rows, n) per primary atom; `need()` the list's
-        entries (QeqList.need) once built.  `gid` defaults to the engine
-        state's; a step passes its own, which a CUDA graph copies in."""
+        virial rows), each (rows, n) per primary atom; `need()` the
+        capacity the list asks (QeqList.need) once built.  `gid` defaults
+        to the engine state's; a step passes its own, which a CUDA graph
+        copies in."""
         ps = pairsweep
         pg = self.pairk
         n = pos.shape[0]
@@ -614,12 +616,11 @@ class Engine:
                 return torch.cat([pos3, tslot[None], gidf[None], qs])
 
             @staticmethod
-            def sweep3(hs, ht, qc):
+            def sweep3(X, qc):
                 if not hessian:
                     hessian.append(build(pg, walk, PairOps.qeq_planes(),
                                          qeq_fn, own32, n, qcap))
-                # hs and ht are the columns of the CG's (n, 2) state
-                rows = apply(hessian[0], walk, hs, ht, qc)
+                rows = apply(hessian[0], walk, X, qc)
                 return rows[0], rows[1], rows[2]
 
             @staticmethod

@@ -8,7 +8,7 @@ scatter, no atomics).
 
 Two pair bodies ride the sweep: the closed-form vdW + Coulomb
 energy/force/virial rows (once per MD step) and the QEq hessian applied to
-hs and ht with the Est pair sum (once per CG iteration).
+the CG's (n, 2) state with the Est pair sum (once per CG matvec).
 
 The cell walk.  A target is one filled slot; the engine's targets are the
 primary atoms in slot order (`atom_walk`).  For each column of the pruned
@@ -24,15 +24,16 @@ The kernels of csrc/pairsweep.cu run over the walk, each beside its plain
 PyTorch version here:
 
   nonbond    the 11 nonbond rows of each target          nonbond_plain
-  qeq_build  the QEq hessian of one solve as a CSR list  qeq_build_plain
-             (of a fixed capacity, with an overflow count)
-  qeq_apply  that list applied to hs, ht and q           qeq_apply_plain
+  qeq_build  the QEq hessian of one solve as a list of   qeq_build_plain
+             8-byte records, each target's at its offset
+             (`Walk.qstart`), of a fixed capacity
+  qeq_apply  that list applied to the (n, 2) state and q qeq_apply_plain
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
-the plain version for a CPU tensor.  `sweep` keeps the TPU kernel's
-contract, (out_k, n_targets) rows over its target layout, on top of them;
-`sweep_plain` computes that independently of the walk, over each target's
-own z-cell +- zreach cells shifted to stay inside the column (`_pair_list`).
+the plain version for a CPU tensor.  `sweep_plain` keeps the TPU kernel's
+contract, (out_k, n_targets) rows over its target layout, independently
+of the walk, over each target's own z-cell +- zreach cells shifted to
+stay inside the column (`_pair_list`); `sweep` runs it for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -157,6 +158,10 @@ class SlotMap(NamedTuple):
     order: torch.Tensor         # (n,) primary atoms in slot order
     filled: torch.Tensor        # (m,) int32 the filled slots, ascending,
                                 # then 0 to the m extended atoms
+    qstart: torch.Tensor        # (n+1,) int32 the QEq list offsets of
+                                # `atom_walk` (Walk.qstart)
+    qblocks: torch.Tensor       # (B, 2) int32 the QEq build's blocks of
+                                # `atom_walk` (Walk.qblocks)
 
 
 _bin_consts = {}
@@ -182,7 +187,9 @@ def bin_slots(pose, valid, grid: PairGrid, n: int) -> SlotMap:
     optimizer probe.  Nothing reads the host: `filled` holds the filled
     slots padded with 0 to the m extended atoms (at most m slots fill),
     a length that depends on no value (the walk reads only the cells'
-    ranges, so the padding is never read)."""
+    ranges, so the padding is never read).  `qstart` places the QEq list
+    of every solve over this map (`qeq_starts`), `qblocks` splits its
+    targets among the build's blocks (`qeq_blocks`)."""
     m = pose.shape[0]
     dev = pose.device
     nc = np.array(grid.nc)
@@ -218,9 +225,14 @@ def bin_slots(pose, valid, grid: PairGrid, n: int) -> SlotMap:
     at = torch.where(inb, torch.cumsum(inb, 0) - 1, m)
     filled = torch.zeros(m + 1, dtype=torch.int32, device=dev)
     filled = filled.index_copy_(0, at, dst.to(torch.int32))[:-1]
+    order = torch.argsort(slot_of_atom)
+    cell_count = cell_count.to(torch.int32)
+    tslot = slot_of_atom[order]
     return SlotMap(slot_src=slot_src, slot_of_atom=slot_of_atom,
-                   overflow=overflow, cell_count=cell_count.to(torch.int32),
-                   order=torch.argsort(slot_of_atom), filled=filled)
+                   overflow=overflow, cell_count=cell_count, order=order,
+                   filled=filled,
+                   qstart=qeq_starts(grid, tslot, _cell_start(cell_count)),
+                   qblocks=qeq_blocks(grid, tslot))
 
 
 def pack_slots(slot_src, cols, far_cols: int = 3):
@@ -301,6 +313,12 @@ class Walk(NamedTuple):
     cell_start: torch.Tensor  # (ncells + 1,) int32 prefix sums of counts
     slots: torch.Tensor       # int32 the filled slots, ascending (any
                               # padding after them is never read)
+    qstart: torch.Tensor      # (T+1,) int32 prefix sums of the targets'
+                              # walk candidates: target i's QEq entries
+                              # start at qstart[i] (`qeq_starts`)
+    qblocks: torch.Tensor     # (B, 2) int32 block b of the QEq build
+                              # takes targets qblocks[b, 0]:qblocks[b, 1]
+                              # (`qeq_blocks`)
 
 
 def _cell_start(cell_count):
@@ -315,7 +333,8 @@ def atom_walk(sm: SlotMap) -> Walk:
     its own row of an (out_k, n) output."""
     return Walk(tslot=sm.slot_of_atom[sm.order].to(torch.int32),
                 trow=sm.order.to(torch.int32), nrows=sm.order.shape[0],
-                cell_start=_cell_start(sm.cell_count), slots=sm.filled)
+                cell_start=_cell_start(sm.cell_count), slots=sm.filled,
+                qstart=sm.qstart, qblocks=sm.qblocks)
 
 
 def slot_walk(grid: PairGrid, packed, rows=None) -> Walk:
@@ -329,11 +348,14 @@ def slot_walk(grid: PairGrid, packed, rows=None) -> Walk:
     if rows is None:
         rows = torch.arange(grid.n_targets, device=dev)
     rows = rows[filled[tslot[rows]]]
+    cell_start = _cell_start(filled.view(-1, grid.ccap).sum(
+        dim=1, dtype=torch.int32))
     return Walk(tslot=tslot[rows].to(torch.int32),
                 trow=rows.to(torch.int32), nrows=grid.n_targets,
-                cell_start=_cell_start(filled.view(-1, grid.ccap).sum(
-                    dim=1, dtype=torch.int32)),
-                slots=torch.nonzero(filled).squeeze(1).to(torch.int32))
+                cell_start=cell_start,
+                slots=torch.nonzero(filled).squeeze(1).to(torch.int32),
+                qstart=qeq_starts(grid, tslot[rows], cell_start),
+                qblocks=qeq_blocks(grid, tslot[rows]))
 
 
 # ---------------------------------------------------------------------------
@@ -592,35 +614,104 @@ def nonbond_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn,
     return _rows_of(fn, planes, walk.trow[i], tsl, src, walk.nrows, chunk)
 
 
+_REC_INT = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
 class QeqList(NamedTuple):
-    """The QEq hessian of one solve: a CSR list over a walk's targets.
-    With a fixed capacity (`cap` of the build functions) src and h hold `cap`
-    entries, the rows' entries rowptr[i]:rowptr[i+1] cut at `cap`, and
-    `need` > `cap` flags an overflow, for the host to read and raise on."""
-    rowptr: torch.Tensor   # (T+1,) int32: entries rowptr[i]:rowptr[i+1]
-    src: torch.Tensor      # (E,) int32 source's owner; ~owner for an image
-    h: torch.Tensor        # (E,) hessian element
-    nown: int              # length of the vectors the list is applied to
-    need: torch.Tensor     # () int32 the walk's entries, rowptr[-1]
+    """The QEq hessian of one solve over a walk's targets: target i's
+    entries are the records rec[start[i] : start[i] + count[i]], in walk
+    order, start the walk's `qstart` (so the rows leave gaps where their
+    candidates failed the gates).  A record is (source code, the bits of
+    h): an int32 pair for float32 (an int2 to the kernels), int64 for
+    float64.  The list's capacity is cap = rec.shape[0]; entries at or
+    past it are not written, and `need` > cap flags that, for the host to
+    read and raise on."""
+    start: torch.Tensor    # (T,) int32 first record of each target
+    count: torch.Tensor    # (T,) int32 entries of each target
+    rec: torch.Tensor      # (cap, 2) records (code, bits of h)
+    nown: int              # rows of the state the list is applied to
+    need: torch.Tensor     # () int32 the capacity the layout asks,
+                           # qstart[T]: the walk's candidates
+
+    @property
+    def code(self):
+        """(cap,) the source's owner; ~owner for an image."""
+        return self.rec[:, 0]
+
+    @property
+    def h(self):
+        """(cap,) the hessian elements (a view of the records)."""
+        return self.rec[:, 1].view(_REC_FLOAT[self.rec.dtype])
 
 
-def walk_candidates(grid: PairGrid, walk: Walk):
-    """Filled slots the walk tests, a () int64 tensor on the walk's device:
-    per target and stencil column, the filled slots of the column's reach
-    around the target's z-cell.  Every QEq list entry is one of them, and
-    they depend on the slot map alone, so their count bounds the list of
-    every solve over that map.  No host read: the stencil's tables are
-    made on the device once per grid (`_device_tables`)."""
+_REC_FLOAT = {v: k for k, v in _REC_INT.items()}
+
+
+def _target_candidates(grid: PairGrid, tslot, cell_start):
+    """(T,) int64: per target, the filled slots its walk tests (per
+    stencil column, the filled slots of the column's reach around the
+    target's z-cell).  No host read: the stencil's tables are made on the
+    device once per grid (`_device_tables`)."""
     ccap, nz = grid.ccap, grid.nc[2]
-    coloffs, zr = (t.long() for t in _device_tables(grid,
-                                                     walk.tslot.device))
-    start = walk.cell_start.long()
-    ts = walk.tslot.long()
+    coloffs, zr = (t.long() for t in _device_tables(grid, tslot.device))
+    start = cell_start.long()
+    ts = tslot.long()
     tz = (ts % (nz * ccap)) // ccap
     cb = ((ts - ts % (nz * ccap))[:, None] + coloffs) // ccap
     z0 = torch.clamp(tz[:, None] - zr, min=0)
     z1 = torch.clamp(tz[:, None] + zr, max=nz - 1)
-    return (start[cb + z1 + 1] - start[cb + z0]).sum()
+    return (start[cb + z1 + 1] - start[cb + z0]).sum(dim=1)
+
+
+def qeq_starts(grid: PairGrid, tslot, cell_start):
+    """(T+1,) int32 offsets of the QEq list over the targets `tslot`:
+    target i's entries start at the sum of the walk candidates of the
+    targets before it, and the last offset, the candidates' total, is the
+    capacity that layout asks.  They depend on the slot map alone, so the
+    rebuild makes them once for every solve over that map."""
+    out = torch.zeros(tslot.shape[0] + 1, dtype=torch.int32,
+                      device=tslot.device)
+    out[1:] = torch.cumsum(_target_candidates(grid, tslot, cell_start), 0)
+    return out
+
+
+# targets a block of the QEq build takes at most (one a lane of a warp;
+# csrc/pairsweep.cu's kBuildTargets, which the build checks)
+BUILD_TARGETS = 32
+
+
+def qeq_blocks(grid: PairGrid, tslot):
+    """(B, 2) int32 (first, end) targets of each block of the QEq build
+    over the targets `tslot` (ascending): each column's targets in runs of
+    BUILD_TARGETS, so a block's targets lie in one column; the largest
+    blocks first (the card starts them first, and the small ones fill in
+    behind), then empty blocks (T, T).  B = ceil(T / BUILD_TARGETS) plus
+    one for each column the targets may lie in, a length no value decides
+    (no host read)."""
+    T = tslot.shape[0]
+    dev = tslot.device
+    nb = -(-T // BUILD_TARGETS) + min(T, grid.nc[0] * grid.nc[1])
+    first = torch.full((nb + 2,), T, dtype=torch.int64, device=dev)
+    if T:
+        col = tslot.long() // (grid.nc[2] * grid.ccap)
+        i = torch.arange(T, device=dev)
+        new = torch.ones(T, dtype=torch.bool, device=dev)
+        new[1:] = col[1:] != col[:-1]
+        colstart = torch.cummax(torch.where(new, i, 0), 0).values
+        opens = (i - colstart) % BUILD_TARGETS == 0
+        b = torch.cumsum(opens, 0) - 1
+        first.index_copy_(0, torch.where(opens, b, nb + 1), i)
+    blocks = torch.stack([first[:nb], first[1:nb + 1]], dim=1)
+    order = torch.argsort(blocks[:, 0] - blocks[:, 1], stable=True)
+    return blocks[order].to(torch.int32)
+
+
+def walk_candidates(grid: PairGrid, walk: Walk):
+    """Filled slots the walk tests, a () int64 tensor on the walk's device.
+    Every QEq list entry is one of them, and they depend on the slot map
+    alone, so their count bounds the list of every solve over that map:
+    it is the capacity the list's layout asks (walk.qstart[-1])."""
+    return _target_candidates(grid, walk.tslot, walk.cell_start).sum()
 
 
 def qeq_build_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
@@ -628,57 +719,65 @@ def qeq_build_plain(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
     """The QEq build kernel's function in plain PyTorch: per target, the
     walk's pairs that pass every gate, in the walk's order, each with its
     hessian element cclmb_qeq * tap(r) * (r^3 + gamma^-3)^(-1/3) and its
-    source's owner, flagged (~owner) when the source is an image.
-    planes: (5, nslots) x, y, z, type, is_primary; own: (nslots,) integer
-    owner of each slot, the index into the (nown,) vectors the list is
-    applied to.  With `cap` the list has that fixed capacity (QeqList);
-    without, exactly its entries."""
+    source's owner, flagged (~owner) when the source is an image, placed
+    from the target's offset `walk.qstart[i]` on.  planes: (5, nslots) x,
+    y, z, type, is_primary; own: (nslots,) integer owner of each slot, the
+    row of the (nown, 2) state the list is applied to.  With `cap` the
+    list has that fixed capacity (QeqList), records past the rows' entries
+    0; without, the candidates' total (walk.qstart[-1], a host read)."""
     chunk = chunk or _chunk(planes.device)
+    dev = planes.device
+    idt = _REC_INT[planes.dtype]
     i, tsl, src = walk_pairs_plain(grid, walk, planes[:3], fn.rc2, chunk)
     per = max(1, chunk // 16)
     ok, h = (torch.cat(x) for x in zip(*[
         _qeq_hessian(fn, planes[:, tsl[p0:p0 + per]],
                      planes[:, src[p0:p0 + per]])
         for p0 in range(0, src.shape[0], per)] or [
-        (torch.zeros(0, dtype=torch.bool, device=planes.device),
+        (torch.zeros(0, dtype=torch.bool, device=dev),
          planes.new_zeros(0))]))
-    o = own[src].to(torch.int32)
+    i, src, h = i[ok], src[ok], h[ok]
+    o = own[src].to(idt)
     code = torch.where(planes[4, src] > 0.5, o, ~o)
-    rowptr = torch.zeros(walk.tslot.shape[0] + 1, dtype=torch.int32,
-                         device=planes.device)
-    rowptr[1:] = torch.cumsum(torch.bincount(
-        i[ok], minlength=walk.tslot.shape[0]), 0)
-    code, h = code[ok], h[ok]
-    if cap is not None:
-        code = torch.cat([code, code.new_zeros(cap)])[:cap]
-        h = torch.cat([h, h.new_zeros(cap)])[:cap]
-    return QeqList(rowptr=rowptr, src=code, h=h, nown=nown,
-                   need=rowptr[-1].clone())
+    count = torch.bincount(i, minlength=walk.tslot.shape[0])
+    # the k-th entry of target i (the pairs come in walk order) at
+    # qstart[i] + k; those at or past the capacity to a dump record
+    first = torch.cumsum(count, 0) - count
+    dest = (walk.qstart[:-1].long()[i] - first[i]
+            + torch.arange(i.shape[0], device=dev))
+    cap = int(walk.qstart[-1]) if cap is None else cap
+    rec = torch.zeros((cap + 1, 2), dtype=idt, device=dev)
+    rec.index_copy_(0, torch.clamp(dest, max=cap),
+                    torch.stack([code, h.view(idt)], dim=1))
+    return QeqList(start=walk.qstart[:-1], count=count.to(torch.int32),
+                   rec=rec[:cap], nown=nown, need=walk.qstart[-1])
 
 
-def qeq_apply_plain(lst: QeqList, walk: Walk, hs, ht, q):
+def qeq_apply_plain(lst: QeqList, walk: Walk, X, q=None):
     """The QEq apply kernel's function in plain PyTorch: (3, walk.nrows)
-    rows sum h*hs[o], sum h*ht[o] and sum h*w*q[o] over each target's
+    rows sum h*X[o, 0], sum h*X[o, 1] and sum h*w*q[o] over each target's
     entries (o the source's owner, w 1 for a primary source and 0.5 for an
-    image), entries past the list's capacity left out; rows no target
-    writes are 0."""
-    # each entry's row: the rows' entries end at rowptr[1:]; entries past
-    # the last row's end are the capacity's padding, which may hold
-    # anything
-    T = walk.tslot.shape[0]
-    e = torch.arange(lst.src.shape[0], device=lst.src.device,
-                     dtype=torch.int32)
-    row = torch.searchsorted(lst.rowptr[1:], e, right=True)
-    live = row < T
-    code = torch.where(live, lst.src, 0).to(torch.int64)
+    image; without q that row is 0), entries past the list's capacity left
+    out; rows no target writes are 0.  X: (nown, 2), q: (nown,) or None.
+    No host read."""
+    out = torch.zeros((3, walk.nrows), dtype=X.dtype, device=X.device)
+    if walk.tslot.shape[0] == 0:
+        return out
+    # each record's row: the last target starting at or before it; a
+    # record is live if it lies within that target's entries (the gaps
+    # between the rows and the capacity's padding may hold anything)
+    e = torch.arange(lst.rec.shape[0], device=X.device, dtype=torch.int32)
+    row = torch.searchsorted(lst.start, e, right=True) - 1
+    rowc = row.clamp(min=0)
+    live = (row >= 0) & (e < lst.start[rowc] + lst.count[rowc])
+    code = torch.where(live, lst.code, 0).to(torch.int64)
     prim = code >= 0
     o = torch.where(prim, code, ~code)
-    qo = q[o]
-    vals = torch.where(live, lst.h, 0.0) * torch.stack(
-        [hs[o], ht[o], torch.where(prim, qo, 0.5 * qo)])
-    tgt = walk.trow.to(torch.int64)[torch.clamp(row, max=max(T - 1, 0))]
-    out = torch.zeros((3, walk.nrows), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(1, tgt, vals)
+    h = torch.where(live, lst.h, 0.0)
+    est = (torch.zeros_like(h) if q is None
+           else h * torch.where(prim, q[o], 0.5 * q[o]))
+    vals = torch.stack([h * X[o, 0], h * X[o, 1], est])
+    return out.index_add_(1, walk.trow.to(torch.int64)[rowc], vals)
 
 
 # ---------------------------------------------------------------------------
@@ -737,11 +836,12 @@ def _library():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         walk = [vp] * 8 + [ci] * 6 + [cf]
         lib.pairsweep_nonbond.argtypes = walk + [vp, vp, ci] + [cf] * 3 + [vp]
-        lib.pairsweep_qeq_count.argtypes = walk + [vp, vp]
-        lib.pairsweep_qeq_fill.argtypes = walk + [vp] * 4 + [ci, vp, cf, vp]
-        lib.pairsweep_qeq_apply.argtypes = (
-            [vp] * 7 + [ctypes.c_longlong] * 3 + [vp, ci, ci, ci, vp])
-        for f in ("nonbond", "qeq_count", "qeq_fill", "qeq_apply"):
+        lib.pairsweep_qeq_build.argtypes = (
+            walk + [ci] + [vp] * 3 + [ci, ci] + [vp] * 2 + [ci, cf, vp])
+        lib.pairsweep_qeq_apply.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+        lib.pairsweep_qeq_build_occupancy.argtypes = [ci] * 4 + [vp] * 3
+        for f in ("nonbond", "qeq_build", "qeq_apply",
+                  "qeq_build_occupancy"):
             getattr(lib, f"pairsweep_{f}").restype = ci
         lib.pairsweep_error_string.argtypes = [ci]
         lib.pairsweep_error_string.restype = ctypes.c_char_p
@@ -762,15 +862,13 @@ def _device_tables(grid: PairGrid, device):
     return _tables[key]
 
 
-def _check(what, t, dtype, shape, device, strided=False):
-    """Raise unless t is a `dtype` tensor of `shape` on `device`, and
-    contiguous unless `strided` (a vector read with its stride)."""
-    if (t.device != device or t.dtype != dtype
-            or not (strided or t.is_contiguous())
+def _check(what, t, dtype, shape, device):
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on
+    `device`."""
+    if (t.device != device or t.dtype != dtype or not t.is_contiguous()
             or tuple(t.shape) != tuple(shape)):
-        kind = "" if strided else "contiguous "
         got = "" if t.is_contiguous() else ", strided"
-        raise ValueError(f"{what}: takes a {kind}{str(dtype)[6:]} "
+        raise ValueError(f"{what}: takes a contiguous {str(dtype)[6:]} "
                          f"{tuple(shape)} tensor on {device}, got "
                          f"{str(t.dtype)[6:]} {tuple(t.shape)} on {t.device}"
                          f"{got}")
@@ -838,85 +936,86 @@ def nonbond(grid: PairGrid, walk: Walk, planes, fn: PairFn):
 def qeq_build(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
               nown: int, cap: int = None) -> QeqList:
     """The QEq hessian list of the walk (once per QEq solve): the CUDA
-    kernel's two passes for a CUDA tensor (or raises), `qeq_build_plain`
-    for a CPU tensor.  The first pass counts each target's entries, a
-    device cumsum makes the row pointers, and the second writes the entries
-    in place, up to `cap` of them, and sets `need` (QeqList): no host read.
-    Without `cap` the host reads the total and the list holds exactly it."""
+    kernel for a CUDA tensor (or raises), `qeq_build_plain` for a CPU
+    tensor.  One launch walks each target's window once, writing its
+    entries from its offset `walk.qstart[i]` on, up to `cap` records, and
+    its count; `need` is walk.qstart[-1] (QeqList): no host read.  Without
+    `cap` the host reads that total and the list holds exactly it."""
     if _device_kind(planes, "qeq_build") == "cpu":
         return qeq_build_plain(grid, walk, planes, fn, own, nown, cap)
     dev = planes.device
     args = _walk_args(grid, walk, planes, fn, 5)
     _check("own", own, torch.int32, (grid.nslots,), dev)
     T = walk.tslot.shape[0]
-    lib, stream = _library(), _stream(dev)
-    cnt = torch.zeros(T, dtype=torch.int32, device=dev)
-    if T:
-        _raise_on(lib.pairsweep_qeq_count(*args, cnt.data_ptr(), stream),
-                  "qeq_build (count)")
-    rowptr = torch.zeros(T + 1, dtype=torch.int32, device=dev)
-    rowptr[1:] = torch.cumsum(cnt, 0, dtype=torch.int32)
+    _check("walk.qstart", walk.qstart, torch.int32, (T + 1,), dev)
+    _check("walk.qblocks", walk.qblocks, torch.int32,
+           (walk.qblocks.shape[0], 2), dev)
     if cap is None:
-        cap = int(rowptr[-1])
-    src = torch.empty(cap, dtype=torch.int32, device=dev)
-    h = torch.empty(cap, dtype=torch.float32, device=dev)
-    need = torch.zeros((), dtype=torch.int32, device=dev)
+        cap = int(walk.qstart[-1])
+    rec = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+    count = torch.zeros(T, dtype=torch.int32, device=dev)
     if T:
-        _raise_on(lib.pairsweep_qeq_fill(
-            *args, own.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
-            h.data_ptr(), cap, need.data_ptr(), units.CCLMB0_QEQ, stream),
-            "qeq_build (fill)")
+        _raise_on(_library().pairsweep_qeq_build(
+            *args, grid.zreach, own.data_ptr(), walk.qstart.data_ptr(),
+            walk.qblocks.data_ptr(), walk.qblocks.shape[0],
+            BUILD_TARGETS, rec.data_ptr(), count.data_ptr(), cap,
+            units.CCLMB0_QEQ, _stream(dev)), "qeq_build")
         launches["qeq_build"] += 1
-    return QeqList(rowptr=rowptr, src=src, h=h, nown=nown, need=need)
+    return QeqList(start=walk.qstart[:-1], count=count, rec=rec, nown=nown,
+                   need=walk.qstart[-1])
 
 
-def qeq_apply(lst: QeqList, walk: Walk, hs, ht, q):
-    """(3, walk.nrows) rows H·hs, H·ht and the Est pair sum from the list
-    (once per CG iteration): the CUDA kernel for a CUDA tensor (or
-    raises), `qeq_apply_plain` for a CPU tensor.  hs, ht and q may be
-    strided views, such as the columns of the CG's (n, 2) state."""
-    if _device_kind(hs, "qeq_apply") == "cpu":
-        return qeq_apply_plain(lst, walk, hs, ht, q)
-    dev = hs.device
+def qeq_build_occupancy(grid: PairGrid, fn: PairFn):
+    """(blocks resident an SM, threads a block, shared memory bytes a
+    block) of the QEq build kernel on the current card for this grid."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _raise_on(_library().pairsweep_qeq_build_occupancy(
+        fn.table.shape[0], len(grid.cols), grid.zreach,
+        grid.ccap.bit_length() - 1, *(ctypes.byref(x) for x in out)),
+        "qeq_build occupancy")
+    return tuple(x.value for x in out)
+
+
+def qeq_apply(lst: QeqList, walk: Walk, X, q=None):
+    """(3, walk.nrows) rows H·X[:, 0], H·X[:, 1] and the Est pair sum from
+    the list (once per CG matvec): the CUDA kernel for a CUDA tensor (or
+    raises), `qeq_apply_plain` for a CPU tensor.  X is the CG's (nown, 2)
+    state itself, contiguous (row stride 2, column stride 1), each source's
+    pair read as one 8-byte gather; q an (nown,) vector, or None, which
+    skips its gather and leaves the Est row 0 (the CG's gradient)."""
+    if _device_kind(X, "qeq_apply") == "cpu":
+        return qeq_apply_plain(lst, walk, X, q)
+    dev = X.device
     T = walk.tslot.shape[0]
-    E = lst.h.shape[0]
-    for what, t, dtype, shape, strided in (
-            ("hs", hs, torch.float32, (lst.nown,), True),
-            ("ht", ht, torch.float32, (lst.nown,), True),
-            ("q", q, torch.float32, (lst.nown,), True),
-            ("list rowptr", lst.rowptr, torch.int32, (T + 1,), False),
-            ("list src", lst.src, torch.int32, (E,), False),
-            ("list h", lst.h, torch.float32, (E,), False),
-            ("walk.trow", walk.trow, torch.int32, (T,), False)):
-        _check(what, t, dtype, shape, dev, strided)
+    for what, t, dtype, shape in (
+            ("X", X, torch.float32, (lst.nown, 2)),
+            ("list start", lst.start, torch.int32, (T,)),
+            ("list count", lst.count, torch.int32, (T,)),
+            ("list rec", lst.rec, torch.int32, (lst.rec.shape[0], 2)),
+            ("walk.trow", walk.trow, torch.int32, (T,)),
+            *([] if q is None else [("q", q, torch.float32, (lst.nown,))])):
+        _check(what, t, dtype, shape, dev)
+    if X.data_ptr() % 8:
+        raise ValueError("X: takes an (n, 2) state aligned to 8 bytes")
     new = torch.zeros if T < walk.nrows else torch.empty
     out = new((3, walk.nrows), dtype=torch.float32, device=dev)
     if T:
         _raise_on(_library().pairsweep_qeq_apply(
-            lst.rowptr.data_ptr(), lst.src.data_ptr(), lst.h.data_ptr(),
-            walk.trow.data_ptr(), hs.data_ptr(), ht.data_ptr(), q.data_ptr(),
-            hs.stride(0), ht.stride(0), q.stride(0), out.data_ptr(), T,
-            walk.nrows, E, _stream(dev)), "qeq_apply")
+            lst.start.data_ptr(), lst.count.data_ptr(), lst.rec.data_ptr(),
+            walk.trow.data_ptr(), X.data_ptr(),
+            None if q is None else q.data_ptr(), out.data_ptr(), T,
+            walk.nrows, lst.rec.shape[0], _stream(dev)),
+            "qeq_apply")
         launches["qeq_apply"] += 1
     return out
 
 
 def sweep(grid: PairGrid, packed, fn: PairFn, rows=None):
-    """One sweep over the TPU kernel's target layout: (out_k, n_targets)
-    where target t = (column p, z-block zb, slot c) maps to slot
-    col_base[p] + (zb_lo + zb*block_zc)*ccap + c; with `rows` (target
-    indices) only those rows are computed and the others are 0.  A CUDA
-    tensor goes through the kernels over `slot_walk` (nonbond, or
-    qeq_build then qeq_apply with each slot its own source index), or
-    raises; a CPU tensor through `sweep_plain`."""
-    dev = packed.device
-    if _device_kind(packed, "pair sweep") == "cpu":
-        return sweep_plain(grid, packed, fn, rows)
-    _check(f"{fn.name} sweep", packed, torch.float32, (fn.K, grid.nslots),
-           dev)
-    walk = slot_walk(grid, packed, rows)
-    if fn.name == "nonbond":
-        return nonbond(grid, walk, packed, fn)
-    own = torch.arange(grid.nslots, dtype=torch.int32, device=dev)
-    lst = qeq_build(grid, walk, packed[:5], fn, own, grid.nslots)
-    return qeq_apply(lst, walk, packed[5], packed[6], packed[7])
+    """`sweep_plain` for a CPU tensor: (out_k, n_targets) rows over the TPU
+    kernel's target layout.  Any other device raises: on a card the
+    kernels serve the engine's walk (`atom_walk`), whose rows equal
+    `gather_rows` of these."""
+    if _device_kind(packed, "pair sweep") != "cpu":
+        raise ValueError(f"no pair sweep kernel for device {packed.device}: "
+                         "the kernels run over atom_walk")
+    return sweep_plain(grid, packed, fn, rows)

@@ -84,8 +84,9 @@ def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
     extended-Lagrangian warm start, one iteration (ref: qeq.F90:51-57).
 
     The engine, in order: `direct` (the dense minimum-image hessian, needs
-    H); `pair_ops`, whose `sweep3(hs, ht, q)` returns the per-atom (H·hs,
-    H·ht, Est pair sum) rows of the pair sweep; else the pair context:
+    H); `pair_ops`, whose `sweep3(X, q)` returns the per-atom (H·X[:, 0],
+    H·X[:, 1], Est pair sum) rows of the pair sweep for the (n, 2) state X
+    (q None: no Est sum, that row 0); else the pair context:
     `pre` = (ctx, table rows, ok) from reax.pair_rows, or (ctx, None, None)
     for the closed form, or None to build it from (H, img, nbrs) with the
     closed form if `closed_form` else the tables.
@@ -135,12 +136,11 @@ def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
 
     if pair_ops is not None:
         def matvec2(X):
-            mvs, mvt, _ = pair_ops.sweep3(X[:, 0], X[:, 1],
-                                          torch.zeros_like(X[:, 0]))
+            mvs, mvt, _ = pair_ops.sweep3(X, None)
             return eta[:, None] * X + torch.stack([mvs, mvt], dim=1)
 
         def matvec2_and_est(Hv, qcur):
-            mvs, mvt, estp = pair_ops.sweep3(Hv[:, 0], Hv[:, 1], qcur)
+            mvs, mvt, estp = pair_ops.sweep3(Hv, qcur)
             mv = eta[:, None] * Hv + torch.stack([mvs, mvt], dim=1)
             return mv, est_of(estp, qcur)
         return cg(matvec2, matvec2_and_est)

@@ -15,8 +15,9 @@ capacity.
   same closures in both): the stop inside a chunk, on a chunk boundary and
   at NMAXQEq.  Bars: the same iteration count, charges within 1e-12, and
   one host read per chunk but the last.
-* `qeq_build_plain` at a capacity below its entries flags the overflow,
-  and the engine raises on it.
+* `qeq_build_plain` at a capacity below the walk's candidates (what the
+  list's layout asks) flags the overflow through `need`, its apply stays
+  finite, and the engine raises on it.
 * `ShardedEngine.run` against rxmd_tpu's `ShardedEngine.run` at
   block_steps 3 on mesh (1, 1, 1) (one gloo rank), 168 atoms: the same
   dispatch and rebuild counts, PE at the common PRINTE steps within 1e-8
@@ -215,23 +216,26 @@ def test_qeq_list_capacity_overflow(monkeypatch):
     full = tps.qeq_build_plain(e.pairk, walk, planes, e._qeq_fn, ops.own,
                                s.n)
     E = int(full.need)
-    assert E == full.src.shape[0] > 0
-    # the engine's capacity (the walk's candidates) holds the list; the
-    # padding past its entries adds nothing
+    assert E == full.rec.shape[0] == int(walk.qstart[-1]) > int(
+        full.count.sum()) > 0
+    # the engine's capacity (the walk's candidates, padded) holds the
+    # list; the padding past its records adds nothing
     assert e._qcap >= E
     roomy = tps.qeq_build_plain(e.pairk, walk, planes, e._qeq_fn, ops.own,
                                 s.n, cap=e._qcap)
-    assert int(roomy.need) == E and roomy.src.shape[0] == e._qcap
-    hs, ht, q = (torch.as_tensor(np.random.default_rng(k).normal(size=s.n))
-                 for k in range(3))
-    assert torch.allclose(tps.qeq_apply_plain(roomy, walk, hs, ht, q),
-                          tps.qeq_apply_plain(full, walk, hs, ht, q),
+    assert int(roomy.need) == E and roomy.rec.shape[0] == e._qcap
+    assert torch.equal(roomy.rec[:E], full.rec)
+    X = torch.as_tensor(np.random.default_rng(0).normal(size=(s.n, 2)))
+    q = torch.as_tensor(np.random.default_rng(2).normal(size=s.n))
+    assert torch.allclose(tps.qeq_apply_plain(roomy, walk, X, q),
+                          tps.qeq_apply_plain(full, walk, X, q),
                           rtol=0, atol=1e-12)
     small = tps.qeq_build_plain(e.pairk, walk, planes, e._qeq_fn, ops.own,
                                 s.n, cap=E // 2)
-    assert int(small.need) == E > small.src.shape[0] == E // 2
-    assert torch.equal(small.src, full.src[:E // 2])
-    assert bool(torch.isfinite(tps.qeq_apply_plain(small, walk, hs, ht,
+    assert int(small.need) == E > small.rec.shape[0] == E // 2
+    assert torch.equal(small.rec, full.rec[:E // 2])
+    assert torch.equal(small.count, full.count)
+    assert bool(torch.isfinite(tps.qeq_apply_plain(small, walk, X,
                                                    q)).all())
     # an engine whose capacity falls short raises, at prepare's solve or
     # at the end of a run

@@ -9,8 +9,9 @@ tests/conftest.py imports jax, so there run it as
 168-atom deck, float32, the engine's own slot layout, walk and planes.
 Bar: each output row within 1e-4 of its largest magnitude (at least 1):
 the kernel and the plain version add the same float32 pair terms in
-another order.  The QEq list: the same entries per row and the same
-sources (both gate on the same float32 distance), h within 1e-5 of max|h|.
+another order.  The QEq list: the same count per row and the same
+sources in each row's records, in walk order (both gate on the same
+float32 distance), h within 1e-5 of max|h|.
 """
 import os
 
@@ -47,7 +48,14 @@ def planes():
                       torch.stack([hs, ht, q])[:, ops.own.long()] * okf])
     return dict(grid=e.pairk, n=s.n, ops=ops, nb_fn=e._nb_fn,
                 qeq_fn=e._qeq_fn, nb=ops.nonbond_planes(q), qeq8=qeq8,
-                hs=hs, ht=ht, q=q)
+                hs=hs, ht=ht, q=q, X=torch.stack([hs, ht], dim=1),
+                slot_of_atom=e._slotmap.slot_of_atom)
+
+
+def _live(lst):
+    """The indices of the list's records that rows hold, row by row."""
+    return torch.cat([torch.arange(int(s), int(s) + int(c), device=s.device)
+                      for s, c in zip(lst.start, lst.count)])
 
 
 def _within(got, ref, bar=1e-4):
@@ -61,21 +69,28 @@ def _within(got, ref, bar=1e-4):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["nonbond", "qeq"])
 def test_kernel_matches_plain(planes, name):
-    """`sweep` over the TPU kernel's target layout (the nonbond kernel, or
-    qeq_build then qeq_apply) against `sweep_plain`."""
+    """The kernels over the engine's walk (the nonbond kernel, or
+    qeq_build then qeq_apply) against `gather_rows` of `sweep_plain` over
+    the TPU kernel's target layout."""
     d = planes
-    grid = d["grid"]
+    grid, ops = d["grid"], d["ops"]
     packed, fn = ((d["nb"], d["nb_fn"]) if name == "nonbond"
                   else (d["qeq8"], d["qeq_fn"]))
     n0 = dict(ps.launches)
-    got = ps.sweep(grid, packed, fn)
+    if name == "nonbond":
+        got = ps.nonbond(grid, ops.walk, packed, fn)
+    else:
+        lst = ps.qeq_build(grid, ops.walk, ops.qeq_planes(), fn, ops.own,
+                           d["n"])
+        got = ps.qeq_apply(lst, ops.walk, d["X"], d["q"])
     want = ({"nonbond": 1} if name == "nonbond"
             else {"qeq_build": 1, "qeq_apply": 1})
     assert {k: ps.launches[k] - n0[k] for k in n0} == {
         k: want.get(k, 0) for k in n0}
-    ref = ps.sweep_plain(grid, packed, fn)
+    ref = ps.gather_rows(grid, ps.sweep_plain(grid, packed, fn),
+                         d["slot_of_atom"])
     torch.cuda.synchronize()
-    assert got.shape == (fn.out_k, grid.n_targets)
+    assert got.shape == (fn.out_k, d["n"])
     _within(got, ref)
 
 
@@ -95,37 +110,104 @@ def test_walk_kernel_matches_plain(planes, name):
         args = (grid, walk, ops.qeq_planes(), d["qeq_fn"], ops.own, n)
         lst = ps.qeq_build(*args)
         ref = ps.qeq_build_plain(*args)
-        assert torch.equal(lst.rowptr, ref.rowptr)
-        assert torch.equal(lst.src, ref.src)
-        assert float((lst.h - ref.h).abs().max()) <= 1e-5 * float(
-            ref.h.abs().max())
+        assert torch.equal(lst.start, ref.start)
+        assert torch.equal(lst.count, ref.count)
+        assert int(lst.need) == int(ref.need) == lst.rec.shape[0]
+        live = _live(ref)
+        assert torch.equal(lst.code[live], ref.code[live])
+        assert float((lst.h[live] - ref.h[live]).abs().max()) <= 1e-5 * float(
+            ref.h[live].abs().max())
     else:
         lst = ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"],
                            ops.own, n)
         n0 = ps.launches[name]
-        got = ps.qeq_apply(lst, walk, d["hs"], d["ht"], d["q"])
-        _within(got, ps.qeq_apply_plain(lst, walk, d["hs"], d["ht"], d["q"]))
+        got = ps.qeq_apply(lst, walk, d["X"], d["q"])
+        _within(got, ps.qeq_apply_plain(lst, walk, d["X"], d["q"]))
     torch.cuda.synchronize()
     assert ps.launches[name] == n0 + 1
 
 
 @pytest.mark.gpu
 def test_qeq_apply_takes_strided_columns(planes):
-    """qeq_apply on the columns of an (n, 2) state, as the CG passes them,
-    gives the rows it gives on contiguous copies, with one launch each."""
+    """qeq_apply reads the CG's strided columns as the (n, 2) state
+    itself, and without q (the gradient) gives the same first two rows and
+    an Est row of 0, with one launch each."""
     d = planes
     grid, ops, n = d["grid"], d["ops"], d["n"]
     walk = ops.walk
     lst = ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"], ops.own, n)
-    X = torch.stack([d["hs"], d["ht"]], dim=1)
-    q2 = torch.stack([d["q"], d["q"]], dim=1)[:, 1]
-    assert X[:, 0].stride(0) == 2 and q2.stride(0) == 2
     n0 = ps.launches["qeq_apply"]
-    got = ps.qeq_apply(lst, walk, X[:, 0], X[:, 1], q2)
-    ref = ps.qeq_apply(lst, walk, d["hs"], d["ht"], d["q"])
+    got = ps.qeq_apply(lst, walk, d["X"], d["q"])
+    grad = ps.qeq_apply(lst, walk, d["X"])
     torch.cuda.synchronize()
     assert ps.launches["qeq_apply"] == n0 + 2
-    assert torch.equal(got, ref)
+    _within(got, ps.qeq_apply_plain(lst, walk, d["X"], d["q"]))
+    assert torch.equal(grad[:2], got[:2]) and not bool(grad[2].any())
+
+
+def _build_groups(grid, walk, build_z=16):
+    """The QEq build's groups as the kernel forms them (each block's
+    targets cut where one lies below the group's first z-cell or
+    build_z cells above it), each with its staged window's filled slots
+    (per stencil column, the union of its targets' reaches)."""
+    ccap, nz = grid.ccap, grid.nc[2]
+    coloffs = ps._target_tables(grid)[1].tolist()
+    reach = ps._reach_table(grid).tolist()
+    cs = walk.cell_start.tolist()
+    ts = walk.tslot.tolist()
+    out = []
+    for a, b in walk.qblocks.tolist():
+        i = a
+        while i < b:
+            z0 = (ts[i] % (nz * ccap)) // ccap
+            j = i
+            while j < b and 0 <= (ts[j] % (nz * ccap)) // ccap - z0 < build_z:
+                j += 1
+            z1 = max((t % (nz * ccap)) // ccap for t in ts[i:j])
+            base = ts[i] - ts[i] % (nz * ccap)
+            slots = sum(
+                cs[(base + o) // ccap + min(z1 + r, nz - 1) + 1]
+                - cs[(base + o) // ccap + max(z0 - r, 0)]
+                for o, r in zip(coloffs, reach))
+            out.append((z1 - z0, slots))
+            i = j
+    return out
+
+
+@pytest.mark.gpu
+def test_qeq_build_tall_box_matches_plain():
+    """The build on a tall deck (the cell replicated (1, 1, 8), 1,344
+    atoms), where blocks span more than 16 z-cells (several groups a
+    block) and windows outgrow one staged chunk, against its plain
+    version: the same counts and sources per row, h within 1e-5 of
+    max|h|; the apply's rows within the bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    ff = ffield.parse_ffield(FF)
+    st = system.from_cellfile(CELL, ff.name_to_type, mc=(1, 1, 8))
+    e = md.Engine(ff, st, config.RunConfig(dtype="float32"), device="cuda")
+    e._rebuild(e.state)
+    s = e.state
+    ops = e._make_pair_ops(s.pos, s.H, s.types, e._slotmap)
+    grid, walk = e.pairk, ops.walk
+    groups = _build_groups(grid, walk)
+    stage = 4096 - (16 + 2 * grid.zreach) * grid.ccap
+    assert len(groups) > int((walk.qblocks[:, 1] > walk.qblocks[:, 0]).sum())
+    assert max(slots for _, slots in groups) > stage
+    args = (grid, walk, ops.qeq_planes(), e._qeq_fn, ops.own, s.n, e._qcap)
+    lst = ps.qeq_build(*args)
+    ref = ps.qeq_build_plain(*args)
+    assert torch.equal(lst.count, ref.count)
+    live = _live(ref)
+    assert torch.equal(lst.code[live], ref.code[live])
+    assert float((lst.h[live] - ref.h[live]).abs().max()) <= 1e-5 * float(
+        ref.h[live].abs().max())
+    rng = np.random.default_rng(4)
+    X = torch.as_tensor(rng.normal(size=(s.n, 2)), dtype=torch.float32,
+                        device="cuda")
+    q = torch.as_tensor(rng.normal(scale=0.2, size=s.n), dtype=torch.float32,
+                        device="cuda")
+    _within(ps.qeq_apply(lst, walk, X, q), ps.qeq_apply_plain(lst, walk, X, q))
 
 
 @pytest.mark.gpu
@@ -138,9 +220,11 @@ def test_kernel_refuses_what_it_does_not_take(planes):
     lst = ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"], ops.own, n)
     n0 = dict(ps.launches)
     bad_walk = walk._replace(tslot=walk.tslot.cpu())
+    X = d["X"]
     calls = [
-        lambda: ps.sweep(grid, d["qeq8"].double(), d["qeq_fn"]),
-        lambda: ps.sweep(grid, d["qeq8"][:6].contiguous(), d["qeq_fn"]),
+        lambda: ps.qeq_build(grid, walk._replace(qstart=walk.qstart[:-1]),
+                             ops.qeq_planes(), d["qeq_fn"], ops.own, n),
+        lambda: ps.qeq_apply(lst, walk, X.t().contiguous().t(), d["q"]),
         lambda: ps.nonbond(grid, walk, d["nb"].double(), d["nb_fn"]),
         lambda: ps.nonbond(grid, walk, d["nb"].t().contiguous().t(),
                            d["nb_fn"]),
@@ -148,14 +232,20 @@ def test_kernel_refuses_what_it_does_not_take(planes):
         lambda: ps.qeq_build(grid, walk, d["qeq8"], d["qeq_fn"], ops.own, n),
         lambda: ps.qeq_build(grid, walk, ops.qeq_planes(), d["qeq_fn"],
                              ops.own.long(), n),
-        lambda: ps.qeq_apply(lst, walk, d["hs"].double(), d["ht"], d["q"]),
-        lambda: ps.qeq_apply(lst, walk, d["hs"][:-1], d["ht"], d["q"]),
-        lambda: ps.qeq_apply(lst._replace(h=lst.h.cpu()), walk, d["hs"],
-                             d["ht"], d["q"]),
+        lambda: ps.qeq_apply(lst, walk, X.double(), d["q"]),
+        lambda: ps.qeq_apply(lst, walk, X[:-1], d["q"]),
+        lambda: ps.qeq_apply(lst, walk, X, d["q"][:-1]),
+        lambda: ps.qeq_apply(lst, walk, X, X[:, 0]),
+        lambda: ps.qeq_apply(lst._replace(rec=lst.rec.cpu()), walk, X,
+                             d["q"]),
+        lambda: ps.qeq_apply(lst, walk, torch.empty(
+            2 * n + 1, device="cuda")[1:].view(n, 2), d["q"]),
     ]
     for call in calls:
-        with pytest.raises(ValueError, match="takes a "):
+        with pytest.raises(ValueError, match="takes a"):
             call()
+    with pytest.raises(ValueError, match="no pair sweep kernel"):
+        ps.sweep(grid, d["qeq8"], d["qeq_fn"])
     assert dict(ps.launches) == n0
 
 

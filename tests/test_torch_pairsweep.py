@@ -13,7 +13,8 @@
   cell and its (2, 2, 1) replica: its pair set equals `_pair_list`'s
   exactly, and its rows equal `sweep_plain`'s within 1e-12 in float64
   (same pairs, another summation order); the QEq list's rows match
-  rxmd_tpu's Pallas `_sweep` at the 3e-4 bar above.
+  rxmd_tpu's Pallas `_sweep` at the 3e-4 bar above.  The QEq list's
+  layout itself is held in test_torch_qeq_list.py.
 
 The CUDA kernels are held against the plain sweeps in test_torch_cuda.py.
 """
@@ -290,28 +291,39 @@ def test_walk_pairs_equal_pair_list(walk64):
 def test_qeq_list_rows_equal_sweep_plain_f64(walk64):
     """qeq_build_plain + qeq_apply_plain over the sweep's target layout
     (each slot its own source index) and over the engine's walk (owner
-    indices with the image flag) give sweep_plain's QEq rows."""
+    indices with the image flag) give sweep_plain's QEq rows; the list
+    holds the walk's candidates, float64 records of (code, bits of h)."""
     d = walk64
     grid, packed, fn = d["grid"], d["packed"]["qeq"], d["fns"]["qeq"]
     ref = tps.sweep_plain(grid, packed, fn)
     walk = tps.slot_walk(grid, packed)
     own = torch.arange(grid.nslots, dtype=torch.int32)
     lst = tps.qeq_build_plain(grid, walk, packed[:5], fn, own, grid.nslots)
-    got = tps.qeq_apply_plain(lst, walk, packed[5], packed[6], packed[7])
+    got = tps.qeq_apply_plain(lst, walk, packed[5:7].T.contiguous(),
+                              packed[7])
     assert got.shape == ref.shape == (3, grid.n_targets)
     scale = ref.abs().amax(dim=1, keepdim=True)
     assert bool(((got - ref).abs() <= 1e-12 * scale).all())
-    assert int(lst.rowptr[-1]) == lst.src.shape[0] == lst.h.shape[0] > 0
+    assert (int(lst.need) == lst.rec.shape[0]
+            == int(tps.walk_candidates(grid, walk))
+            > int(lst.count.sum()) > 0)
+    assert lst.rec.dtype == torch.int64 and lst.h.dtype == torch.float64
 
     awalk = tps.atom_walk(d["sm"])
     alst = tps.qeq_build_plain(grid, awalk, packed[:5], fn,
                                d["slot_owner"], d["n"])
-    rows = tps.qeq_apply_plain(alst, awalk, d["hs"], d["ht"], d["q"])
+    X = torch.stack([d["hs"], d["ht"]], dim=1)
+    rows = tps.qeq_apply_plain(alst, awalk, X, d["q"])
     want = tps.gather_rows(grid, ref, d["sm"].slot_of_atom)
     assert rows.shape == (3, d["n"])
     assert bool(((rows - want).abs() <= 1e-12 * scale).all())
+    # without q, the Est row is 0 and the others stay
+    assert torch.equal(tps.qeq_apply_plain(alst, awalk, X)[:2], rows[:2])
+    assert not bool(tps.qeq_apply_plain(alst, awalk, X)[2].any())
     # the image flag: primary sources keep their owner, images get ~owner
-    src = alst.src.to(torch.int64)
+    live = torch.cat([torch.arange(int(s), int(s) + int(c)) for s, c in
+                      zip(alst.start, alst.count)])
+    src = alst.code[live]
     assert bool((src >= 0).any()) and bool((src < 0).any())
     assert bool((torch.where(src >= 0, src, ~src) < d["n"]).all())
 
@@ -354,8 +366,8 @@ def test_qeq_list_matches_pallas(f32):
     lst = tps.qeq_build(grid, walk, tp[:5].contiguous(), fn, own.int(),
                         d["st"].n)          # CPU tensors: the plain build
     f = lambda v: torch.tensor(v, dtype=torch.float32)
-    got = tps.qeq_apply(lst, walk, f(d["hs"]), f(d["ht"]),
-                        f(d["q"])).numpy()
+    X = torch.stack([f(d["hs"]), f(d["ht"])], dim=1)
+    got = tps.qeq_apply(lst, walk, X, f(d["q"])).numpy()
     for k in range(3):
         assert np.abs(got[k] - ref[k]).max() < 3e-4 * max(
             1.0, np.abs(ref[k]).max()), k
