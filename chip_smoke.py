@@ -31,7 +31,8 @@ first failure ends the run with a non-zero exit code and no result line.
      168-atom cell, 5 steps on the card against the float64 CPU run of the
      plain versions;
   5. timing, printed and never checked: atom-steps/s for isQEq=1 and 2, ms
-     per step by phase (CUDA events);
+     per step by phase (the port's device marks under a profiler session,
+     `session_ms`);
   6. program: the port as users run it, at --mc: tools.geninit writes DAT/,
      then `__main__.main` (tests/data/rxmd_chon.in with CLI overrides) runs
      mdmode 5 from rxff.bin with frames in all four formats, restarts from
@@ -118,8 +119,9 @@ first failure ends the run with a non-zero exit code and no result line.
      seconds and probes per iteration, captures, capture ms, replays,
      peak memory, the device idle share of one more iteration by
      torch.profiler with the captures and replays inside it and its
-     kernels with the most device time, an eager probe's device ms by
-     phase (CUDA events) and its aten ops with the most device time, and
+     kernels with the most device time, a graph probe's device ms by
+     phase (`session_ms`) and an eager one's aten ops with the most device
+     time, and
      each configuration's ms per probe.
 
  13. sharded graphs: the sharded engine's programs (ShardedEngine's
@@ -293,6 +295,32 @@ def make_engine(mc, device, dtype="float32", angles=None, lg=False, **cfg):
     kw = dict(dtype=dtype, isQEq=1, pstep=5)
     kw.update(cfg)
     return md.Engine(ff, st, config.RunConfig(**kw), device=device)
+
+
+# the phases the port marks on the device (md.Engine, parallel/engine.py,
+# parallel/comm.py's collectives)
+PHASES = ("pairs", "qeq", "nonbond", "bonded", "rebuild", "halo",
+          "allreduce")
+
+
+def session_ms(fn):
+    """fn() under a torch.profiler session (CPU activity): (its value, the
+    device ms and counts of each of PHASES in it, over every program) from
+    the port's record of the session (rxmd_tpu_torch.utils.timers.
+    last_session: the device's own marks, inside the CUDA graphs as well).
+    fn ends on a read of the port's (a run's end, a rebuild's or a probe's
+    read), after which the marks are read; a wall time fn takes itself
+    leaves out the profiler's start and stop."""
+    from torch.profiler import ProfilerActivity, profile
+    from rxmd_tpu_torch.utils import timers
+    with profile(activities=[ProfilerActivity.CPU]):
+        val = fn()
+    out = {}
+    for (_, name), (ns, n) in timers.last_session()["phases"].items():
+        if name in PHASES:
+            ms, c = out.get(name, (0.0, 0))
+            out[name] = (ms + ns * 1e-6, c + n)
+    return val, out
 
 
 def fresh_peak(device=None):
@@ -662,7 +690,8 @@ def phase_small_reference(seed, nsteps=5):
 
 
 def phase_timing(e, mc, steps, seed):
-    from rxmd_tpu_torch import md
+    """Each charge mode's atom-steps/s, then its device ms per step by
+    phase over as many steps after a rebuild (`session_ms`)."""
     n = e.state.n
     for isq in (1, 2):
         eng = e if isq == 1 else make_engine(mc, DEVICE, isQEq=2)
@@ -675,13 +704,8 @@ def phase_timing(e, mc, steps, seed):
         log(f"isQEq={isq}: {n * steps / wall:.4e} atom-steps/s "
             f"({wall / steps * 1e3:.2f} ms/step over {steps} steps, "
             f"{(int(eng.cg_iters) - it0) / steps:.1f} CG iterations/step)")
-        eng.phases = md.PhaseTimer()
-        eng._rebuild(eng.state)
-        t0 = time.perf_counter()
-        eng.run(steps, log=None)
-        wall = time.perf_counter() - t0
-        ms = eng.phases.ms()
-        eng.phases = None
+        wall, ms = session_ms(lambda: (eng._rebuild(eng.state),
+                                       eng.run(steps, log=None))[1])
         parts = ", ".join(
             f"{k} {v / (c if k == 'rebuild' else steps):.2f}"
             for k, (v, c) in sorted(ms.items()))
@@ -696,9 +720,8 @@ def path_run(mc, device, steps, seed, dtype="float32", angles=None,
     with the launch counts zeroed first.  Returns a dict: the engine, the
     per-step PE components (steps + 1, 14), final positions and shells as
     float64 numpy, and with `timed` the wall ms per step, the device ms
-    per step by phase (CUDA events), one more rebuild's ms, the prepare s
+    per step by phase (`session_ms`), one more rebuild's ms, the prepare s
     and the peak device memory of the run (MB)."""
-    from rxmd_tpu_torch import md
     e = make_engine(mc, device, dtype=dtype, angles=angles, lg=lg, **cfg)
     zero_launches()
     if e.device.type == "cuda":
@@ -710,27 +733,25 @@ def path_run(mc, device, steps, seed, dtype="float32", angles=None,
     comps = [e.prepare().double().cpu().numpy()]
     prep_s = time.perf_counter() - t0
     it0 = int(e.cg_iters)
-    if timed:
-        e.phases = md.PhaseTimer()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        e.run(1, log=None)
-        comps.append(e.comps.double().cpu().numpy())
-    sync()
-    wall = time.perf_counter() - t0
+
+    def loop():
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            e.run(1, log=None)
+            comps.append(e.comps.double().cpu().numpy())
+        sync()
+        return time.perf_counter() - t0
+    wall, ph = session_ms(loop) if timed else (loop(), None)
     res = dict(engine=e, comps=np.array(comps), n=e.state.n,
                pos=e.state.pos.double().cpu().numpy(), prep_s=prep_s,
                spos=e.state.spos.double().cpu().numpy(),
                cg=(int(e.cg_iters) - it0) / steps)
     if timed:
-        ph = e.phases.ms()
-        e.phases = md.PhaseTimer()
-        e._rebuild(e.state)
-        res.update(ms=wall / steps * 1e3, rebuild_ms=e.phases.ms()[
-            "rebuild"][0], phases={k: v / steps for k, (v, _) in ph.items()
-                                   if k != "rebuild"},
-            peak_mb=torch.cuda.max_memory_allocated(e.device) / 2**20)
-        e.phases = None
+        rebuild = session_ms(lambda: e._rebuild(e.state))[1]
+        res.update(ms=wall / steps * 1e3, rebuild_ms=rebuild["rebuild"][0],
+                   phases={k: v / steps for k, (v, _) in ph.items()
+                           if k != "rebuild"},
+                   peak_mb=torch.cuda.max_memory_allocated(e.device) / 2**20)
     check(all(np.isfinite(c).all() for c in comps)
           and np.isfinite(res["pos"]).all(), "finite PE and positions")
     return res
@@ -995,7 +1016,6 @@ def phase_pqeq_lg_program(mc):
 def phase_sharded(mc, seed, steps=5):
     """The sharded engine on the card (see the module docstring, phase 9).
     Every run asserts that no sweep kernel ran."""
-    from rxmd_tpu_torch import md
     from rxmd_tpu_torch.config import RunConfig
     from rxmd_tpu_torch.parallel import comm, dryrun
     from rxmd_tpu_torch.parallel.engine import ShardedEngine
@@ -1022,19 +1042,17 @@ def phase_sharded(mc, seed, steps=5):
             t0 = time.perf_counter()
             comps = [e.prepare().double().cpu().numpy()]
             prep_s = time.perf_counter() - t0
-            e.phases = md.PhaseTimer()
             it0 = int(e.cg_iters)
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                e.run(1, log=None)
-                comps.append(e.comps.double().cpu().numpy())
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / steps * 1e3
-            ph = e.phases.ms()
-            e.phases = md.PhaseTimer()
-            e.rebuild()
-            ph["rebuild"] = e.phases.ms()["rebuild"]
-            e.phases = None
+
+            def loop():
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    e.run(1, log=None)
+                    comps.append(e.comps.double().cpu().numpy())
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / steps * 1e3
+            wall, ph = session_ms(loop)
+            ph["rebuild"] = session_ms(e.rebuild)[1]["rebuild"]
             peak = torch.cuda.max_memory_allocated() / 2**20
             no_sweep(f"sharded isQEq={isq}")
             comps = np.array(comps)
@@ -1724,7 +1742,7 @@ def optimizer_sweep(mc, iters, smi):
     """Phase 12's sweep: `iters` CG iterations with graphs and eagerly
     from one start, then graph probes against eager probes at five of
     the positions the graph run probed."""
-    from rxmd_tpu_torch import md, opt
+    from rxmd_tpu_torch import opt
     runs = {}
     for mode in ("graphs", "eager"):
         t_mode = time.perf_counter()
@@ -1798,13 +1816,11 @@ def optimizer_sweep(mc, iters, smi):
         diffs.append(probe_diff(a, b))
         check_probe_diff(f"optimizer program | sweep probe {i}", diffs[-1],
                          False)
-    # an eager probe's device ms by phase (CUDA events; a PhaseTimer runs
-    # the probe eagerly)
-    e.phases = md.PhaseTimer()
-    for i in picks:
-        e.probe(runs["graphs"]["seen"][i])
-    by = {k: round(ms / c, 2) for k, (ms, c) in e.phases.ms().items()}
-    e.phases = None
+    # a probe's device ms by phase: the device marks of the port's trace
+    # under a profiler session (utils/timers.py), the probe program's graph
+    by = {k: round(ms / c, 2) for k, (ms, c) in session_ms(
+        lambda: [e.probe(runs["graphs"]["seen"][i]) for i in picks])[1]
+        .items()}
     e.graphs = False
     ops = op_profile(lambda: e.probe(runs["graphs"]["seen"][picks[-1]]))
     e.graphs = True
@@ -1827,9 +1843,10 @@ def optimizer_sweep(mc, iters, smi):
             f"most device time (name, ms, calls): {r['top']}; this run "
             f"took {r['t_run']:.1f} s, {r['t_prof']:.1f} s of it the "
             f"profiled iteration with its trace's processing | {smi}")
-    log(f"optimizer program | sweep: an eager probe's ms by phase (CUDA "
-        f"events, {len(picks)} probes): {by}; its aten ops with the most "
-        f"device time (op, input shapes, ms, calls): {ops}")
+    log(f"optimizer program | sweep: a graph probe's device ms by phase "
+        f"(the port's marks, {len(picks)} probes): {by}; an eager probe's "
+        f"aten ops with the most device time (op, input shapes, ms, "
+        f"calls): {ops}")
     log(f"optimizer program | sweep: graph vs eager probe at {len(picks)} "
         f"recorded positions: max PE {worst[0]:.3e}, forces {worst[1]:.3e} "
         f"of max|f|, charges {worst[2]:.3e} e (bounds {TOL_PROBE_PE}, "

@@ -46,6 +46,13 @@ invalidates it).  A failed capture raises; nothing falls back to eager
 mode.  Each part records the kernel launches it holds
 (ops/pairsweep.launches counts them at capture) and adds them to the
 counts at every replay.
+
+Tracing (utils/timers.py): each part begins and ends with a device mark,
+keyed by the program's kind (`timers.program`) and the part's index, the
+CG chunk's under "<kind>.chunk"; every replay logs its launch and its
+cause, and host spans time the carry copy, each part's replay and each
+flag read.  The captures' seconds are kept per program kind, and the
+chunk parts' own.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ import time
 import torch
 
 from .ops import pairsweep
+from .utils import timers as trace
 
 def leaves(x):
     """The tensors of a nest of tuples, NamedTuples and dataclasses."""
@@ -99,10 +107,12 @@ def fill(x, tensors):
 
 @dataclasses.dataclass
 class Part:
-    """One captured graph and the launches it holds; with `fin` a CG loop:
-    replayed up to `extra` times while the flag `fin` is unset."""
+    """One captured graph and the launches it holds, named `label`
+    ("<program kind>.<index>"); with `fin` a CG loop: replayed up to
+    `extra` times while the flag `fin` is unset."""
     graph: torch.cuda.CUDAGraph
     launches: dict
+    label: str
     fin: torch.Tensor = None
     extra: int = 0
 
@@ -114,34 +124,46 @@ class Program:
         self.parts = []
         self.out = None
 
-    def replay(self):
+    def replay(self, after=None):
+        """Replay the parts; `after` names the host span before the
+        dispatch (the first launch's cause, trace.launch)."""
         counts = pairsweep.launches
         for p in self.parts:
             for _ in range(max(p.extra, 1)):
-                if p.fin is not None and bool(p.fin):   # one read a chunk
-                    break
-                p.graph.replay()
+                if p.fin is not None:
+                    with trace.span("CG flag read"):     # one read a chunk
+                        done = bool(p.fin)
+                    if done:
+                        break
+                trace.launch(p.label, after)
+                after = None
+                with trace.span("replay " + p.label):
+                    p.graph.replay()
                 for k, v in p.launches.items():
                     counts[k] += v
 
 
 class _Recorder:
     """Captures a function into a Program's parts, ending a segment at each
-    CG loop (`loop`, qeq.solve's hook)."""
+    CG loop (`loop`, qeq.solve's hook); each part between its marks."""
 
-    def __init__(self, prog, pool):
-        self.prog, self.pool = prog, pool
+    def __init__(self, prog, cache):
+        self.prog, self.cache = prog, cache
 
     def begin(self):
         self.graph = torch.cuda.CUDAGraph()
         self.held = dict(pairsweep.launches)
-        self.graph.capture_begin(pool=self.pool)
+        self.graph.capture_begin(pool=self.cache.pool)
+        self.name = f"part {len(self.prog.parts)}"
+        trace.mark(self.name, 0)
 
     def end(self, **loop):
+        trace.mark(self.name, 1)
         self.graph.capture_end()
         counts = pairsweep.launches
+        label = f"{trace.program_kind()}.{len(self.prog.parts)}"
         self.prog.parts.append(Part(self.graph, {
-            k: counts[k] - self.held[k] for k in counts}, **loop))
+            k: counts[k] - self.held[k] for k in counts}, label, **loop))
         counts.update(self.held)          # a capture launches nothing
 
     def loop(self, chunk, carry, nchunks):
@@ -149,10 +171,15 @@ class _Recorder:
         if nchunks == 1:
             return carry
         self.end()
-        self.begin()
-        for a, b in zip(carry, chunk(carry)):
-            a.copy_(b)
-        self.end(fin=carry.fin, extra=nchunks - 1)
+        t0 = time.perf_counter()
+        kind, device = trace.program_kind(), self.cache.device
+        with trace.program(f"{kind}.chunk", device):
+            self.begin()
+            for a, b in zip(carry, chunk(carry)):
+                a.copy_(b)
+            self.end(fin=carry.fin, extra=nchunks - 1)
+        n, secs = self.cache.last_chunks
+        self.cache.last_chunks = (n + 1, secs + time.perf_counter() - t0)
         self.begin()
         return carry
 
@@ -172,6 +199,10 @@ class GraphCache:
         self.carries = {}      # carry signature -> buffers
         self.captures = self.replays = 0
         self.capture_s = 0.0
+        # the CG chunk parts of the last capture, and their seconds
+        # (within capture_s)
+        self.last_chunks = (0, 0.0)
+        trace.ring(self.device)        # the marks' ring, before any capture
 
     def run(self, key, fn, window, carry, window_id):
         """fn(window, carry, loop) through the program of `key` (see the
@@ -185,6 +216,7 @@ class GraphCache:
         return out
 
     def _run(self, key, fn, window, carry, window_id):
+        after = trace.last_closed()
         wkey, ckey = signature(window), signature(carry)
         key = (key, wkey, ckey)
         prog = self.programs.get(key)
@@ -192,35 +224,40 @@ class GraphCache:
             self.seen.add(key)
             return fn(window, carry, None)
         wbuf = self._window(wkey, window, window_id)
-        cbuf = self.carries.get(ckey)
-        if cbuf is None:
-            cbuf = self.carries[ckey] = [t.clone() for t in leaves(carry)]
-        for b, t in zip(cbuf, leaves(carry)):
-            b.copy_(t)
+        with trace.span("carry copy"):
+            cbuf = self.carries.get(ckey)
+            if cbuf is None:
+                cbuf = self.carries[ckey] = [t.clone()
+                                             for t in leaves(carry)]
+            for b, t in zip(cbuf, leaves(carry)):
+                b.copy_(t)
         if prog is None:
             t0 = time.perf_counter()
-            prog = self._capture(fn, fill(window, iter(wbuf)),
-                                 fill(carry, iter(cbuf)))
+            with trace.span("capture"):
+                prog = self._capture(fn, fill(window, iter(wbuf)),
+                                     fill(carry, iter(cbuf)))
             self.programs[key] = prog
             self.captures += 1
             self.capture_s += time.perf_counter() - t0
-        prog.replay()
+        prog.replay(after)
         self.replays += 1
         return fill(prog.out, (t.clone() for t in leaves(prog.out)))
 
     def _capture(self, fn, window, carry):
         """fn over the static inputs, captured into a Program."""
         prog = Program()
-        rec = _Recorder(prog, self.pool)
+        rec = _Recorder(prog, self)
+        self.last_chunks = (0, 0.0)
         # no garbage collection while capturing: a graph that the
         # collector frees during a capture (an engine dropped in a
         # reference cycle) invalidates the capture
         collecting = gc.isenabled()
         gc.disable()
         try:
-            rec.begin()
-            prog.out = fn(window, carry, rec.loop)
-            rec.end()
+            with trace.capturing():
+                rec.begin()
+                prog.out = fn(window, carry, rec.loop)
+                rec.end()
         finally:
             if collecting:
                 gc.enable()

@@ -38,7 +38,7 @@ budget.  A step is a function of its inputs (`_step_fn`, a block
 `_multi_step`), which on a card every configuration runs as CUDA graphs
 (graphs.py; `uses_graphs`), the CG's chunks (QEq's and PQEq's) read by
 the host in between (qeq.py); the CPU, the sweep's plain versions, and
-runs with `graphs` off or a PhaseTimer run the same functions eagerly.
+runs with `graphs` off run the same functions eagerly.
 A step reads nothing on the host: the lists it builds itself (the
 tightened neighbor lists, the uncached terms' lists, the sweep's QEq
 list) have fixed capacities, and their counts come out with the step for
@@ -55,10 +55,17 @@ at their full capacities, the sweep's slot layout and its walk's
 candidates), a CUDA graph on a card in a cache of its own, its counts and
 the steps' pending ones read in one transfer, the lists then cut to the
 window's buckets on the host.
+
+Tracing (utils/timers.py): each dispatch names its program ("prepare",
+"step", "block", "probe", "rebuild") for the device marks of the phases
+"pairs", "qeq", "nonbond", "bonded" and "rebuild" (and reax's inside
+"bonded"); host spans time the host loop's parts, a block's dispatch
+apart from its end read, the rebuild's and the probe's dispatch, read and
+checks.  While a profiler session records, the marks are read after the
+block end, rebuild, probe and run end reads.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import time
@@ -73,6 +80,7 @@ from .ffield import ForceField, effective_maxrc
 from .io import refbin, traj
 from .ops import pairsweep
 from .system import State
+from .utils import timers as trace
 from .utils.timers import RunProfile, Timers
 
 
@@ -305,28 +313,6 @@ def probe_capacities(ff: ForceField, state: State, ffd, rctap,
     return kb, knb, caps
 
 
-class PhaseTimer:
-    """Device time per named phase from CUDA events; `ms()` synchronizes
-    and returns the summed milliseconds and call counts per phase."""
-
-    def __init__(self):
-        self.events = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self.events.setdefault(name, []).append((start, end))
-
-    def ms(self):
-        torch.cuda.synchronize()
-        return {k: (sum(s.elapsed_time(e) for s, e in v), len(v))
-                for k, v in self.events.items()}
-
-
 def _pair_engine(cfg: RunConfig, closed_form, H, n, rctap, lg=False):
     """The nonbond and QEq pair engine of a configuration (see the module
     docstring): where rxmd_tpu routes, except that pair_kernel=None takes
@@ -493,8 +479,6 @@ class Engine:
         # drift-monitor polling cadence: each poll is a device->host read
         self.drift_check_from = 4
         self.drift_check_every = 2
-        # per-phase CUDA-event timing: set to a PhaseTimer to record
-        self.phases = None
 
         # spring restraints toward the initial configuration
         # (ref: SpringForce pot.F90:95-110, ipos init.F90:231-232)
@@ -509,10 +493,6 @@ class Engine:
         # per-phase host wall-clock accounting (ref: it_timer
         # module.F90:215-217, FinalizeMD report main.F90:128-186)
         self.timers = Timers()
-
-    def _phase(self, name):
-        return (contextlib.nullcontext() if self.phases is None
-                else self.phases(name))
 
     # ------------------------------------------------------------------
     def _build_nbrs(self, pos, H, types, counts=None):
@@ -547,7 +527,7 @@ class Engine:
         pair-list engine the pair context and, with the tables, its table
         rows (as reax.pair_rows gives them); nothing for the dense forms
         or PQEq, whose pair terms walk the list themselves."""
-        with self._phase("pairs"):
+        with trace.phase("pairs"):
             if self.pair_engine == "sweep":
                 return self._make_pair_ops(pos, s.H, s.types, sm, qcap,
                                            s.gid)
@@ -682,7 +662,7 @@ class Engine:
         if isqeq == 0:
             return q, qsfp, qsfv, 0, spos
         if self.pq is not None:
-            with self._phase("qeq"):
+            with trace.phase("qeq"):
                 qn, spos_n, iters, _ = pqeq.solve(
                     pos, spos, q, qsfp, s.H, s.types, self.img, nbrs,
                     self.ffd, self.pq, isqeq=isqeq, nmax=cfg.NMAXQEq,
@@ -697,7 +677,7 @@ class Engine:
         if self.pair_engine == "ell":
             ctx, rows = pairs
             pre = (ctx, None, None) if rows is None else (ctx, *rows)
-        with self._phase("qeq"):
+        with trace.phase("qeq"):
             res = qeq.solve(pos, q, qsfp, s.types, self.ffd,
                             pairs if sweep else None, isqeq=isqeq,
                             nmax=cfg.NMAXQEq, tol=cfg.QEq_tol,
@@ -718,11 +698,11 @@ class Engine:
         Uncached terms enumerate exact lists, raising at once on an
         overflow, or with `counts` (a dict) lists of the engine's
         capacities, their counts left in it (reax.energy_components)."""
-        with self._phase("nonbond"):
+        with trace.phase("nonbond"):
             ext_nb = self._external_nonbond(pos, q, s, pairs, with_virial)
         ctx = pairs[0] if pairs is not None and self.pair_engine == "ell" \
             else None
-        with self._phase("bonded"):
+        with trace.phase("bonded"):
             return reax.energy_and_forces(
                 pos, q, s.H, s.types, s.gid, self.img, nbrs, self.ffd,
                 lists, with_virial=with_virial, external_nonbond=ext_nb,
@@ -847,7 +827,7 @@ class Engine:
         pos0, H, types, gid, hinv = carry
         counts = {}
         lists = sm = None
-        with self._phase("rebuild"):
+        with trace.phase("rebuild"):
             pos = self._wrap(pos0, H, hinv)
             nbrs = self._build_nbrs(pos, H, types, counts)
             z = nbrs.cntb.new_zeros(())
@@ -897,36 +877,42 @@ class Engine:
         if self._hinv is None or self._hinv[0] is not H:
             self._hinv = (H, torch.linalg.inv(H))
         carry = RebuildIn(s.pos, H, s.types, s.gid, self._hinv[1])
-        if self.uses_graphs():
-            if self._rebuild_graphs is None:
-                self._rebuild_graphs = graphs.GraphCache(self.device)
-            out = self._run_graph(
-                self._rebuild_graphs, "rebuild",
-                lambda _, c, loop: self._rebuild_fn(c), (), carry, 0)
-        else:
-            out = self._rebuild_fn(carry)
-        vals = torch.cat([out.counts.double()] + [
-            t.double() for t in self._pending()]).tolist()
-        self._check_lists(vals[len(REBUILD_COUNTS):])
-        got = dict(zip(REBUILD_COUNTS, (int(v) for v in vals)))
-        self._check_grids(got)
-        self.timers.peak("bonded nbr list", got["kb"], self.kb)
-        self.timers.peak("nonbonded nbr list", got["knb"], self.knb)
-        lists = out.lists
-        if lists is not None:
-            names = ("ang", "tor", "hbf")
-            cnts = [got[nm] for nm in names]
-            caps = [lst.valid.shape[0] for lst in lists]
-            err = self._list_overflow(names, cnts, caps)
-            if err:
-                raise RuntimeError(err)
-            for name, c, cap in zip(("angle list", "torsion list",
-                                     "hbond list"), cnts, caps):
-                self.timers.peak(name, c, cap)
-            lists = tuple(_trim(lst, self._size(nm, c, cap)) for lst, nm, c,
-                          cap in zip(lists, names, cnts, caps))
-        if out.sm is not None:
-            self._qcap = self._size("qeq list", got["qeq"])
+        tm = self.timers
+        tm.count("rebuilds", 1)
+        with trace.span("dispatch"), trace.program("rebuild", self.device):
+            if self.uses_graphs():
+                if self._rebuild_graphs is None:
+                    self._rebuild_graphs = graphs.GraphCache(self.device)
+                out = self._run_graph(
+                    self._rebuild_graphs, "rebuild",
+                    lambda _, c, loop: self._rebuild_fn(c), (), carry, 0)
+            else:
+                out = self._rebuild_fn(carry)
+        with trace.span("read"):
+            vals = torch.cat([out.counts.double()] + [
+                t.double() for t in self._pending()]).tolist()
+        trace.drain()
+        with trace.span("checks"):
+            self._check_lists(vals[len(REBUILD_COUNTS):])
+            got = dict(zip(REBUILD_COUNTS, (int(v) for v in vals)))
+            self._check_grids(got)
+            tm.peak("bonded nbr list", got["kb"], self.kb)
+            tm.peak("nonbonded nbr list", got["knb"], self.knb)
+            lists = out.lists
+            if lists is not None:
+                names = ("ang", "tor", "hbf")
+                cnts = [got[nm] for nm in names]
+                caps = [lst.valid.shape[0] for lst in lists]
+                err = self._list_overflow(names, cnts, caps)
+                if err:
+                    raise RuntimeError(err)
+                for name, c, cap in zip(("angle list", "torsion list",
+                                         "hbond list"), cnts, caps):
+                    tm.peak(name, c, cap)
+                lists = tuple(_trim(lst, self._size(nm, c, cap)) for lst,
+                              nm, c, cap in zip(lists, names, cnts, caps))
+            if out.sm is not None:
+                self._qcap = self._size("qeq list", got["qeq"])
         self.nbrs, self.tlists, self._slotmap = out.nbrs, lists, out.sm
         self.state = dataclasses.replace(s, pos=out.pos)
         self._pos_ref = out.pos
@@ -1028,18 +1014,20 @@ class Engine:
         (ref: main.F90:27-32)."""
         self._rebuild(self.state)
         s = self.state
-        nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
-        pairs = self._pair_data(s.pos, s, nbrs, self._slotmap, self._qcap)
-        # cold-start extended Lagrangian: one full CG solve seeds the
-        # fictitious charge DOF
-        isq = 1 if self.cfg.isQEq == 2 else None
-        q, qsfp, qsfv, nq, spos = self._qeq_step(
-            s.pos, s.q, s.qsfp, s.qsfv, s, nbrs, pairs, isqeq=isq,
-            spos=s.spos)
-        if self.cfg.isQEq == 2:
-            qsfp, qsfv = q, torch.zeros_like(qsfv)
-        comps, f = self._forces(s.pos, q, s, nbrs, self.tlists, pairs, False,
-                                spos)
+        with trace.program("prepare", self.device):
+            nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
+            pairs = self._pair_data(s.pos, s, nbrs, self._slotmap,
+                                    self._qcap)
+            # cold-start extended Lagrangian: one full CG solve seeds the
+            # fictitious charge DOF
+            isq = 1 if self.cfg.isQEq == 2 else None
+            q, qsfp, qsfv, nq, spos = self._qeq_step(
+                s.pos, s.q, s.qsfp, s.qsfv, s, nbrs, pairs, isqeq=isq,
+                spos=s.spos)
+            if self.cfg.isQEq == 2:
+                qsfp, qsfv = q, torch.zeros_like(qsfv)
+            comps, f = self._forces(s.pos, q, s, nbrs, self.tlists, pairs,
+                                    False, spos)
         self.state = dataclasses.replace(s, q=q, qsfp=qsfp, qsfv=qsfv,
                                          spos=spos)
         self.force = f
@@ -1151,11 +1139,11 @@ class Engine:
 
     def uses_graphs(self):
         """Whether dispatches run as CUDA graphs: on a card, for every
-        configuration, unless `graphs` is off, a PhaseTimer is set (its
-        events cannot time the inside of a graph) or the sweep's plain
-        versions run (they read counts on the host)."""
+        configuration, unless `graphs` is off or the sweep's plain
+        versions run (they read counts on the host); tracing leaves them
+        on (its marks are the device's own)."""
         return (self.graphs and self.device.type == "cuda"
-                and self.phases is None and not self.plain_sweeps)
+                and not self.plain_sweeps)
 
     @torch.no_grad()
     def _advance(self, K):
@@ -1172,15 +1160,17 @@ class Engine:
         # the host's step count stays out of the program (and its key)
         carry = (dataclasses.replace(self.state, step=0), self.force,
                  self._astr)
-        if self.uses_graphs():
-            if self._graphs is None:
-                self._graphs = graphs.GraphCache(self.device)
-            out = self._run_graph(self._graphs, (pattern, self._qcap),
-                                  functools.partial(self._block_fn, pattern,
-                                                    self._qcap),
-                                  window, carry, self._window_id)
-        else:
-            out = self._block_fn(pattern, self._qcap, window, carry, None)
+        with trace.program("step" if K == 1 else "block", self.device):
+            if self.uses_graphs():
+                if self._graphs is None:
+                    self._graphs = graphs.GraphCache(self.device)
+                out = self._run_graph(
+                    self._graphs, (pattern, self._qcap),
+                    functools.partial(self._block_fn, pattern, self._qcap),
+                    window, carry, self._window_id)
+            else:
+                out = self._block_fn(pattern, self._qcap, window, carry,
+                                     None)
         self.state = dataclasses.replace(out.state, step=s0 + K)
         self.force, self.comps, self.nqeq, self._ke = (
             out.force, out.comps, out.nq, out.ke)
@@ -1196,14 +1186,21 @@ class Engine:
 
     def _run_graph(self, cache, key, fn, window, carry, window_id):
         """cache.run(...) (graphs.GraphCache), its captures, capture
-        seconds and replays added to the timers."""
+        seconds and replays added to the timers: in all, and by the kind
+        of the program dispatched (trace.program) and of the CG chunk
+        parts captured in it ("chunk", seconds within the program's)."""
         caps, secs, reps = cache.captures, cache.capture_s, cache.replays
         out = cache.run(key, fn, window, carry, window_id)
-        self.timers.count("graph replays", cache.replays - reps)
+        tm = self.timers
+        tm.count("graph replays", cache.replays - reps)
         if cache.captures > caps:
-            self.timers.count("graph captures", cache.captures - caps)
-            self.timers.add("graph capture", cache.capture_s - secs,
-                            cache.captures - caps)
+            n, dt = cache.captures - caps, cache.capture_s - secs
+            for name, k, sec in (("", n, dt),
+                                 (f": {trace.program_kind()}", n, dt),
+                                 (": chunk", *cache.last_chunks)):
+                if k:
+                    tm.count("graph captures" + name, k)
+                    tm.add("graph capture" + name, sec, k)
         return out
 
     # ------------------------------------------------------------------
@@ -1224,7 +1221,7 @@ class Engine:
         s, hinv, qcap = carry
         counts = {}
         sweep = self.pair_engine == "sweep"
-        with self._phase("rebuild"):
+        with trace.phase("rebuild"):
             pos = self._wrap(s.pos, s.H, hinv)
             nbrs = self._build_nbrs(pos, s.H, s.types, counts)
             rows = [nbrs.cntb.max(), nbrs.cntnb.max()]
@@ -1256,33 +1253,43 @@ class Engine:
         window's lists are (`_size`); a probe whose list outgrows that
         capacity grows it and runs again.  `hinv`: H^-1 (else inverted
         here)."""
+        with self.timers("probe"):
+            return self._probe(pos, hinv)
+
+    def _probe(self, pos, hinv):
         s = dataclasses.replace(self.state, pos=pos, step=0)
         hinv = torch.linalg.inv(s.H) if hinv is None else hinv
         sweep = self.pair_engine == "sweep"
+        tm = self.timers
         while True:
             qcap = self._sizes.get("probe qeq list") if sweep else None
             carry = ProbeIn(s, hinv, qcap)
-            if self.uses_graphs() and not (sweep and qcap is None):
-                if self._probe_graphs is None:
-                    self._probe_graphs = graphs.GraphCache(self.device)
-                out = self._run_graph(
-                    self._probe_graphs, "probe",
-                    lambda _, c, loop: self._probe_fn(c, loop), (), carry, 0)
-            else:
-                out = self._probe_fn(carry)
+            tm.count("probes", 1)
+            with trace.span("dispatch"), trace.program("probe", self.device):
+                if self.uses_graphs() and not (sweep and qcap is None):
+                    if self._probe_graphs is None:
+                        self._probe_graphs = graphs.GraphCache(self.device)
+                    out = self._run_graph(
+                        self._probe_graphs, "probe",
+                        lambda _, c, loop: self._probe_fn(c, loop), (),
+                        carry, 0)
+                else:
+                    out = self._probe_fn(carry)
             self.cg_iters = self.cg_iters + out.nq
             self.qeq_solves += 1
-            pe, *vals = torch.cat([out.pe[None].double(),
-                                   out.counts.double()]).tolist()
-            got = dict(zip(PROBE_COUNTS, (int(v) for v in vals)))
-            self._check_probe(got)
+            with trace.span("read"):
+                pe, *vals = torch.cat([out.pe[None].double(),
+                                       out.counts.double()]).tolist()
+            trace.drain()
+            with trace.span("checks"):
+                got = dict(zip(PROBE_COUNTS, (int(v) for v in vals)))
+                self._check_probe(got)
             if sweep and (qcap is None or got["qeq"] > qcap):
                 self._size("probe qeq list", got["qeq"])
                 if qcap is not None:
-                    self.timers.count("probe QEq list regrowths", 1)
+                    tm.count("probe QEq list regrowths", 1)
                     continue
             break
-        tm = self.timers
         tm.peak("bonded nbr list", got["kb"], self.kb)
         tm.peak("nonbonded nbr list", got["knb"], self.knb)
         tm.peak("angle list", got["ang"], self.caps["ang"])
@@ -1346,8 +1353,13 @@ class Engine:
                 self.init_velocity(seed=stepno)
                 self._vmax = None
             if stepno % cfg.pstep == 0:
-                nq = int(self.nqeq)
-                tm.count("QEq iterations", nq)
+                nq = self.nqeq
+                if isinstance(nq, torch.Tensor):
+                    # one read: this step's CG iterations and the sum
+                    with trace.span("QEq count read"):
+                        nq, total = torch.stack([
+                            nq.to(torch.int64), self.cg_iters]).tolist()
+                    tm.counters["QEq iterations"] = total
                 if log:
                     with tm("PRINTE"):
                         log(self.printe_line())
@@ -1359,10 +1371,12 @@ class Engine:
             # drift check: a block's running maximum (read at its end), or
             # the single steps' lazy poll
             ssr = self._steps_since_rebuild
-            drifted = (self._maxdr2_dev is not None
-                       and ssr >= self.drift_check_from
-                       and ssr % self.drift_check_every == 0
-                       and float(self._maxdr2_dev) ** 0.5 > trig)
+            drifted = False
+            if (self._maxdr2_dev is not None
+                    and ssr >= self.drift_check_from
+                    and ssr % self.drift_check_every == 0):
+                with trace.span("drift poll"):
+                    drifted = float(self._maxdr2_dev) ** 0.5 > trig
             if self._last_maxdr is not None and self._last_maxdr > trig:
                 drifted = True
             if ssr >= self.rebuild_every or drifted:
@@ -1374,31 +1388,34 @@ class Engine:
 
             # steps to the next host boundary (print, frame, redraw,
             # rebuild cadence, run end), then the drift budget
-            nb = nsteps - k
-            nb = min(nb, cfg.pstep - stepno % cfg.pstep)
-            if writer is not None:
-                nb = min(nb, cfg.fstep - stepno % cfg.fstep)
-            if cfg.mdmode in (0, 6):
-                nb = min(nb, cfg.sstep - stepno % cfg.sstep)
-            nb = min(nb, self.rebuild_every - self._steps_since_rebuild)
-            if self._vmax is None and nb >= self.block_steps > 1:
-                # no velocity bound yet (start or redraw): one read
-                self._vmax = float(torch.max(torch.sum(
-                    self.state.vel * self.state.vel, dim=1))) ** 0.5
-            if self._vmax is not None and self._vmax > 0.0:
-                room = trig - (self._last_maxdr or 0.0)
-                budget = int(room / (1.25 * self._vmax * self.dt))
-                nb = min(nb, max(budget, 1))
+            with trace.span("schedule"):
+                nb = nsteps - k
+                nb = min(nb, cfg.pstep - stepno % cfg.pstep)
+                if writer is not None:
+                    nb = min(nb, cfg.fstep - stepno % cfg.fstep)
+                if cfg.mdmode in (0, 6):
+                    nb = min(nb, cfg.sstep - stepno % cfg.sstep)
+                nb = min(nb, self.rebuild_every - self._steps_since_rebuild)
+                if self._vmax is None and nb >= self.block_steps > 1:
+                    # no velocity bound yet (start or redraw): one read
+                    self._vmax = float(torch.max(torch.sum(
+                        self.state.vel * self.state.vel, dim=1))) ** 0.5
+                if self._vmax is not None and self._vmax > 0.0:
+                    room = trig - (self._last_maxdr or 0.0)
+                    budget = int(room / (1.25 * self._vmax * self.dt))
+                    nb = min(nb, max(budget, 1))
 
             if nb >= self.block_steps > 1:
                 with tm("MD block (dispatch)"):
                     out = self._advance(self.block_steps)
+                with tm("MD block (end read)"):
                     # one read: the block's drift, max v^2, QEq list and
                     # capacity counts
                     vals = [out.maxdr2[None], out.vmax2[None]] \
                         + self._pending()
                     mdr, vmax2, *pend = torch.cat(
                         [v.double() for v in vals]).tolist()
+                    trace.drain()
                     self._check_lists(pend)
                 self._last_maxdr = mdr ** 0.5
                 self._vmax = vmax2 ** 0.5
@@ -1410,9 +1427,11 @@ class Engine:
                 nadv = 1
             k += nadv
             tm.count("MD steps", nadv)
-        self._check_lists()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with trace.span("run end"):
+            self._check_lists()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        trace.drain()
         wall = time.perf_counter() - t0
         tm.add("MD loop (wall)", wall, nsteps)
         if profile is not None:
@@ -1438,9 +1457,13 @@ class Engine:
 
     def summary(self):
         """What runs (`describe`), then the end-of-run per-phase timing /
-        occupancy / memory report (ref: FinalizeMD main.F90:128-186)."""
-        return [self.describe()] + self.timers.summary_lines(
-            device=self.device)
+        occupancy / memory report (ref: FinalizeMD main.F90:128-186), its
+        "QEq iterations" the sum over every solve (`cg_iters`, one read),
+        and the last profiler session's table (utils.timers)."""
+        self.timers.counters["QEq iterations"] = int(self.cg_iters)
+        return ([self.describe()]
+                + self.timers.summary_lines(device=self.device)
+                + trace.session_lines())
 
     # ------------------------------------------------------------------
     @torch.no_grad()

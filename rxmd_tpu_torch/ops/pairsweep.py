@@ -799,31 +799,33 @@ def _nvcc():
                             "bin", "nvcc")
         path = cand if os.path.exists(cand) else None
     if path is None:
-        raise RuntimeError("nvcc not found: the pair-sweep kernels are "
-                           "built from csrc/pairsweep.cu at first use")
+        raise RuntimeError("nvcc not found: the port's kernels are built "
+                           "from csrc/ at first use")
     return path
 
 
-def build(force: bool = False, verbose: bool = False):
-    """Compile csrc/pairsweep.cu into build/rxmd_tpu_torch (keyed by a hash
-    of the source and flags) unless that library exists or `force`; returns
-    its path, the seconds spent compiling (0.0 when it was already built)
-    and nvcc's messages (with `verbose`, ptxas's registers, shared memory
-    and spills of each kernel: -Xptxas -v, which leaves the binary as it
+def build(force: bool = False, verbose: bool = False, src: str = _SRC):
+    """Compile `src` (csrc/pairsweep.cu, or another source of csrc/ with a
+    plain C interface) into build/rxmd_tpu_torch (keyed by a hash of the
+    source and flags) unless that library exists or `force`; returns its
+    path, the seconds spent compiling (0.0 when it was already built) and
+    nvcc's messages (with `verbose`, ptxas's registers, shared memory and
+    spills of each kernel: -Xptxas -v, which leaves the binary as it
     is)."""
-    with open(_SRC, "rb") as fh:
+    with open(src, "rb") as fh:
         key = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode())
-    so = os.path.join(_BUILD_DIR, f"libpairsweep_{key.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(_BUILD_DIR, f"lib{stem}_{key.hexdigest()[:16]}.so")
     if os.path.exists(so) and not force:
         return so, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     flags = _NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *flags, "-o", tmp, _SRC],
+    res = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
     os.replace(tmp, so)
     return so, time.perf_counter() - t0, res.stderr
 

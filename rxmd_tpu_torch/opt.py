@@ -19,6 +19,10 @@ maxima are reduced over the mesh, the CG vectors migrate with their atoms
 between iterations (MigrateVec3D, ref: cg.F90:292-314) and a probe may
 move an atom at most half the Verlet skin, so the probe's fresh halo
 plan stays complete (rxmd_tpu opt.py:67-90).
+
+Host spans (utils/timers.py): each iteration's "line search" (the
+bracket and the golden section, their probes inside) and "direction",
+and every read of a dot product or a norm.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .utils import timers as trace
 
 GOLD = 0.5 * (np.sqrt(5.0) - 1.0)
 
@@ -50,11 +56,13 @@ class _MDAdapter:
 
     @staticmethod
     def dot(a, b):
-        return float(torch.sum(a * b))
+        with trace.span("dot read"):
+            return float(torch.sum(a * b))
 
     @staticmethod
     def max_norm(p):
-        return float(torch.max(torch.linalg.norm(p, dim=-1)))
+        with trace.span("norm read"):
+            return float(torch.max(torch.linalg.norm(p, dim=-1)))
 
     @staticmethod
     def resync(pos, g, p):
@@ -85,11 +93,13 @@ class _ShardedAdapter:
         self.drift_limit = 0.5 * engine.skin_nb
 
     def dot(self, a, b):
-        return float(self.engine.comm.psum(torch.sum(a * b)))
+        with trace.span("dot read"):
+            return float(self.engine.comm.psum(torch.sum(a * b)))
 
     def max_norm(self, p):
-        return float(self.engine.comm.pmax(
-            torch.max(torch.linalg.norm(p, dim=-1))))
+        with trace.span("norm read"):
+            return float(self.engine.comm.pmax(
+                torch.max(torch.linalg.norm(p, dim=-1))))
 
     def positions(self):
         return self.engine.cg_positions()
@@ -181,13 +191,15 @@ def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
         return b
 
     for it in range(max_iter):
-        pmax = ad.max_norm(p)
-        b = bracket(pos, p, pe, g, pmax)
+        with trace.span("line search"):
+            pmax = ad.max_norm(p)
+            b = bracket(pos, p, pe, g, pmax)
+            if b is not None:
+                alpha = golden(pos, p, b, pmax)
         if b is None:
             if log:
                 log(f"no bracket found at iter {it}; at a minimum")
             break
-        alpha = golden(pos, p, b, pmax)
         pos = pos + alpha * p
         # atoms and the CG vectors move to their new domains before the
         # next evaluation (the identity on one device)
@@ -204,10 +216,11 @@ def conjugate_gradient(engine, max_iter: int = 500, ftol: float = None,
             if log:
                 log(f"Energy converged at iter {it}")
             break
-        b1 = ad.dot(g_old, g_old)
-        b2 = ad.dot(g, g)
-        b3 = ad.dot(g, g_old)
-        p = (b2 - b3) / b1 * p + g          # ref: cg.F90:82-89
+        with trace.span("direction"):
+            b1 = ad.dot(g_old, g_old)
+            b2 = ad.dot(g, g)
+            b3 = ad.dot(g, g_old)
+            p = (b2 - b3) / b1 * p + g      # ref: cg.F90:82-89
 
     ad.commit(pos, q)
     return pe

@@ -31,13 +31,14 @@ variables rxmd_tpu's multi-host launch reads (rxmd_tpu/__main__.py:21-29).
 """
 from __future__ import annotations
 
-import contextlib
 import datetime
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils import timers as trace
 
 ENV_COORDINATOR = "RXMD_COORDINATOR"
 ENV_NUM_PROCESSES = "RXMD_NUM_PROCESSES"
@@ -132,9 +133,6 @@ class Comm:
                 f"{ENV_COORDINATOR}=host:port {ENV_NUM_PROCESSES}={ndom} "
                 f"{ENV_PROCESS_ID}=0..{ndom - 1}")
         self.coords = block_coords(self.rank, self.mesh_shape)
-        # phase observer: a callable name -> context manager (the engine's
-        # PhaseTimer spans), None for none
-        self.phase = None
 
     def neighbor(self, axis: int, d: int) -> int:
         """Rank of the face neighbor at offset d along `axis` (periodic)."""
@@ -142,16 +140,11 @@ class Comm:
         c[axis] = (c[axis] + d) % self.mesh_shape[axis]
         return block_index(c, self.mesh_shape)
 
-    def span(self, name):
-        """The observer's span `name`, or no span."""
-        return contextlib.nullcontext() if self.phase is None \
-            else self.phase(name)
-
     def psum(self, x):
         """Sum of x over all ranks (bitwise equal on every rank)."""
         if not self.grouped:
             return x
-        with self.span("allreduce"):
+        with trace.phase("allreduce"):
             x = x.clone()
             dist.all_reduce(x, op=dist.ReduceOp.SUM)
         return x
@@ -159,7 +152,7 @@ class Comm:
     def pmax(self, x):
         if not self.grouped:
             return x
-        with self.span("allreduce"):
+        with trace.phase("allreduce"):
             x = x.clone()
             dist.all_reduce(x, op=dist.ReduceOp.MAX)
         return x

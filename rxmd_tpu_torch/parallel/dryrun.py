@@ -360,6 +360,7 @@ class HostGraphs(GraphCache):
         self.window = (None, None, None)
         self.captures = self.replays = 0
         self.capture_s = 0.0
+        self.last_chunks = (0, 0.0)
 
     run = GraphCache._run             # no stream to order against
 
@@ -377,7 +378,7 @@ class _Rerun:
     def __init__(self, fn, window, carry):
         self.fn, self.window, self.carry, self.out = fn, window, carry, None
 
-    def replay(self):
+    def replay(self, after=None):
         self.out = self.fn(self.window, self.carry, None)
 
 

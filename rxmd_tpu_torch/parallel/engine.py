@@ -43,7 +43,6 @@ the same on every rank, so a rebuild within them keeps the programs.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import time
@@ -59,6 +58,7 @@ from ..md import (CAP_NAMES, MDMODES, Engine as MDEngine, _max_or,
                   _over_vector, _skinned_cutoffs, _trim, probe_capacities)
 from ..neighbors import _select_k
 from ..system import State, make_state
+from ..utils import timers as trace
 from ..utils.timers import Timers
 from . import halo
 from .comm import Comm, device_for_rank, world
@@ -399,12 +399,9 @@ class ShardedEngine:
         self.sstate = distribute(state0, self.mesh_shape, ncap).block(
             comm.rank, ncap, device)
         self.step_count = self.step0
-        self.cg_iters = 0
+        # CG iterations summed over every solve (on the device)
+        self.cg_iters = torch.zeros((), dtype=torch.int64, device=device)
         self.timers = Timers()
-        # per-phase CUDA-event timing: set to an md.PhaseTimer to record;
-        # "halo" and "allreduce" spans sit inside the others
-        self.phases = None
-        comm.phase = self._phase
         # the programs (graphs.GraphCache, on a card): steps, blocks and
         # prepare in one cache, the optimizer's probes in their own
         self.graphs = True
@@ -414,10 +411,6 @@ class ShardedEngine:
         self._rebuild_graphs = None
         self._window_id = 0
         self._over = None     # the steps' uncached-term counts, unchecked
-
-    def _phase(self, name):
-        return (contextlib.nullcontext() if self.phases is None
-                else self.phases(name))
 
     # ------------------------------------------------------------------
     def _migrate(self, s: ShardedState, extras: dict = None):
@@ -577,7 +570,7 @@ class ShardedEngine:
         can hold it with its sends, receives and all-reduce."""
         s, rows, ccap = carry
         ncap, dev = self.ncap, self.device
-        with self._phase("rebuild"):
+        with trace.phase("rebuild"):
             frac = torch.where(s.valid[:, None], torch.remainder(s.frac, 1.0),
                                0.0)
             s, _, mig_max, lost = self._migrate(dataclasses.replace(
@@ -685,11 +678,15 @@ class ShardedEngine:
             carry = RebuildIn(self.sstate,
                               self._sizes.get("ghost rows", 6 * self.bcap),
                               self.grid.ccap)
-            out = self._dispatch(
-                "_rebuild_graphs", "rebuild",
-                lambda _, c, loop: self._rebuild_fn(c), (), carry, 0)
-            vals = [int(v) for v in torch.cat(
-                [out.diag.double()] + pend).tolist()]
+            self.timers.count("rebuilds", 1)
+            with trace.span("dispatch"):
+                out = self._dispatch(
+                    "_rebuild_graphs", "rebuild",
+                    lambda _, c, loop: self._rebuild_fn(c), (), carry, 0)
+            with trace.span("read"):
+                vals = [int(v) for v in torch.cat(
+                    [out.diag.double()] + pend).tolist()]
+            trace.drain()
             d = vals[:len(REBUILD_COUNTS)]
             if pend:
                 self._check_lists(vals[len(d):])
@@ -756,7 +753,7 @@ class ShardedEngine:
 
         ctx = rows_pre = None
         if self.pq is None:
-            with self._phase("pairs"):
+            with trace.phase("pairs"):
                 ctx = reax.nb_ctx(pos_rel, None, self.Hg, tex, img, nbrs, gex,
                                   resident_ext, ffd)
                 if not self.closed_form:
@@ -768,7 +765,7 @@ class ShardedEngine:
         q_new = s.q
         nq = torch.zeros((), dtype=torch.int32, device=dev)
         if isqeq and do_qeq:
-            with self._phase("qeq"):
+            with trace.phase("qeq"):
                 if self.pq is not None:
                     qn, sp, nq, _ = pqeq.solve(
                         pos_rel, refresh(s.spos), s.q, s.qsfp, self.Hg, tex,
@@ -805,7 +802,7 @@ class ShardedEngine:
         frac_res = s.frac.detach().requires_grad_(True)
         eps = torch.zeros((3, 3), dtype=dtype, device=dev,
                           requires_grad=True)
-        with self._phase("bonded"), torch.enable_grad():
+        with trace.phase("bonded"), torch.enable_grad():
             strain = torch.eye(3, dtype=dtype, device=dev) + eps
             fx = refresh(frac_res, is_frac=True)
             pr = ((fx - self.mylo) @ self.Hg.T) @ strain.T
@@ -821,7 +818,7 @@ class ShardedEngine:
         # derivative: summed over the domains once, below
         parts = [comps_l.detach(), -ge.reshape(-1)]
         if ctx is not None:
-            with self._phase("nonbond"):
+            with trace.phase("nonbond"):
                 ctx = ctx._replace(qj=q_ext[ctx.idx])
                 evdw, eclmb, echarge, f_nb, w_nb = \
                     reax.nonbond_ctx_energy_forces(
@@ -934,23 +931,27 @@ class ShardedEngine:
     # hold them with their collectives; `_dispatch` runs them.
     def uses_graphs(self):
         """Whether the programs run as CUDA graphs: on a card, for every
-        configuration, unless `graphs` is off or a PhaseTimer is set (its
-        events cannot time the inside of a graph)."""
-        return (self.graphs and self.device.type == "cuda"
-                and self.phases is None)
+        configuration, unless `graphs` is off; tracing leaves them on
+        (its marks are the device's own, utils/timers.py)."""
+        return self.graphs and self.device.type == "cuda"
 
     _run_graph = MDEngine._run_graph
 
     def _dispatch(self, cache, key, fn, window, carry, window_id):
         """fn(window, carry, loop) through the GraphCache named `cache`
         where `uses_graphs()` (every rank dispatches the same keys in the
-        same order, so their collectives pair up), else eagerly."""
-        if not self.uses_graphs():
-            return fn(window, carry, None)
-        if getattr(self, cache) is None:
-            setattr(self, cache, graphs.GraphCache(self.device))
-        return self._run_graph(getattr(self, cache), key, fn, window, carry,
-                               window_id)
+        same order, so their collectives pair up), else eagerly; the
+        device marks inside are keyed by the program's kind: `key` where
+        it is a name, else "step" or "block" (`_advance`'s (K, do_qeq))."""
+        kind = key if isinstance(key, str) else \
+            "step" if key[0] == 1 else "block"
+        with trace.program(kind, self.device):
+            if not self.uses_graphs():
+                return fn(window, carry, None)
+            if getattr(self, cache) is None:
+                setattr(self, cache, graphs.GraphCache(self.device))
+            return self._run_graph(getattr(self, cache), key, fn, window,
+                                   carry, window_id)
 
     def _prep_fn(self, window: Window, carry, loop):
         """prepare's force evaluation (rxmd_tpu's prep_block,
@@ -1113,7 +1114,12 @@ class ShardedEngine:
                 self.init_velocity(seed=stepno)
                 self._vmax = None
             if stepno % cfg.pstep == 0:
-                tm.count("QEq iterations", int(self.nqeq))
+                # one read: this step's CG iterations and their sum
+                with trace.span("QEq count read"):
+                    _, total = torch.stack([torch.as_tensor(
+                        self.nqeq, device=self.device).to(torch.int64),
+                        self.cg_iters]).tolist()
+                tm.counters["QEq iterations"] = total
                 if log:
                     with tm("PRINTE"):
                         log(self.printe_line())
@@ -1152,11 +1158,13 @@ class ShardedEngine:
             if nb >= self.block_steps > 1:
                 with tm("MD block (dispatch)"):
                     out = self._advance(self.block_steps)
+                with tm("MD block (end read)"):
                     # one read: the drift, max v^2, residents, list counts
                     pend = [] if self._over is None else [self._over]
                     mdr, vmax2, nat, *over = torch.cat(
                         [out.stats[:2], out.natoms.reshape(1).double()]
                         + pend).tolist()
+                    trace.drain()
                     if int(nat) != self.n:
                         raise RuntimeError(
                             f"atom count changed: {int(nat)} != {self.n}")
@@ -1171,9 +1179,11 @@ class ShardedEngine:
                 nadv = 1
             k += nadv
             tm.count("MD steps", nadv)
-        self._check_lists()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with trace.span("run end"):
+            self._check_lists()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        trace.drain()
         wall = time.perf_counter() - t0
         tm.add("MD loop (wall)", wall, nsteps)
         self.check_atom_count()
@@ -1214,7 +1224,7 @@ class ShardedEngine:
         s, pos, rows, brows, ccap = carry
         s = dataclasses.replace(s, frac=torch.where(
             s.valid[:, None], pos @ self.Hi.T, 0.0))
-        with self._phase("rebuild"):
+        with trace.phase("rebuild"):
             block, _, ghost, near, occ = self._window_rows(s, rows, brows,
                                                            ccap)
         counts = {}
@@ -1247,12 +1257,17 @@ class ShardedEngine:
                             sz.get("probe ghost rows", self.ghost_cap),
                             sz.get("probe bond rows", self.bond_cap),
                             self.grid.ccap)
-            out = self._dispatch(
-                "_probe_graphs", "probe",
-                lambda _, c, loop: self._probe_fn(c, loop), (), carry, 0)
+            self.timers.count("probes", 1)
+            with trace.span("dispatch"):
+                out = self._dispatch(
+                    "_probe_graphs", "probe",
+                    lambda _, c, loop: self._probe_fn(c, loop), (), carry,
+                    0)
             self.cg_iters = self.cg_iters + out.nq
-            pe, *vals = torch.cat([out.pe[None].double(),
-                                   out.counts.double()]).tolist()
+            with trace.span("read"):
+                pe, *vals = torch.cat([out.pe[None].double(),
+                                       out.counts.double()]).tolist()
+            trace.drain()
             got = dict(zip(PROBE_COUNTS, (int(v) for v in vals)))
             self._check_diag([0, 0, got["halo"], got["kb"], got["knb"]])
             self._check_over(got)
@@ -1410,8 +1425,12 @@ class ShardedEngine:
                 f"{'as CUDA graphs' if self.uses_graphs() else 'eager'}")
 
     def summary(self):
-        return [self.describe()] + self.timers.summary_lines(
-            device=self.device)
+        """md.Engine.summary's report: "QEq iterations" the sum over every
+        solve (`cg_iters`, one read), the last profiler session's table."""
+        self.timers.counters["QEq iterations"] = int(self.cg_iters)
+        return ([self.describe()]
+                + self.timers.summary_lines(device=self.device)
+                + trace.session_lines())
 
     # ------------------------------------------------------------------
     def bond_table(self, st: State, bo_cutoff=0.3):

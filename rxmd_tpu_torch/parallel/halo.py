@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..neighbors import _select_k
+from ..utils import timers as trace
 
 # phase table: (axis index, direction)
 PHASES = ((0, +1), (0, -1), (1, +1), (1, -1), (2, +1), (2, -1))
@@ -154,7 +155,7 @@ class _ApplyPlan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ext):
-        with ctx.comm.span("halo"):
+        with trace.phase("halo"):
             g = _backward(g_ext, ctx.plan, ctx.spec, ctx.comm)
         return g, None, None, None, None
 
@@ -163,7 +164,7 @@ def apply_plan(plan: HaloPlan, x, spec: HaloSpec, comm, is_frac=False):
     """Push per-atom data (ncap, ...) through the saved plan, returning the
     extended tensor (ncap + 6*bcap, ...).  Differentiable in x: the
     backward is the reverse exchange and scatter-add (MODE_CPBK)."""
-    with comm.span("halo"):
+    with trace.phase("halo"):
         if x.requires_grad:
             return _ApplyPlan.apply(x, plan, spec, comm, is_frac)
         return _forward(x, plan, spec, comm, is_frac)

@@ -27,6 +27,7 @@ import torch
 from . import units
 from .ffield import ForceField, build_tables
 from .neighbors import ImageTable, Neighbors, ext_positions
+from .utils import timers as trace
 
 
 @dataclasses.dataclass
@@ -1601,34 +1602,46 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
     if amask is None:
         amask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
     al, tl, hl = lists if lists is not None else (None, None, None)
-    bo = bond_order(pos, H, types, img, nbrs, ffd)
-    lp = lone_pair(types, bo.delta, ffd)
-    ebond = e_bond(types, img, nbrs, bo, gid, amask, ffd)
-    elp, eover, eunder = e_lnpr(types, img, nbrs, bo, lp, amask, ffd)
+    # a device mark at each term's ends (utils/timers.py): the forward's
+    # time by term
+    with trace.phase("E:bond order"):
+        bo = bond_order(pos, H, types, img, nbrs, ffd)
+        lp = lone_pair(types, bo.delta, ffd)
+    with trace.phase("E:bond"):
+        ebond = e_bond(types, img, nbrs, bo, gid, amask, ffd)
+    with trace.phase("E:lone pair, over/under"):
+        elp, eover, eunder = e_lnpr(types, img, nbrs, bo, lp, amask, ffd)
     capped = counts is not None
-    eval_, epen, ecoa = e_3body(pos, H, types, img, nbrs, bo, lp, amask,
-                                ffd, al, ks=caps["ks"],
-                                cap=caps["ang"] if capped else None,
-                                counts=counts)
-    etors, econj = e_4body(pos, H, types, img, nbrs, bo, amask, gid, ffd, tl,
-                           ks=caps["ks"], cap=caps["tor"] if capped else None,
-                           rowcap=caps["tor_row"] if capped else 0,
-                           counts=counts)
-    if hl is not None:
-        ehb = e_hbond_list(pos, H, types, img, nbrs, bo, hl, ffd)
-    else:
-        if ctx is None:
-            ctx = nb_ctx(pos, None, H, types, img, nbrs, gid, amask, ffd)
-        ehb = e_hbond(pos, H, types, img, nbrs, bo, amask, ffd,
-                      cap=caps["hb"], kh=caps["kh"], ctx=ctx, counts=counts)
+    with trace.phase("E:3-body"):
+        eval_, epen, ecoa = e_3body(pos, H, types, img, nbrs, bo, lp, amask,
+                                    ffd, al, ks=caps["ks"],
+                                    cap=caps["ang"] if capped else None,
+                                    counts=counts)
+    with trace.phase("E:4-body"):
+        etors, econj = e_4body(pos, H, types, img, nbrs, bo, amask, gid, ffd,
+                               tl, ks=caps["ks"],
+                               cap=caps["tor"] if capped else None,
+                               rowcap=caps["tor_row"] if capped else 0,
+                               counts=counts)
+    with trace.phase("E:hbond"):
+        if hl is not None:
+            ehb = e_hbond_list(pos, H, types, img, nbrs, bo, hl, ffd)
+        else:
+            if ctx is None:
+                ctx = nb_ctx(pos, None, H, types, img, nbrs, gid, amask, ffd)
+            ehb = e_hbond(pos, H, types, img, nbrs, bo, amask, ffd,
+                          cap=caps["hb"], kh=caps["kh"], ctx=ctx,
+                          counts=counts)
     z = torch.zeros_like(ebond)
     evdw = eclmb = echarge = z
-    if include_nonbond and pq is not None:
-        evdw, eclmb, echarge = e_nonbond_pqeq(pos, spos, q, H, types, img,
-                                              nbrs, gid, amask, ffd, pq)
-    elif include_nonbond:
-        evdw, eclmb, echarge = e_nonbond(pos, q, H, types, img, nbrs, gid,
-                                         amask, ffd)
+    with trace.phase("E:nonbond"):
+        if include_nonbond and pq is not None:
+            evdw, eclmb, echarge = e_nonbond_pqeq(pos, spos, q, H, types,
+                                                  img, nbrs, gid, amask, ffd,
+                                                  pq)
+        elif include_nonbond:
+            evdw, eclmb, echarge = e_nonbond(pos, q, H, types, img, nbrs,
+                                             gid, amask, ffd)
     comps = torch.stack([z, ebond, elp, eover, eunder, eval_, epen, ecoa,
                          etors, econj, ehb, evdw, eclmb, echarge])
     return torch.cat([comps[1:].sum()[None], comps[1:]])
@@ -1667,19 +1680,25 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
               spos=spos, counts=counts,
               include_nonbond=not use_fast and external_nonbond is None)
     p = pos.detach().requires_grad_(True)
+    # device marks around the forward and the backward (utils/timers.py)
     with torch.enable_grad():
         if with_virial:
-            eps = torch.zeros((3, 3), dtype=pos.dtype, device=pos.device,
-                              requires_grad=True)
-            strain = torch.eye(3, dtype=pos.dtype, device=pos.device) + eps
-            comps = energy_components(p @ strain.T, q, strain @ H, types,
-                                      gid, img, nbrs, ffd, **kw)
-            gp, ge = torch.autograd.grad(comps[0], (p, eps))
+            with trace.phase("forward"):
+                eps = torch.zeros((3, 3), dtype=pos.dtype, device=pos.device,
+                                  requires_grad=True)
+                strain = torch.eye(3, dtype=pos.dtype,
+                                   device=pos.device) + eps
+                comps = energy_components(p @ strain.T, q, strain @ H, types,
+                                          gid, img, nbrs, ffd, **kw)
+            with trace.phase("backward"):
+                gp, ge = torch.autograd.grad(comps[0], (p, eps))
             w = -ge
         else:
-            comps = energy_components(p, q, H, types, gid, img, nbrs, ffd,
-                                      **kw)
-            (gp,) = torch.autograd.grad(comps[0], (p,))
+            with trace.phase("forward"):
+                comps = energy_components(p, q, H, types, gid, img, nbrs,
+                                          ffd, **kw)
+            with trace.phase("backward"):
+                (gp,) = torch.autograd.grad(comps[0], (p,))
     comps = comps.detach()
     f = -gp
     if use_fast:

@@ -207,15 +207,18 @@ def test_no_host_read_inside_the_probe(prepared, guard, monkeypatch, name):
 
 def test_graphs_on_a_card_for_every_configuration(prepared, monkeypatch):
     """uses_graphs() holds for every configuration on a card, with graphs
-    on and no PhaseTimer; off for the CPU, graphs off, a PhaseTimer or
-    the sweep's plain versions."""
+    on, and stays on while a profiler session records (the trace's marks
+    are the device's own); off for the CPU, graphs off or the sweep's
+    plain versions."""
+    from torch.profiler import ProfilerActivity, profile
     for name in GUARD_CONFIGS:
         e = prepared(name)
         assert not e.uses_graphs()                  # the CPU
         monkeypatch.setattr(e, "device", torch.device("cuda"))
         assert e.uses_graphs(), name
-        for attr, value in (("graphs", False), ("phases", tmd.PhaseTimer()),
-                            ("plain_sweeps", True)):
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert e.uses_graphs(), name
+        for attr, value in (("graphs", False), ("plain_sweeps", True)):
             monkeypatch.setattr(e, attr, value)
             assert not e.uses_graphs(), (name, attr)
             monkeypatch.undo()
