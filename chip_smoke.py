@@ -22,6 +22,10 @@ first failure ends the run with a non-zero exit code and no result line.
      the apply with q and without timed in turns in one call, and the
      apply beside torch.sparse.mm over the same list, with their ratio
      (scripts/qeq_apply_forms.py times other forms of the apply);
+     then the hydrogen-bond kernel (csrc/hbond.cu, `phase_hbond`) on the
+     pair-list engine's lists at --mc against hbond_plain, timed beside
+     its bound, its plain version and the autograd grid it replaced, and
+     launched by the pair-list steps and by a probe of the sweep;
   4. slice: prepare + --steps NVE steps with full-CG QEq (isQEq=1), PRINTE
      lines (every step, so each step is a single-step dispatch, a CUDA
      graph after its key's first use); launch counts: nonbond once a step,
@@ -186,6 +190,7 @@ RXMD_PQEQ_IN = os.path.join(DATA, "rxmd_chon_pqeq.in")
 SOURCE = "rxmd_tpu_torch/csrc/pairsweep.cu"
 REPLACES = "rxmd_tpu/ops/pairsweep.py:289"
 KERNELS = ("nonbond", "qeq_build", "qeq_apply")
+HB_SOURCE = "rxmd_tpu_torch/csrc/hbond.cu"
 
 # kernel vs plain sweep, float32, same candidate pairs, other summation
 # order: the bars of tests/test_pairsweep.py (energy sums 2e-3 relative,
@@ -203,6 +208,13 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # pair body; the hessian element of qeq_build_kernel; qeq_apply_kernel's
 # three products and sums and the image weight
 OPS_NONBOND, OPS_QEQ_BUILD, OPS_QEQ_APPLY = 101, 27, 7
+# operations per (donor, H, acceptor) entry of csrc/hbond.cu's inner body,
+# counted the same way (the energy, dE/dBO0 and the three gradients)
+OPS_HBOND = 100
+# the hydrogen-bond kernel against hbond_plain, float32 on the card: the
+# same entries (both gate on the same rounded distance), summed in another
+# order and with atomics
+TOL_HB = 1e-4
 # per-step total energy of the kernel run against the plain-sweep run on
 # the card: both float32, so they part only through summation order and
 # CG stops; at 1e-4 relative that is ~10x above the float32 noise of a
@@ -580,6 +592,138 @@ def phase_kernels(engine, seed):
             f"us/call, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.1%} of it), library {lib}")
     return res
+
+
+def phase_hbond(mc, smi):
+    """The hydrogen-bond kernel (csrc/hbond.cu) at the main path's shapes:
+    the pair-list engine with uncached terms at --mc in float32 (the
+    benchmark's pair-list cells; every probe runs the same term).  Its
+    ptxas report; the kernel against hbond_plain on the card with dE/dH
+    (the MD step's form) and without (the probe's): energy, dE/dpos,
+    dE/dBO0 and dE/dH within TOL_HB of their largest magnitude; device ms
+    of each form (graph_ms) beside the bound, the plain version, and the
+    autograd grid it replaced (reax.e_hbond over the pair context: its
+    forward as a step ran it, and forward + backward beside the kernel's
+    forward + backward); then 3 steps of that engine and one probe of the
+    sweep engine, each launching the kernel.  Returns the kernel's
+    record."""
+    from rxmd_tpu_torch import reax, units
+    from rxmd_tpu_torch.ops import hbond as hb
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    so, secs, msgs = ps.build(force=True, verbose=True, src=hb._SRC)
+    log(f"build: nvcc {HB_SOURCE} -> {os.path.relpath(so, REPO)} in "
+        f"{secs:.1f} s")
+    for line in msgs.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "stack frame")):
+            log(f"  ptxas: {line.strip()}")
+    e = make_engine(mc, DEVICE, term_cache=False, dense_direct_max=0)
+    check(e.pair_engine == "ell", f"pair list engine ({e.pair_engine})")
+    e._rebuild(e.state)
+    s, nbrs, img, ffd = e.state, e.nbrs, e.img, e.ffd
+    n, N = nbrs.center_rows, s.n
+    amask = torch.ones(N, dtype=torch.bool, device=s.pos.device)
+    bo = reax.bond_order(s.pos, s.H, s.types, img, nbrs, ffd)
+    tab, hcnt = reax.hbond_tables(s.pos, s.types, img, nbrs, bo, amask, ffd,
+                                  e.caps["kh"])
+    bo0 = bo.bo[:n, :, 0].contiguous()
+    n0 = hb.launches["hbond"]
+    got = hb.hbond(s.pos, s.H, bo0, tab, want_dh=True)
+    torch.cuda.synchronize()
+    check(hb.launches["hbond"] == n0 + 1, "hbond: one launch")
+    ref = hb.hbond_plain(s.pos, s.H, bo0, tab, want_dh=True)
+    err = abs(float(got[0] - ref[0])) / abs(float(ref[0]))
+    check(err <= TOL_HB, f"hbond energy within {TOL_HB} ({err:.3e})")
+    for a, b, what in zip(got[1:], ref[1:], ("dE/dpos", "dE/dBO", "dE/dH")):
+        rel = float((a - b).abs().max() / b.abs().max())
+        check(bool(torch.isfinite(a).all()) and rel <= TOL_HB,
+              f"hbond {what} within {TOL_HB} of its max ({rel:.3e})")
+        err = max(err, rel)
+
+    # the work: donors with a hydrogen, (donor, H, acceptor) entries
+    # that pass the gates (j != k left out: an upper count), and the
+    # bytes each input and output needs once
+    knb, kb = tab.idxnb.shape[1], tab.hmask.shape[1]
+    k = tab.idxnb.clamp(min=0)
+    d = s.pos[:n, None, :] - (s.pos[k % tab.nown] + tab.shift[k] @ s.H.T)
+    r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[
+        ..., 2]
+    acc = ((tab.idxnb >= 0) & (r2 < units.RCHB2) & (tab.inxn3hb[
+        tab.types[:n, None], tab.h_type, tab.types[k % tab.nown]] >= 0))
+    donors = tab.hmask.any(dim=1)
+    nd, nh = int(donors.sum()), int(tab.hmask.sum())
+    entries = int((acc.sum(dim=1) * hcnt).sum())
+    ext = tab.idxnb[donors]
+    uniq = int(torch.unique(ext[ext >= 0]).numel())
+    del d, r2, acc, k, ext
+    nbytes = (8 * knb * nd + n * kb + (8 + 4) * nh + (4 * 3 + 8) * N
+              + 4 * 3 * uniq + 4 * n + 4 * 3 * N + 4 * n * kb)
+    bms, by = bound(nbytes, entries * OPS_HBOND)
+    log(f"hbond work: {n} donor rows, {nd} with a hydrogen ({nh} "
+        f"donor-H pairs, at most {int(hcnt.max())} a donor), {entries} "
+        f"entries within rchb; bytes: {8 * knb * nd} of the donors' "
+        f"nonbonded rows (knb {knb}), {nbytes} in all")
+
+    ms = graph_ms(lambda: hb.hbond(s.pos, s.H, bo0, tab, want_dh=True), 20)
+    ms_probe = graph_ms(lambda: hb.hbond(s.pos, s.H, bo0, tab), 20)
+    plain_ms = cuda_ms(lambda: hb.hbond_plain(s.pos, s.H, bo0, tab, True), 3)
+    ctx = reax.nb_ctx(s.pos, None, s.H, s.types, img, nbrs, s.gid, amask,
+                      ffd)
+    p = s.pos.detach().requires_grad_(True)
+    bo_g = reax.bond_order(p, s.H, s.types, img, nbrs, ffd)
+
+    def grid_forward():
+        with torch.enable_grad():
+            return reax.e_hbond(p, s.H, s.types, img, nbrs, bo_g, amask, ffd,
+                                kh=tab.kh, ctx=ctx)
+    grid_ms = cuda_ms(grid_forward, 5)
+    bo_l = bo._replace(bo=bo.bo.detach().requires_grad_(True))
+    leaf0 = bo0.detach().requires_grad_(True)
+
+    def grid_both():
+        with torch.enable_grad():
+            return torch.autograd.grad(reax.e_hbond(
+                p, s.H, s.types, img, nbrs, bo_l, amask, ffd, kh=tab.kh,
+                ctx=ctx), (p, bo_l.bo))
+
+    def kernel_both():
+        with torch.enable_grad():
+            return torch.autograd.grad(hb.HBondEnergy.apply(
+                p, s.H, leaf0, tab), (p, leaf0))
+    grid_both_ms = cuda_ms(grid_both, 5)
+    kernel_both_ms = cuda_ms(kernel_both, 20)
+    log(f"kernel hbond: max rel err {err:.3e}; {ms * 1e3:.1f} us/launch "
+        f"device time with dE/dH (the MD step's form), {ms_probe * 1e3:.1f} "
+        f"without (the probe's) (graph_ms, the zeroed buffer and the "
+        f"energy's sum included), bound {bms * 1e3:.2f} us ({by}, "
+        f"{nbytes} bytes, {entries * OPS_HBOND} operations; "
+        f"{bms / ms:.1%} of it); plain {plain_ms:.3f} ms; the autograd "
+        f"grid's forward {grid_ms:.3f} ms, forward + backward "
+        f"{grid_both_ms:.3f} ms against the kernel's {kernel_both_ms:.3f} "
+        f"ms (cuda_ms) | {smi}")
+
+    # the kernel on the engines' paths
+    zero = dict(hb.launches)
+    e.init_velocity(seed=1)
+    e.prepare()
+    e.run(3, log=None)
+    torch.cuda.synchronize()
+    md_launches = hb.launches["hbond"] - zero["hbond"]
+    check(md_launches > 0, "hbond launched by the pair-list steps")
+    sw = make_engine(mc, DEVICE)
+    sw.prepare()
+    zero = dict(hb.launches)
+    sw.probe(sw.state.pos.clone())
+    torch.cuda.synchronize()
+    probe_launches = hb.launches["hbond"] - zero["hbond"]
+    check(probe_launches > 0, "hbond launched by a probe of the sweep")
+    log(f"hbond launches: {md_launches} in prepare + 3 steps of the pair "
+        f"list (graphs: counted at eager runs and captures), "
+        f"{probe_launches} in a probe of the sweep")
+    del e, sw
+    torch.cuda.empty_cache()
+    return dict(max_rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=grid_ms)
 
 
 def live_records(lst):
@@ -1183,8 +1327,7 @@ def row_layout_cost(e):
                                   e.ffd)
                 comps = reax.energy_components(
                     pr, q_ext, e.Hg, tex, gex, img, nbrs, e.ffd, lists,
-                    amask=amask, caps=e.caps, include_nonbond=False,
-                    ctx=ctx)
+                    amask=amask, caps=e.caps, include_nonbond=False)
                 (g,) = torch.autograd.grad(comps[0], (frac_res,))
             ctx = ctx._replace(qj=q_ext[ctx.idx])
             ev, ec, ech, f_nb, _ = reax.nonbond_ctx_energy_forces(
@@ -2426,6 +2569,7 @@ def main():
 
     mc = tuple(args.mc)
     e, kres, launches = phase_slice(mc, args.steps, args.seed)
+    hres = phase_hbond(mc, smi)
     phase_small_reference(args.seed)
     phase_timing(e, mc, args.steps, args.seed)
     del e
@@ -2442,7 +2586,9 @@ def main():
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches[name], **kres[name]}
-        for name in KERNELS]}
+        for name in KERNELS] + [
+        {"name": "hbond", "route": "cuda", "source": HB_SOURCE,
+         "replaces": "none (the autograd grid of reax.e_hbond)", **hres}]}
     log(json.dumps(rec))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

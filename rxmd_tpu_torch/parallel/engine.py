@@ -809,7 +809,7 @@ class ShardedEngine:
             comps_l = reax.energy_components(
                 pr, q_ext, strain @ self.Hg, tex, gex, img, nbrs, ffd,
                 lists, amask=resident_ext, caps=self.caps,
-                include_nonbond=self.pq is not None, ctx=ctx, pq=self.pq,
+                include_nonbond=self.pq is not None, pq=self.pq,
                 spos=spos_ext, counts=counts if lists is None else None)
             g, ge = torch.autograd.grad(comps_l[0], (frac_res, eps))
         # d E / d pos = dE/dfrac Hi  (pos = frac H^T)

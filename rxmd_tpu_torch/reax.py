@@ -27,6 +27,7 @@ import torch
 from . import units
 from .ffield import ForceField, build_tables
 from .neighbors import ImageTable, Neighbors, ext_positions
+from .ops import hbond as hbond_op
 from .utils import timers as trace
 
 
@@ -1475,6 +1476,50 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     return torch.sum(torch.where(valid, pehb, 0.0))
 
 
+def hbond_tables(pos, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
+                 kh: int = 6):
+    """The hydrogen bonds' inputs that carry no gradient
+    (`hbond_op.HBondTables`) and each donor's count of hydrogens: bonded
+    slots of type h_type with BO0 > MINBO0 on a live donor.  Donors:
+    `nbrs.center_rows`."""
+    n = nbrs.center_rows
+    maskb = bo.mask[:n]
+    idxb = nbrs.idxb[:n]
+    tj = types[img.owner_of(torch.where(maskb, idxb, 0))]
+    hmask = (maskb & (tj == ffd.h_type)
+             & (bo.bo[:n, :, 0].detach() > units.MINBO0) & amask[:n, None])
+    tab = hbond_op.HBondTables(
+        shift=img.shift.to(pos.dtype), types=types, idxb=idxb.contiguous(),
+        hmask=hmask.contiguous(), idxnb=nbrs.idxnb.contiguous(),
+        inxn3hb=ffd.inxn3hb, hbprm=ffd.hbprm, h_type=int(ffd.h_type),
+        nown=img.n_own, kh=min(kh, idxb.shape[1]),
+        cos_bound=_cos_bound(pos.dtype))
+    return tab, hmask.sum(dim=1)
+
+
+def e_hbond_rows(pos, H, types, img, nbrs, bo: BondOrder, amask,
+                 ffd: FFDev, kh: int = 6, counts=None):
+    """Hydrogen-bond energy without a cached list (ref: pot.F90:587-665),
+    e_hbond's grid semantics in one pass over the donors' nonbonded rows
+    (ops/hbond.py: the CUDA kernel on a card, its plain version on the
+    CPU), differentiable in pos, H and the bond orders through the
+    gradients it returns (`hbond_op.HBondEnergy`).  A donor with more
+    hydrogens than `kh` raises, where rxmd_tpu drops them; with `counts` (a
+    dict) their maximum goes to counts["kh"] instead, a device tensor the
+    caller holds against the cap.  Donors: `nbrs.center_rows`."""
+    if ffd.hbprm.shape[0] == 0:
+        return torch.zeros((), dtype=pos.dtype, device=pos.device)
+    tab, hcnt = hbond_tables(pos, types, img, nbrs, bo, amask, ffd, kh)
+    if counts is not None:
+        _count(counts, "kh", hcnt.max())
+    elif int(hcnt.max()) > tab.kh:
+        raise RuntimeError(f"hbond overflow: {int(hcnt.max())} hydrogens on "
+                           f"one donor > kh={tab.kh} (raise caps['kh'])")
+    bo0 = bo.bo[:nbrs.center_rows, :, 0]
+    return hbond_op.HBondEnergy.apply(pos.contiguous(), H.contiguous(),
+                                      bo0.contiguous(), tab)
+
+
 def _table_lerp(tbl, b, dr2, udr, udri, mask):
     """r^2-indexed linear interpolation of one table (ref:
     pot.F90:729-743), differentiable in dr2."""
@@ -1575,22 +1620,22 @@ def e_nonbond_pqeq(pos, spos, q, H, types, img, nbrs, gid, amask,
 # ----------------------------------------------------------------------------
 
 # the uncached terms' capacities: candidate bonds ("ks") and hydrogens
-# ("kh") per center, and the per-donor entries of e_hbond's compacted mode
-DEFAULT_CAPS = {"ks": 12, "kh": 6, "hb": 64}
+# ("kh") per center
+DEFAULT_CAPS = {"ks": 12, "kh": 6}
 
 
 def energy_components(pos, q, H, types, gid, img: ImageTable,
                       nbrs: Neighbors, ffd: FFDev, lists=None, amask=None,
-                      caps=None, include_nonbond=True, ctx=None, pq=None,
+                      caps=None, include_nonbond=True, pq=None,
                       spos=None, counts=None):
     """All potential-energy components as a (14,) vector in the
     reference's PE slot convention (ref: module.F90:143-146):
       0=total 1=Ebond 2=Elp 3=Eover 4=Eunder 5=Eval 6=Epen 7=Ecoa
       8=Etors 9=Econj 10=Ehb 11=Evdw 12=Eclmb 13=Echarge
     over the cached (angle, torsion, hbond) `lists`, or over per-call
-    enumeration where `lists` is None (`caps` "ks", "kh", "hb"; the
-    hydrogen bonds on the pair context `ctx`, built here if not given):
-    exact lists, raising at once on an overflow of ks, kh or hb; or, with
+    enumeration where `lists` is None (`caps` "ks", "kh"; the hydrogen
+    bonds in one pass over the donors' rows, `e_hbond_rows`):
+    exact lists, raising at once on an overflow of ks or kh; or, with
     `counts` (a dict), lists of the fixed capacities caps "ang", "tor"
     and "tor_row", as rxmd_tpu builds them, and every count and candidate
     maximum left in `counts` as a device tensor (no host read; the caller
@@ -1627,11 +1672,8 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
         if hl is not None:
             ehb = e_hbond_list(pos, H, types, img, nbrs, bo, hl, ffd)
         else:
-            if ctx is None:
-                ctx = nb_ctx(pos, None, H, types, img, nbrs, gid, amask, ffd)
-            ehb = e_hbond(pos, H, types, img, nbrs, bo, amask, ffd,
-                          cap=caps["hb"], kh=caps["kh"], ctx=ctx,
-                          counts=counts)
+            ehb = e_hbond_rows(pos, H, types, img, nbrs, bo, amask, ffd,
+                               kh=caps["kh"], counts=counts)
     z = torch.zeros_like(ebond)
     evdw = eclmb = echarge = z
     with trace.phase("E:nonbond"):
@@ -1676,7 +1718,7 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
         amask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
     if ctx is None and use_fast:
         ctx = nb_ctx(pos, q, H, types, img, nbrs, gid, amask, ffd)
-    kw = dict(lists=lists, amask=amask, caps=caps, ctx=ctx, pq=pq,
+    kw = dict(lists=lists, amask=amask, caps=caps, pq=pq,
               spos=spos, counts=counts,
               include_nonbond=not use_fast and external_nonbond is None)
     p = pos.detach().requires_grad_(True)

@@ -1,5 +1,6 @@
-"""rxmd_tpu_torch's CUDA pair kernels against their plain PyTorch
-versions, on a card (every case skips without one).
+"""rxmd_tpu_torch's CUDA kernels (the pair kernels and the hydrogen-bond
+kernel) against their plain PyTorch versions, on a card (every case skips
+without one).
 
 This file imports no jax, so it also runs where jax is not installed;
 tests/conftest.py imports jax, so there run it as
@@ -19,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from rxmd_tpu_torch import config, ffield, md, system
+from rxmd_tpu_torch import config, ffield, md, neighbors, reax, system
+from rxmd_tpu_torch.ops import hbond as hb
 from rxmd_tpu_torch.ops import pairsweep as ps
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -279,3 +281,127 @@ def test_pqeq_and_lg_step_on_the_card(what):
         assert bool(torch.isfinite(e.state.spos).all())
         pe[dev] = float(e.comps[0])
     assert abs(pe["cuda"] - pe["cpu"]) <= 1e-4 * abs(pe["cpu"])
+
+
+# ----------------------------------------------------------------------
+# the hydrogen-bond kernel (csrc/hbond.cu) against its plain version
+
+def _hbond_deck(mc, dtype, device):
+    """The cell replicated `mc` on `device`: positions, box, types, image
+    table, neighbor lists (built in float64, then held) and force field
+    in `dtype`, and the hydrogen cap."""
+    ff = ffield.parse_ffield(FF)
+    st = system.from_cellfile(CELL, ff.name_to_type, mc=mc, device=device)
+    ffd = reax.ffdev_from(ff, device=device)
+    kb, knb, caps = md.probe_capacities(ff, st, ffd, 10.0, skin=0.4)
+    nimg = neighbors.nimg_for_cutoff(st.H.cpu().numpy(), 10.4)
+    img64 = neighbors.make_image_table(st.n, nimg, torch.float64, device)
+    rc2b, rctap2 = md._skinned_cutoffs(ffd, 10.0, 0.4)
+    nbrs = md._build(st, img64, md._cell_grid(ff, st, img64, 0.4, 10.0),
+                     rc2b, rctap2, kb, knb)
+    img = neighbors.make_image_table(st.n, nimg, dtype, device)
+    return dict(pos=st.pos.to(dtype), H=st.H.to(dtype), types=st.types,
+                img=img, nbrs=nbrs, ffd=reax.ffdev_from(ff, dtype=dtype,
+                                                        device=device),
+                amask=torch.ones(st.n, dtype=torch.bool, device=device),
+                kh=caps["kh"])
+
+
+def _hbond_inputs(d):
+    bo = reax.bond_order(d["pos"], d["H"], d["types"], d["img"], d["nbrs"],
+                         d["ffd"])
+    tab, _ = reax.hbond_tables(d["pos"], d["types"], d["img"], d["nbrs"],
+                               bo, d["amask"], d["ffd"], d["kh"])
+    return tab, bo.bo[:d["nbrs"].center_rows, :, 0].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mc", [(1, 1, 1), (4, 4, 3)], ids=["168", "8064"])
+def test_hbond_kernel_matches_plain(mc, dtype):
+    """The kernel against `hbond_plain` on the same CUDA tensors, with
+    dE/dH and without, one launch each: the energy, dE/dpos, dE/dBO0 and
+    dE/dH within 1e-4 (float32: the same terms summed in another order,
+    atomics in any order) or 1e-10 (float64) of their largest magnitude
+    (the energy: of itself).  Both gate on the same rounded distance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    bar = 1e-4 if dt == torch.float32 else 1e-10
+    d = _hbond_deck(mc, dt, "cuda")
+    tab, bo0 = _hbond_inputs(d)
+    n0 = hb.launches["hbond"]
+    got = hb.hbond(d["pos"], d["H"], bo0, tab, want_dh=True)
+    bare = hb.hbond(d["pos"], d["H"], bo0, tab)
+    ref = hb.hbond_plain(d["pos"], d["H"], bo0, tab, want_dh=True)
+    torch.cuda.synchronize()
+    assert hb.launches["hbond"] == n0 + 2
+    assert bare[3] is None
+    assert abs(float(ref[0])) > 0
+    assert abs(float(got[0] - ref[0])) <= bar * abs(float(ref[0]))
+    for a, b, what in zip(got[1:], ref[1:], ("dE/dpos", "dE/dBO", "dE/dH")):
+        assert bool(torch.isfinite(a).all()), what
+        err = float((a - b).abs().max())
+        assert err <= bar * float(b.abs().max()), (what, err)
+    assert torch.equal(bare[2], got[2])
+
+
+@pytest.mark.gpu
+def test_hbond_term_on_the_card_matches_cpu():
+    """`reax.e_hbond_rows` through autograd (the kernel's gradients carried
+    through the bond order and the box) on the card against the plain
+    version on the CPU, float64: energy within 1e-12, dE/dpos and dE/dH
+    within 1e-10; one launch per forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = _hbond_deck((1, 1, 1), torch.float64, dev)
+        p = d["pos"].clone().requires_grad_(True)
+        H = d["H"].clone().requires_grad_(True)
+        bo = reax.bond_order(p, H, d["types"], d["img"], d["nbrs"], d["ffd"])
+        n0 = hb.launches["hbond"]
+        e = reax.e_hbond_rows(p, H, d["types"], d["img"], d["nbrs"], bo,
+                              d["amask"], d["ffd"], kh=d["kh"])
+        gp, gh = torch.autograd.grad(e, (p, H))
+        assert hb.launches["hbond"] == n0 + (dev == "cuda")
+        out[dev] = [x.detach().cpu() for x in (e, gp, gh)]
+    (e1, gp1, gh1), (e0, gp0, gh0) = out["cuda"], out["cpu"]
+    assert abs(float(e1 - e0)) <= 1e-12 * abs(float(e0))
+    for a, b in ((gp1, gp0), (gh1, gh0)):
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_hbond_refuses_what_it_does_not_take():
+    """A tensor on another device, a wrong dtype or a strided input raise
+    before any launch; a donor with more hydrogens than kh raises as it
+    did before the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    d = _hbond_deck((1, 1, 1), torch.float32, "cuda")
+    tab, bo0 = _hbond_inputs(d)
+    pos, H = d["pos"], d["H"]
+    n0 = hb.launches["hbond"]
+    calls = [
+        lambda: hb.hbond(pos, H.cpu(), bo0, tab),
+        lambda: hb.hbond(pos, H, bo0, tab._replace(idxnb=tab.idxnb.cpu())),
+        lambda: hb.hbond(pos, H.double(), bo0, tab),
+        lambda: hb.hbond(pos, H, bo0.double(), tab),
+        lambda: hb.hbond(pos, H, bo0, tab._replace(types=tab.types.int())),
+        lambda: hb.hbond(pos, H, bo0, tab._replace(hmask=tab.hmask.byte())),
+        lambda: hb.hbond(pos, H, bo0.t().contiguous().t(), tab),
+        lambda: hb.hbond(pos.t().contiguous().t(), H, bo0, tab),
+        lambda: hb.hbond(pos, H, bo0, tab._replace(
+            idxnb=tab.idxnb.t().contiguous().t())),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="takes a"):
+            call()
+    with pytest.raises(ValueError, match="float32 or float64"):
+        hb.hbond(pos.half(), H.half(), bo0.half(), tab)
+    bo = reax.bond_order(pos, H, d["types"], d["img"], d["nbrs"], d["ffd"])
+    with pytest.raises(RuntimeError, match="hbond overflow"):
+        reax.e_hbond_rows(pos, H, d["types"], d["img"], d["nbrs"], bo,
+                          d["amask"], d["ffd"], kh=1)
+    assert hb.launches["hbond"] == n0

@@ -295,7 +295,7 @@ OVERFLOW_CASES = {
     "ang": lambda c: 16,
     "tor": lambda c: 16,
     "tor_row": lambda c: 1,
-    "ks": lambda c: c - 3,           # caps["ks"] is the most + 2
+    "ks": lambda c: c - 5,           # caps["ks"] is the most + 4
     "kh": lambda c: 1,               # two hydrogens on a carbon
     "kb_t": lambda c: 2,
     "knb_t": lambda c: 16,
