@@ -5,7 +5,8 @@ MD: set-up runs `prepare`, then `warmup_steps` steps through `run` in
 calls of `chunk_steps`, as the window calls it, so that every program key
 the window uses is captured (a rebuild among them; the deck reaches the
 window's temperature in them too).  The window calls `run(chunk_steps)`
-until `seconds` have passed; each call ends in a synchronize, so the
+until `seconds` have passed (on several cards, until `stop` hands every
+rank rank 0's verdict); each call ends in a synchronize, so the
 window's wall covers all of its work.  Its PRINTE lines are kept with the
 host time at which each was printed.
 
@@ -63,11 +64,11 @@ def _counters(eng):
                 captures=int(tm.counters.get("graph captures", 0)))
 
 
-def md_setup(eng, traffic):
-    """prepare (snapshot of its outputs: the start), then the warm-up."""
+def md_setup(eng, traffic, snapshot=port.snapshot):
+    """prepare (`snapshot` of its outputs: the start), then the warm-up."""
     log = Log()
     eng.prepare()
-    start = port.snapshot(eng)
+    start = snapshot(eng)
     chunk = traffic["chunk_steps"]
     for _ in range(traffic["warmup_steps"] // chunk):
         eng.run(chunk, log=log)
@@ -75,26 +76,29 @@ def md_setup(eng, traffic):
     return log, start
 
 
-def md_window(eng, traffic, seconds, log, count_reads=False):
+def md_window(eng, traffic, seconds, log, count_reads=False,
+              stop=lambda done: done):
     """The timed window: dict(steps, wall_s, printe_times, qeq_iters,
-    rebuilds, captures[, host_reads])."""
+    rebuilds, captures[, host_reads]).  After each call `stop(this
+    process's clock has passed seconds)` decides; host reads are counted
+    inside the calls."""
     c0 = _counters(eng)
     reads = HostReads() if count_reads else None
     chunk = traffic["chunk_steps"]
     steps = 0
     t0 = time.perf_counter()
-    if reads:
-        reads.__enter__()
-    try:
-        while True:
-            eng.run(chunk, log=log)
-            steps += chunk
-            wall = time.perf_counter() - t0
-            if wall >= seconds:
-                break
-    finally:
+    while True:
         if reads:
-            reads.__exit__(None, None, None)
+            reads.__enter__()
+        try:
+            eng.run(chunk, log=log)
+        finally:
+            if reads:
+                reads.__exit__(None, None, None)
+        steps += chunk
+        wall = time.perf_counter() - t0
+        if stop(wall >= seconds):
+            break
     c1 = _counters(eng)
     out = dict(steps=steps, wall_s=wall, printe_times=log.printe_times(t0),
                **{k: c1[k] - c0[k] for k in c0})

@@ -17,9 +17,11 @@ from .spec import ROOT, data_path
 BUILD_DIR = os.path.join(ROOT, "build", "rxmd_tpu_torch")
 
 
-def engine(config, traffic, inputs, device):
+def settings(config, traffic, inputs, device):
+    """(ForceField, RunConfig, State) of the cell, the port's kernels
+    building into BUILD_DIR."""
     from rxmd_tpu_torch import config as rconfig
-    from rxmd_tpu_torch import ffield, md, system
+    from rxmd_tpu_torch import ffield, system
     from rxmd_tpu_torch.io import traj
     from rxmd_tpu_torch.ops import pairsweep
     pairsweep._BUILD_DIR = traj._BUILD_DIR = BUILD_DIR
@@ -31,6 +33,12 @@ def engine(config, traffic, inputs, device):
     st = system.make_state(inputs.pos, inputs.types, inputs.H,
                            vel=inputs.vel, dtype=getattr(torch, cfg.dtype),
                            device=device)
+    return ff, cfg, st
+
+
+def engine(config, traffic, inputs, device):
+    from rxmd_tpu_torch import md
+    ff, cfg, st = settings(config, traffic, inputs, device)
     eng = md.Engine(ff, st, cfg, device=device)
     if eng.pair_engine != config["engine"]:
         raise RuntimeError(

@@ -1,12 +1,14 @@
-"""One run of a cell, by the traffic mix's kind ("md" or "relax"), and the
-check of what it produced against the reference.
+"""One run of a cell, by the traffic mix's kind ("md", "relax", or
+"md_sharded": harness/sharded.py), and the check of what it produced
+against the reference.
 
 `KINDS[kind](cell, seed, seconds, trace, device, t0)` makes the inputs,
 sets the port up, drives the window (and with `trace` the counted and
 profiled parts), keeps what the check needs, frees the port and returns
 dict(values: the end-to-end metrics, art: what the per-layer readers read,
 prof, attempted, peak, setup_parts: the set-up's seconds by part, and the
-check's inputs).  `check(r, device, control)` runs the float64 reference
+check's inputs; md_sharded's rank 0 adds `ranks`, its other ranks return
+None).  `check(r, device, control)` runs the float64 reference
 on them: (numbers, and with `control` the control's numbers: the same
 reference in bfloat16 put in the program's place).
 """
@@ -150,7 +152,12 @@ def relax(cell, seed, seconds, trace, device, t0):
                 prog=prog, setup_parts=clock.parts)
 
 
-KINDS = {"md": md, "relax": relax}
+def md_sharded(cell, seed, seconds, trace, device, t0):
+    from .sharded import md_sharded as run
+    return run(cell, seed, seconds, trace, device, t0)
+
+
+KINDS = {"md": md, "relax": relax, "md_sharded": md_sharded}
 
 
 def _evaluator(r, dtype, device):

@@ -281,7 +281,8 @@ def _cell_table_packed(pos, valid, types, grid: CellGrid):
 
 def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
                           rctap2, kb: int, knb: int, nrows: int = None,
-                          nb_rows: int = None, bond_rows=None):
+                          nb_rows: int = None, bond_rows=None,
+                          row_block: int = None):
     """O(M) cell-list neighbor build over an extended atom set (used from
     400 atoms).  `pos` are real coordinates inside the grid region; `valid`
     masks live entries.  Returns (Neighbors: bonded rows for the first
@@ -289,7 +290,10 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
     `nrows`), max cell occupancy).  With `bond_rows` (row indices, -1
     padded) only those rows get bonded lists, the others stay empty.  The
     sharded engine needs bonded rows for its ghosts near its domain too
-    (their bond orders), nonbonded rows only for its residents."""
+    (their bond orders), nonbonded rows only for its residents.
+    `row_block` bounds the rows of one pass (each row's candidates,
+    (rows, S * ccap, 4) in `pos`'s dtype): a larger list is built in
+    passes of that many rows, row for row the same."""
     m = pos.shape[0]
     dev = pos.device
     nrows = nrows or m
@@ -308,6 +312,11 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
 
     def lists(rows, offs, bonded, cap):
         nr = rows.shape[0]
+        if row_block and nr > row_block:
+            parts = [lists(rows[i:i + row_block], offs, bonded, cap)
+                     for i in range(0, nr, row_block)]
+            return (torch.cat([idx for idx, _ in parts]),
+                    torch.cat([cnt for _, cnt in parts]))
         nb3 = cid3[rows][:, None, :] + offs[None, :, :]          # (B, S, 3)
         oob = ((nb3 < 0) | (nb3 >= nc_t)).any(dim=-1)
         nbc = (nb3[..., 0] * nc[1] + nb3[..., 1]) * nc[2] + nb3[..., 2]

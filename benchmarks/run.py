@@ -17,11 +17,21 @@ error).  --trace 0 reports the cell's end-to-end metrics; --trace 1 its
 per-layer metrics, read by metrics/<name>.py from a run with its host
 reads counted and a profiled sub-window after the window.
 
+A cell on more than one card runs as one process per card (harness/
+launch.py): this process starts them as ranks of one process group, each
+runs the cell's kind on its own card (harness/sharded.py), and rank 0
+checks the gathered result and prints the line, which this process prints
+as its own once every rank has exited 0 (`device.count` the cell's cards,
+`memory_peak_bytes` the fullest card's, `busy_s` and `window_s` rank 0's,
+each rank's under `device.ranks`).  A rank that fails, or a group not done
+by the deadline (--seconds plus a set-up allowance), ends the run: every
+rank is killed, no result is printed, the exit code is not 0.
+
 It needs a CUDA card (as many as the cell asks): without one it exits with
 code 2 and prints no result; it never falls back to the CPU.  It exits with
 code 3 and prints no result if jax, jaxlib, flax or rxmd_tpu (the JAX
 package; compared by whole top-level module names) is loaded once the
-window has closed.
+window has closed, in any of its processes.
 """
 import time
 
@@ -32,6 +42,7 @@ import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import traceback  # noqa: E402
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
@@ -85,12 +96,16 @@ def _metrics(cell, values, art=None):
     return out
 
 
-def run_cell(cell, seed, seconds, trace, device):
+def run_cell(cell, seed, seconds, trace, device, t0=T0):
     """One run of `cell` on `device`: the result line's dict, with its
-    peak memory (`peak`), profile (`prof`) and, last, its `checks`."""
+    peak memory (`peak`), profile (`prof`), the ranks' devices (`ranks`,
+    a cell on several cards) and, last, its `checks`; None on a rank
+    other than 0.  `t0`: the run's start, from which set-up counts."""
     from harness import judge, runs
     r = runs.KINDS[cell.traffic["kind"]](cell, seed, seconds, trace, device,
-                                         T0)
+                                         t0)
+    if r is None:
+        return None
     numbers, _ = runs.check(r, device)
     correct, checks = judge.verdict(numbers, cell.limits)
     out = dict(correct=correct, attempted=r["attempted"], failed=0,
@@ -100,35 +115,40 @@ def run_cell(cell, seed, seconds, trace, device):
         out["breakdown"] = {"device_ops": r["prof"]["device_ops"],
                             "idle_gaps": r["prof"]["idle_gaps"]}
     out["setup_parts"] = r["setup_parts"]
-    out["peak"], out["prof"], out["checks"] = r["peak"], r["prof"], checks
+    out["peak"], out["prof"], out["ranks"] = r["peak"], r["prof"], \
+        r.get("ranks")
+    out["checks"] = checks
     return out
 
 
-def main(argv=None):
-    args = parse(argv)
-    sys.path[:0] = [BENCH, ROOT]
-    import torch
-    from harness import spec
-    cell = spec.cell(args.workload)
-    if (not torch.cuda.is_available()
-            or torch.cuda.device_count() < cell.chips):
-        print(f"{args.workload} needs {cell.chips} CUDA card(s); this "
-              f"machine shows {torch.cuda.device_count()}: no run",
-              file=sys.stderr)
-        return 2
-    device = torch.device("cuda", 0)
-    res = run_cell(cell, args.seed, args.seconds, bool(args.trace), device)
+def clean():
+    """Whether this process holds no forbidden module (else says which)."""
     bad = forbidden_modules()
     if bad:
         print("loaded in this process, which the benchmark forbids: "
               + ", ".join(bad), file=sys.stderr)
+    return not bad
+
+
+def report(cell, res, device):
+    """Print `res` (run_cell's) as the result line, its checks last on
+    standard error too; the exit code."""
+    import torch
+    if not clean():
         return 3
-    dev = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
+    if res is None:
+        return 0
+    cuda = torch.device(device).type == "cuda"
+    dev = dict(platform="gpu" if cuda else "cpu",
+               kind=torch.cuda.get_device_name(0) if cuda else "cpu",
                count=cell.chips, memory_peak_bytes=res.pop("peak"),
                nvidia_smi=nvidia_smi())
     prof = res.pop("prof")
     if prof is not None:
         dev.update(busy_s=prof["busy_s"], window_s=prof["window_s"])
+    ranks = res.pop("ranks")
+    if ranks is not None:
+        dev["ranks"] = ranks
     checks = res.pop("checks")
     line = dict(res, device=dev, checks=checks)
     for name, c in checks.items():
@@ -137,6 +157,63 @@ def main(argv=None):
     sys.stderr.flush()
     print(json.dumps(line), flush=True)
     return 0
+
+
+def serve(cell, args, command, device="cuda"):
+    """One run of `cell`: in this process on one card; on more, as the
+    launcher of `cell.chips` ranks, each running `command` (which comes
+    back here and, first of all, calls launch.die_with_launcher), or as
+    one of those ranks.  The exit code."""
+    from harness import launch
+    if cell.chips > 1 and not launch.is_rank():
+        code, line = launch.launch(
+            cell.chips, command, launch.deadline_s(args.seconds), T0)
+        if not clean():
+            return 3
+        if code == 0:
+            print(line, flush=True)
+        return code
+    import torch
+    if cell.chips == 1:
+        if torch.device(device) == torch.device("cuda"):
+            device = torch.device("cuda", 0)
+        return report(cell, run_cell(cell, args.seed, args.seconds,
+                                     bool(args.trace), device), device)
+    try:
+        code = report(cell, run_cell(cell, args.seed, args.seconds,
+                                     bool(args.trace), device,
+                                     launch.start_time()), device)
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    # a rank's interpreter may wait forever at its exit on a communicator
+    # that a failed collective left behind
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def main(argv=None, cell=None):
+    """The benchmark's entry; `cell` (a spec.Cell) in place of the
+    workload's, for tests."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse(argv)
+    sys.path[:0] = [BENCH, ROOT]
+    from harness import launch, spec
+    if launch.is_rank():
+        launch.die_with_launcher()
+    cell = cell or spec.cell(args.workload)
+    if cell.chips > 1 and not launch.is_rank():
+        have = launch.cards()
+    else:
+        import torch
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < cell.chips:
+        print(f"{args.workload} needs {cell.chips} CUDA card(s); this "
+              f"machine shows {have}: no run", file=sys.stderr)
+        return 2
+    return serve(cell, args, [sys.executable, os.path.abspath(__file__),
+                              *argv])
 
 
 if __name__ == "__main__":

@@ -75,3 +75,37 @@ def test_one_step_agrees(pair):
     assert np.abs(nxt["vel"] - v1).max() / np.abs(v1).max() < 1e-7
     assert judge.f_rel(nxt["force"], r1["force"]) < 1e-7
     assert judge.pe_rel(nxt["comps"], r1["comps"]) < 1e-9
+
+
+@pytest.mark.parametrize("mc, block_rows, blocks", [
+    # 1,344 atoms in 48 blocks, each smaller than its halo: ghosts are
+    # images of residents too
+    ((2, 2, 2), 2000, (4, 4, 3)),
+    # 5,376 atoms (52.7 x 46.3 x 21.4 A) in 3 x 2 x 1 blocks: a block and
+    # its 10.1-A halo on both sides (37.8 x 43.3 A) fall short of the box
+    # in x and y, so those ghost layers are cut where the halo ends; the
+    # faces at a third of the box in x pass through molecules, and ghosts
+    # taken 0.5 A short of the halo part from one pass by f_rel 1e-8
+    ((4, 4, 2), 8000, (3, 2, 1)),
+])
+def test_blocks_agree_with_one_pass(mc, block_rows, blocks):
+    """A deck evaluated in spatial blocks against one pass, in float64:
+    the same global CG gives the same charges and bond orders; the
+    energies and forces sum the same terms in another order (rounding,
+    ~1e-14 of the largest)."""
+    ff, pos, types, H = evaluate.load_deck(
+        os.path.join(DATA, "chon168.xyz"),
+        os.path.join(DATA, "ffield_chon_synth"), mc)
+    pos = pos + np.random.default_rng(3).normal(scale=0.05, size=pos.shape)
+    one = evaluate.Evaluator(ff, types, H)
+    blocked = evaluate.Evaluator(ff, types, H, max_atoms=0,
+                                 block_rows=block_rows)
+    assert one.blocks is None and blocked.blocks == blocks
+    if mc == (4, 4, 2):
+        L = np.diag(H)[:2]
+        assert (L / np.asarray(blocks[:2]) + 2 * blocked.halo < L).all()
+    a, b = one.evaluate(pos), blocked.evaluate(pos)
+    assert np.array_equal(a["q"], b["q"])
+    assert np.array_equal(a["bo_sum"], b["bo_sum"])
+    assert judge.f_rel(b["force"], a["force"]) < 1e-12
+    assert np.abs(a["comps"] - b["comps"]).max() < 1e-12 * abs(a["comps"][0])

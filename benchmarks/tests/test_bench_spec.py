@@ -11,7 +11,7 @@ BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
 sys.path[:0] = [BENCH, ROOT]
 
-from harness import spec  # noqa: E402
+from harness import launch, runs, spec  # noqa: E402
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -85,7 +85,7 @@ def test_cell_resolves(name):
     assert NAME.match(name) and NAME.match(w["traffic"])
     assert w["chips"] in (1, 4) and line_ok(w["why"])
     cell = spec.cell(name)
-    assert cell.traffic["kind"] in ("md", "relax")
+    assert cell.traffic["kind"] in runs.KINDS
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
     assert len(cell.end_to_end) >= 2 and cell.per_layer
     assert all(0 < v for v in cell.limits.values())
@@ -137,3 +137,33 @@ def test_config_runs_the_engine_it_declares(name):
     config["engine"] = "dense" if config["engine"] != "dense" else "ell"
     with pytest.raises(RuntimeError, match="declares the pair engine"):
         port.engine(config, traffic, inputs, "cpu")
+
+
+def test_every_mix_names_a_kind_of_the_harness():
+    for f in os.listdir(os.path.join(BENCH, "traffic")):
+        mix = spec.load_json(os.path.join(BENCH, "traffic", f))
+        assert mix["kind"] in runs.KINDS, f
+
+
+def test_the_sharded_mix_is_md_exls_settings_and_draws():
+    """traffic/md_exl_sharded.json: md_exl's MD under the kind md_sharded,
+    with the launcher's set-up allowance under the 360 s of a run."""
+    load = lambda m: spec.load_json(os.path.join(BENCH, "traffic",
+                                                 m + ".json"))
+    exl, sh = load("md_exl"), load("md_exl_sharded")
+    assert sh["kind"] == "md_sharded"
+    for key in ("run_config", "draw", "warmup_steps", "chunk_steps",
+                "trace_steps"):
+        assert sh[key] == exl[key], key
+    assert launch.SETUP_ALLOWANCE_S + BENCHMARK["run_seconds"] < 360
+
+
+def test_the_sharded_engine_runs_the_pair_list():
+    """port_sharded refuses a configuration that declares another pair
+    engine than the sharded engine's pair list, before it builds one."""
+    from harness import port_sharded
+    config = spec.load_json(os.path.join(BENCH, "configs",
+                                         "rdx_qeq_8k.json"))
+    assert config["engine"] == "sweep"
+    with pytest.raises(RuntimeError, match="runs the pair list"):
+        port_sharded.engine(config, None, None, "cpu")
