@@ -59,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
+import weakref
 
 import torch
 
@@ -153,7 +154,7 @@ class _Recorder:
     def begin(self):
         self.graph = torch.cuda.CUDAGraph()
         self.held = dict(pairsweep.launches)
-        self.graph.capture_begin(pool=self.cache.pool)
+        self.graph.capture_begin(pool=self.cache.memory.handle)
         self.name = f"part {len(self.prog.parts)}"
         trace.mark(self.name, 0)
 
@@ -184,15 +185,61 @@ class _Recorder:
         return carry
 
 
+class Memory:
+    """The side stream and the memory pool that every graph cache of a
+    device shares (`of`): their replays never overlap (one stream), so
+    every program captures into one pool, and the blocks that one
+    capture frees, or a dropped program leaves, serve the next (a block
+    serves its own stream only).  The pool is renewed only where no
+    program captured into it is left (a pool whose graphs are all gone
+    takes no capture): `held` counts the live ones."""
+
+    _of = {}
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.handle = None
+        self.held = 0
+
+    @classmethod
+    def of(cls, device):
+        if device not in cls._of:
+            cls._of[device] = cls(device)
+        return cls._of[device]
+
+    def pool(self):
+        """The pool's handle, renewed where no program holds it."""
+        if not self.held:
+            self.handle = torch.cuda.graph_pool_handle()
+        return self.handle
+
+    def hold(self, prog):
+        """Count `prog`, captured into the pool, until it is freed."""
+        self.held += 1
+        weakref.finalize(prog, self._release)
+
+    def _release(self):
+        self.held -= 1
+
+    def gib(self):
+        """GiB of the device's memory that the pool holds."""
+        if self.handle is None:
+            return 0.0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == self.handle
+                   ) / 2**30
+
+
 class GraphCache:
-    """The engine's programs on one side stream, sharing one memory pool
-    per rebuild window (their replays never overlap: one stream), keyed as
-    the module docstring says."""
+    """An engine's programs on its device's side stream, in its memory
+    pool (`Memory`), keyed as the module docstring says."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.stream = torch.cuda.Stream(self.device)
-        self.pool = None
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.memory = Memory.of(self.device)
+        self.stream = self.memory.stream
         self.programs = {}     # key -> Program
         self.seen = set()      # keys run once (eagerly)
         self.window = (None, None, None)   # signature, buffers, window id
@@ -244,7 +291,11 @@ class GraphCache:
         return fill(prog.out, (t.clone() for t in leaves(prog.out)))
 
     def _capture(self, fn, window, carry):
-        """fn over the static inputs, captured into a Program."""
+        """fn over the static inputs, captured into a Program.  The
+        blocks that eager runs left cached go back to the device first:
+        a capture allocates only from its pool and the device."""
+        torch.cuda.empty_cache()
+        self.memory.pool()
         prog = Program()
         rec = _Recorder(prog, self)
         self.last_chunks = (0, 0.0)
@@ -261,21 +312,18 @@ class GraphCache:
         finally:
             if collecting:
                 gc.enable()
+        self.memory.hold(prog)
         return prog
-
-    def _new_pool(self):
-        return torch.cuda.graph_pool_handle()
 
     def _window(self, wkey, window, window_id):
         """The static copy of the window's tensors, refreshed once per
         window.  A window of other shapes replaces it, and the programs
-        captured over it go with their memory pool (a pool whose graphs
-        are all gone takes no capture): the window's sizes only grow
-        (md.Engine._size), so those shapes do not come back."""
+        captured over it go, their blocks left to the pool's later
+        captures: the window's sizes only grow (md.Engine._size), so
+        those shapes do not come back."""
         key, buf, wid = self.window
         if key != wkey:
             self.programs = {}
-            self.pool = self._new_pool()
             buf = [t.clone() for t in leaves(window)]
         elif wid != window_id:
             for b, t in zip(buf, leaves(window)):

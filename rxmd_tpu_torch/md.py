@@ -874,7 +874,10 @@ class Engine:
         the rebuild's, each raising with its message; the term lists are
         then cut to the window's padded lengths (`_size`, views of the
         program's output) and the QEq list's capacity is the walk's
-        candidates, padded so (`_qcap`)."""
+        candidates, padded so (`_qcap`).  Counted after the read: the
+        neighbor build's row passes ("nbr build passes",
+        neighbors.passes) and, on a card, the level "reserved free GiB":
+        memory the allocator reserves and no tensor takes."""
         H = s.H
         if self._hinv is None or self._hinv[0] is not H:
             self._hinv = (H, torch.linalg.inv(H))
@@ -894,6 +897,12 @@ class Engine:
             vals = torch.cat([out.counts.double()] + [
                 t.double() for t in self._pending()]).tolist()
         trace.drain()
+        if self.grid is not None:
+            tm.count("nbr build passes", neighbors.passes(s.n))
+        if self.device.type == "cuda":
+            tm.level("reserved free GiB",
+                     (torch.cuda.memory_reserved(self.device)
+                      - torch.cuda.memory_allocated(self.device)) / 2**30)
         with trace.span("checks"):
             self._check_lists(vals[len(REBUILD_COUNTS):])
             got = dict(zip(REBUILD_COUNTS, (int(v) for v in vals)))
@@ -1190,7 +1199,9 @@ class Engine:
         """cache.run(...) (graphs.GraphCache), its captures, capture
         seconds and replays added to the timers: in all, and by the kind
         of the program dispatched (trace.program) and of the CG chunk
-        parts captured in it ("chunk", seconds within the program's)."""
+        parts captured in it ("chunk", seconds within the program's);
+        after a capture on a card, the level "graph pool GiB": what the
+        graphs' memory pool (graphs.Memory) holds."""
         caps, secs, reps = cache.captures, cache.capture_s, cache.replays
         out = cache.run(key, fn, window, carry, window_id)
         tm = self.timers
@@ -1203,6 +1214,8 @@ class Engine:
                 if k:
                     tm.count("graph captures" + name, k)
                     tm.add("graph capture" + name, sec, k)
+            if self.device.type == "cuda":
+                tm.level("graph pool GiB", cache.memory.gib())
         return out
 
     # ------------------------------------------------------------------

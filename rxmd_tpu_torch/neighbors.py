@@ -279,6 +279,20 @@ def _cell_table_packed(pos, valid, types, grid: CellGrid):
             slot_idx[:-1].reshape(ctot, ccap), cid3, occ)
 
 
+# rows of one pass of the cell-list build.  A pass holds each of its rows'
+# candidates at once (S * ccap payloads, indices, distances and masks:
+# ~0.4 MB a row on the RDX deck's nonbonded stencil in float32), so a
+# larger list is built pass by pass into its (rows, cap) output and the
+# build's transient memory stays that of one pass.  At or below it the
+# build is one pass.
+LIST_ROWS = 8192
+
+
+def passes(rows):
+    """The passes of a cell-list build over `rows` rows."""
+    return max(-(-int(rows) // LIST_ROWS), 1)
+
+
 def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
                           rctap2, kb: int, knb: int, nrows: int = None,
                           nb_rows: int = None, bond_rows=None):
@@ -289,7 +303,8 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
     `nrows`), max cell occupancy).  With `bond_rows` (row indices, -1
     padded) only those rows get bonded lists, the others stay empty.  The
     sharded engine needs bonded rows for its ghosts near its domain too
-    (their bond orders), nonbonded rows only for its residents."""
+    (their bond orders), nonbonded rows only for its residents.  Each
+    list is built in passes of `LIST_ROWS` rows, row for row the same."""
     m = pos.shape[0]
     dev = pos.device
     nrows = nrows or m
@@ -307,6 +322,18 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
     _, _, nc_t, st_b, st_nb = grid_consts(grid, pos.dtype, dev)
 
     def lists(rows, offs, bonded, cap):
+        nr = rows.shape[0]
+        if nr <= LIST_ROWS:
+            return one_pass(rows, offs, bonded, cap)
+        idx = torch.empty((nr, cap), dtype=torch.int64, device=dev)
+        cnt = torch.empty((nr,), dtype=torch.int64, device=dev)
+        for r0 in range(0, nr, LIST_ROWS):
+            r1 = min(nr, r0 + LIST_ROWS)
+            idx[r0:r1], cnt[r0:r1] = one_pass(rows[r0:r1], offs, bonded,
+                                              cap)
+        return idx, cnt
+
+    def one_pass(rows, offs, bonded, cap):
         nr = rows.shape[0]
         nb3 = cid3[rows][:, None, :] + offs[None, :, :]          # (B, S, 3)
         oob = ((nb3 < 0) | (nb3 >= nc_t)).any(dim=-1)

@@ -355,17 +355,13 @@ class HostGraphs(GraphCache):
     static inputs and a "replay" that runs it over them."""
 
     def __init__(self, device=None):
-        self.pool, self.programs, self.seen, self.carries = (None, {},
-                                                             set(), {})
+        self.programs, self.seen, self.carries = {}, set(), {}
         self.window = (None, None, None)
         self.captures = self.replays = 0
         self.capture_s = 0.0
         self.last_chunks = (0, 0.0)
 
     run = GraphCache._run             # no stream to order against
-
-    def _new_pool(self):
-        return None
 
     def _capture(self, fn, window, carry):
         return _Rerun(fn, window, carry)

@@ -68,6 +68,7 @@ _keys = []            # mark id -> (program, phase, edge)
 _program = None       # (kind, device) being dispatched, or None
 _capturing = False    # a CUDA graph capture is running
 _rings = {}           # device -> _Ring
+_levels = {}          # level name -> the value set last (Timers.level)
 _lib = None
 
 
@@ -164,6 +165,16 @@ class Timers:
         if _poll() is not None:
             _session.counts[name] = _session.counts.get(name, 0) + inc
 
+    def level(self, name: str, value: float):
+        """Set the counter `name` to `value`, a level that holds until it
+        is set again; a session keeps the largest level it saw, from the
+        one that held when it opened."""
+        self.counters[name] = value
+        _levels[name] = value
+        if _poll() is not None:
+            _session.levels[name] = max(_session.levels.get(name, value),
+                                        value)
+
     def peak(self, name: str, used: float, cap: float):
         """Track max occupancy of a fixed-capacity array (the analog of the
         reference's `maxas` statistics, ref: main.F90:128-146)."""
@@ -180,7 +191,8 @@ class Timers:
             out.append(f"{name:>28s} {sec:10.3f} {self.ncalls[name]:8d}")
         out.append(f"{'total wall':>28s} {total:10.3f}")
         for name, val in self.counters.items():
-            out.append(f"{name:>28s} {val:10.0f}")
+            out.append(f"{name:>28s} {val:10.0f}" if float(val).is_integer()
+                       else f"{name:>28s} {val:10.3f}")
         if self.peaks:
             out.append(f"{'-- peak occupancy --':>28s}")
             for name, (used, cap) in self.peaks.items():
@@ -352,6 +364,7 @@ class Record:
     def __init__(self):
         self.spans = {}        # path -> [total s, self s, calls]
         self.counts = {}
+        self.levels = dict(_levels)
         self.marks = []
         self.launches = []
         self.lost = 0
@@ -367,8 +380,9 @@ class Record:
         phase): (ns, count)}, parts {(program, "part k"): (ns, count)},
         gaps {cause: (ns, count)}: the device time from a part's end to
         the next part's start, filed under the next launch's cause,
-        counts, lost: marks overwritten before a read, unmatched: part
-        starts without a launch logged or launches without a start)."""
+        counts, levels: each level's largest (Timers.level), lost: marks
+        overwritten before a read, unmatched: part starts without a launch
+        logged or launches without a start)."""
         opened, phases, parts, gaps = {}, {}, {}, {}
         end, k = None, 0
         for mid, t in self.marks:
@@ -388,7 +402,8 @@ class Record:
                     end = t
         return dict(spans={p: tuple(v) for p, v in self.spans.items()},
                     phases=phases, parts=parts, gaps=gaps,
-                    counts=dict(self.counts), lost=self.lost,
+                    counts=dict(self.counts), levels=dict(self.levels),
+                    lost=self.lost,
                     unmatched=abs(len(self.launches) - k))
 
 
@@ -426,7 +441,8 @@ def session_lines():
     for cause, (ns, n) in sorted(s["gaps"].items(),
                                  key=lambda kv: -kv[1][0])[:top]:
         out.append(f"  {cause[-48:]:>48s} {ns * 1e-6:9.3f} {n:7d}")
-    out.append(f"  counts {s['counts']}; marks lost {s['lost']}")
+    out.append(f"  counts {s['counts']}; levels {s['levels']}; marks lost "
+               f"{s['lost']}")
     out.append("-" * 60)
     return out
 

@@ -127,6 +127,28 @@ def test_session_opens_and_closes_with_the_profiler():
     assert tm.counters["probes"] == 3
 
 
+def test_levels_hold_and_a_session_keeps_their_largest(monkeypatch):
+    monkeypatch.setattr(trace, "_levels", {})
+    tm = trace.Timers()
+    tm.level("graph pool GiB", 4.5)
+    tm.level("reserved free GiB", 3.0)
+    with _session():
+        tm.level("reserved free GiB", 5.0)
+        tm.level("reserved free GiB", 1.25)
+    s = trace.last_session()
+    # the largest in the session, from the level that held when it opened
+    assert s["levels"] == {"graph pool GiB": 4.5, "reserved free GiB": 5.0}
+    assert s["counts"] == {}
+    assert tm.counters["reserved free GiB"] == 1.25    # the level set last
+    tm.level("graph pool GiB", 9.0)                    # after the close
+    assert trace.last_session()["levels"]["graph pool GiB"] == 4.5
+    with _session():
+        tm.count("probes", 1)          # a count: the session is seen
+    assert trace.last_session()["levels"] == {"graph pool GiB": 9.0,
+                                              "reserved free GiB": 1.25}
+    assert "reserved free GiB      1.250" in "\n".join(tm.summary_lines())
+
+
 def test_marks_need_a_session_and_a_program():
     with _session():
         trace.mark("outside", 0)           # no program
