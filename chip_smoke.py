@@ -25,7 +25,9 @@ first failure ends the run with a non-zero exit code and no result line.
      then the hydrogen-bond kernel (csrc/hbond.cu, `phase_hbond`) on the
      pair-list engine's lists at --mc against hbond_plain, timed beside
      its bound, its plain version and the autograd grid it replaced, and
-     launched by the pair-list steps and by a probe of the sweep;
+     launched by the pair-list steps and by a probe of the sweep; then the
+     torsion kernel (csrc/torsion.cu, `phase_torsion`) the same way,
+     against torsion_plain and the grid's list under autograd;
   4. slice: prepare + --steps NVE steps with full-CG QEq (isQEq=1), PRINTE
      lines (every step, so each step is a single-step dispatch, a CUDA
      graph after its key's first use); launch counts: nonbond once a step,
@@ -191,6 +193,7 @@ SOURCE = "rxmd_tpu_torch/csrc/pairsweep.cu"
 REPLACES = "rxmd_tpu/ops/pairsweep.py:289"
 KERNELS = ("nonbond", "qeq_build", "qeq_apply")
 HB_SOURCE = "rxmd_tpu_torch/csrc/hbond.cu"
+TOR_SOURCE = "rxmd_tpu_torch/csrc/torsion.cu"
 
 # kernel vs plain sweep, float32, same candidate pairs, other summation
 # order: the bars of tests/test_pairsweep.py (energy sums 2e-3 relative,
@@ -215,6 +218,13 @@ OPS_HBOND = 100
 # same entries (both gate on the same rounded distance), summed in another
 # order and with atomics
 TOL_HB = 1e-4
+# operations per torsion of csrc/torsion.cu's torsion_one and its sums,
+# counted the same way (both energies and their gradients)
+OPS_TORSION = 420
+# the torsion kernel against torsion_plain, float32 on the card: the same
+# torsions (both gate on the same float32 products), cos 2w and cos 3w as
+# polynomials against arccos, summed in another order and with atomics
+TOL_TOR = 1e-4
 # per-step total energy of the kernel run against the plain-sweep run on
 # the card: both float32, so they part only through summation order and
 # CG stops; at 1e-4 relative that is ~10x above the float32 noise of a
@@ -718,6 +728,143 @@ def phase_hbond(mc, smi):
     probe_launches = hb.launches["hbond"] - zero["hbond"]
     check(probe_launches > 0, "hbond launched by a probe of the sweep")
     log(f"hbond launches: {md_launches} in prepare + 3 steps of the pair "
+        f"list (graphs: counted at eager runs and captures), "
+        f"{probe_launches} in a probe of the sweep")
+    del e, sw
+    torch.cuda.empty_cache()
+    return dict(max_rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=grid_ms)
+
+
+def phase_torsion(mc, smi):
+    """The torsion and 4-body conjugation kernel (csrc/torsion.cu) at the
+    main path's shapes: the pair-list engine with uncached terms at --mc in
+    float32 (the benchmark's pair-list cells; every probe runs the same
+    term).  Its ptxas report; the kernel against torsion_plain on the card
+    (the engine's capacities): both energies and each one's gradients with
+    respect to BO0, the pi BO, drb and delta within TOL_TOR of their
+    largest magnitude, the same count of torsions; device ms (graph_ms)
+    beside the bound, the plain version, and the grid it replaced
+    (reax.build_torsion_list's list and reax.torsion_energy under
+    autograd: its forward as a step ran it, and forward + backward beside
+    the kernel's); then 3 steps of that engine and one probe of the sweep
+    engine, each launching the kernel.  Returns the kernel's record."""
+    from rxmd_tpu_torch import reax, units
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    from rxmd_tpu_torch.ops import torsion as tor
+    so, secs, msgs = ps.build(force=True, verbose=True, src=tor._SRC)
+    log(f"build: nvcc {TOR_SOURCE} -> {os.path.relpath(so, REPO)} in "
+        f"{secs:.1f} s")
+    for line in msgs.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "stack frame")):
+            log(f"  ptxas: {line.strip()}")
+    e = make_engine(mc, DEVICE, term_cache=False, dense_direct_max=0)
+    check(e.pair_engine == "ell", f"pair list engine ({e.pair_engine})")
+    e._rebuild(e.state)
+    s, nbrs, img, ffd, caps = e.state, e.nbrs, e.img, e.ffd, e.caps
+    N = s.n
+    amask = torch.ones(N, dtype=torch.bool, device=s.pos.device)
+    bo = reax.bond_order(s.pos, s.H, s.types, img, nbrs, ffd)
+    tab = tor.TorsionTables(
+        types=s.types, gid=s.gid, amask=amask, maskb=bo.mask.contiguous(),
+        img=img._replace(shift=img.shift.to(s.pos.dtype)), nbrs=nbrs,
+        ffd=ffd, ks=caps["ks"], cap=caps["tor"], rowcap=caps["tor_row"])
+    x = (bo.bo[..., 0].contiguous(), bo.bo[..., 2].contiguous(),
+         bo.drb.contiguous(), bo.delta.contiguous())
+    n0 = tor.launches["torsion"]
+    got = tor.torsion(*x, tab)
+    torch.cuda.synchronize()
+    check(tor.launches["torsion"] == n0 + 1, "torsion: one launch")
+    ref = tor.torsion_plain(*x, tab)
+    ntor = int(ref[3])
+    check(int(got[3]) == ntor > 0, f"torsion count: kernel {int(got[3])}, "
+          f"plain {ntor}")
+    err = 0.0
+    for k, what in ((0, "E_tors"), (1, "E_conj")):
+        rel = abs(float(got[k] - ref[k])) / abs(float(ref[k]))
+        check(rel <= TOL_TOR, f"torsion {what} within {TOL_TOR} ({rel:.3e})")
+        err = max(err, rel)
+    kb = tab.maskb.shape[1]
+    for k, what in ((0, "E_tors"), (1, "E_conj")):
+        for a, b, name in zip(tor.split(got[2][k], N, kb),
+                              tor.split(ref[2][k], N, kb),
+                              ("BO0", "pi", "drb", "delta")):
+            scale = float(b.abs().max())
+            if scale == 0.0:                       # E_conj: no pi, no delta
+                check(float(a.abs().max()) == 0.0, f"d{what}/d{name} zero")
+                continue
+            rel = float((a - b).abs().max()) / scale
+            check(bool(torch.isfinite(a).all()) and rel <= TOL_TOR,
+                  f"torsion d{what}/d{name} within {TOL_TOR} of its max "
+                  f"({rel:.3e})")
+            err = max(err, rel)
+
+    # the work: the torsions the list build keeps (an upper count of those
+    # the energy sums), and the bytes each input and output needs once:
+    # the candidate slots' BO0, pi BO, drb and ext index, the live-slot
+    # mask, the ext entries' shifts, the per-atom tables, and both
+    # energies' parts and gradients
+    cand = int((tab.maskb & (x[0] > units.CUTOF2_ESUB)).sum())
+    n = nbrs.center_rows
+    nbytes = (cand * (4 + 4 + 12 + 8 + 12) + N * kb + N * (8 + 8 + 4 + 1)
+              + 2 * 4 * (n + 5 * N * kb + N))
+    bms, by = bound(nbytes, ntor * OPS_TORSION)
+    log(f"torsion work: {n} centers, {cand} candidate bonds (kb {kb}), "
+        f"{ntor} torsions; bytes: {nbytes}")
+
+    ms = graph_ms(lambda: tor.torsion(*x, tab), 20)
+    plain_ms = cuda_ms(lambda: tor.torsion_plain(*x, tab), 3)
+    leaf = bo._replace(bo=bo.bo.detach().requires_grad_(True),
+                       drb=bo.drb.detach().requires_grad_(True),
+                       delta=bo.delta.detach().requires_grad_(True))
+
+    def grid_forward():
+        with torch.enable_grad():
+            tl = reax.build_torsion_list(s.types, s.gid, img, nbrs, leaf,
+                                         amask, ffd, cap=caps["tor"],
+                                         ks=caps["ks"],
+                                         rowcap=caps["tor_row"])
+            return reax.torsion_energy(tl, leaf.bo[..., 0], leaf.bo[..., 2],
+                                       leaf.drb, leaf.delta, s.types, ffd)
+
+    def grid_both():
+        et, ec = grid_forward()
+        return torch.autograd.grad(et + ec, (leaf.bo, leaf.drb, leaf.delta))
+
+    xl = tuple(t.detach().requires_grad_(True) for t in x)
+
+    def kernel_both():
+        with torch.enable_grad():
+            et, ec, _ = tor.TorsionEnergy.apply(*xl, tab)
+            return torch.autograd.grad(et + ec, xl)
+    grid_ms = cuda_ms(grid_forward, 5)
+    grid_both_ms = cuda_ms(grid_both, 5)
+    kernel_both_ms = cuda_ms(kernel_both, 20)
+    log(f"kernel torsion: max rel err {err:.3e}; {ms * 1e3:.1f} us/launch "
+        f"device time (graph_ms, the zeroed buffer, the energies' sums and "
+        f"the count included), bound {bms * 1e3:.2f} us ({by}, {nbytes} "
+        f"bytes, {ntor * OPS_TORSION} operations; {bms / ms:.1%} of it); "
+        f"plain {plain_ms:.3f} ms; the grid's forward {grid_ms:.3f} ms, "
+        f"forward + backward {grid_both_ms:.3f} ms against the kernel's "
+        f"{kernel_both_ms:.3f} ms (cuda_ms) | {smi}")
+
+    # the kernel on the engines' paths
+    zero = dict(tor.launches)
+    e.init_velocity(seed=1)
+    e.prepare()
+    e.run(3, log=None)
+    torch.cuda.synchronize()
+    md_launches = tor.launches["torsion"] - zero["torsion"]
+    check(md_launches > 0, "torsion launched by the pair-list steps")
+    sw = make_engine(mc, DEVICE)
+    sw.prepare()
+    zero = dict(tor.launches)
+    sw.probe(sw.state.pos.clone())
+    torch.cuda.synchronize()
+    probe_launches = tor.launches["torsion"] - zero["torsion"]
+    check(probe_launches > 0, "torsion launched by a probe of the sweep")
+    log(f"torsion launches: {md_launches} in prepare + 3 steps of the pair "
         f"list (graphs: counted at eager runs and captures), "
         f"{probe_launches} in a probe of the sweep")
     del e, sw
@@ -2570,6 +2717,7 @@ def main():
     mc = tuple(args.mc)
     e, kres, launches = phase_slice(mc, args.steps, args.seed)
     hres = phase_hbond(mc, smi)
+    tres = phase_torsion(mc, smi)
     phase_small_reference(args.seed)
     phase_timing(e, mc, args.steps, args.seed)
     del e
@@ -2588,7 +2736,10 @@ def main():
          "replaces": REPLACES, "launches": launches[name], **kres[name]}
         for name in KERNELS] + [
         {"name": "hbond", "route": "cuda", "source": HB_SOURCE,
-         "replaces": "none (the autograd grid of reax.e_hbond)", **hres}]}
+         "replaces": "none (the autograd grid of reax.e_hbond)", **hres},
+        {"name": "torsion", "route": "cuda", "source": TOR_SOURCE,
+         "replaces": "none (the autograd grid of reax.build_torsion_list)",
+         **tres}]}
     log(json.dumps(rec))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from . import units
 from .ffield import ForceField, build_tables
 from .neighbors import ImageTable, Neighbors, ext_positions
 from .ops import hbond as hbond_op
+from .ops import torsion as torsion_op
 from .utils import timers as trace
 
 
@@ -792,15 +793,21 @@ def _count(counts, name, value):
     counts[name] = value if old is None else torch.maximum(old, value)
 
 
+def _check_ks(cand_cnt, ks):
+    """Raise where a center has more than `ks` candidate bonds
+    (`cand_cnt`, a count per row): one host read."""
+    kmax = int(cand_cnt.max()) if cand_cnt.numel() else 0
+    if kmax > ks:
+        raise RuntimeError(f"many-body candidate overflow: {kmax} bonds at "
+                           f"one center > ks={ks} (raise caps['ks'])")
+
+
 def _exact_compact(mask_flat, cand_cnt, ks):
     """Indices of every True entry of a flat mask, in index order, for the
     uncached terms' per-step lists.  A center with more than `ks`
     candidate bonds (`cand_cnt`) would lose entries: that raises, where
     rxmd_tpu drops them."""
-    kmax = int(cand_cnt.max()) if cand_cnt.numel() else 0
-    if kmax > ks:
-        raise RuntimeError(f"many-body candidate overflow: {kmax} bonds at "
-                           f"one center > ks={ks} (raise caps['ks'])")
+    _check_ks(cand_cnt, ks)
     fidx = torch.nonzero(mask_flat).reshape(-1)
     valid = torch.ones(fidx.shape, dtype=torch.bool, device=fidx.device)
     return fidx, valid, torch.tensor(fidx.shape[0], device=fidx.device)
@@ -1048,13 +1055,17 @@ def e_3body(pos, H, types, img, nbrs, bo: BondOrder, lp: LonePair, amask,
             torch.sum(torch.where(valid, pecoa, 0.0)))
 
 
+def _cross_floor(dtype):
+    """The floor of a squared cross-product norm under its sqrt."""
+    return 1e-20 if dtype == torch.float64 else 1e-12
+
+
 def _unit_cross(u, v, mask):
     """Cross product of normalized inputs with norm floored at NSMALL
     (ref: pot.F90:1524-1543), the floor inside the sqrt."""
     c = torch.linalg.cross(u, v, dim=-1)
-    floor = 1e-20 if c.dtype == torch.float64 else 1e-12
     nrm = torch.sqrt(torch.clamp(_safe(torch.sum(c * c, dim=-1), mask),
-                                 min=floor))
+                                 min=_cross_floor(c.dtype)))
     return c, torch.clamp(nrm, min=units.NSMALL)
 
 
@@ -1169,22 +1180,51 @@ def e_4body(pos, H, types, img, nbrs, bo: BondOrder, amask, gid,
             ffd: FFDev, tl: TorsionList = None, ks: int = 12,
             cap: int = None, rowcap: int = 0, counts=None):
     """Torsion + 4-body conjugation (ref: pot.F90:1012-1219) over the
-    cached flat torsion list with live BO re-gating, or over a list built
-    here when `tl` is None: of capacity `cap` (rows `rowcap`), its count
-    in counts["tor"] (see build_torsion_list), or exact when `cap` is
-    None; all four legs come from the differentiable bond table bo.drb."""
-    if tl is None:
-        tl = build_torsion_list(types, gid, img, nbrs, bo, amask, ffd,
-                                cap=cap, ks=ks, rowcap=rowcap, counts=counts)
-        if counts is not None:
-            _count(counts, "tor", tl.cnt)
-    j, a, c, ok, e = tl.j, tl.a, tl.c, tl.ok, tl.e
+    cached flat torsion list with live BO re-gating (`torsion_energy`), or,
+    when `tl` is None, over every torsion of the bonded lists in one pass
+    over the central bonds (ops/torsion.py: the CUDA kernel on a card; on
+    the CPU its plain version, `torsion_energy` over the list of capacity
+    `cap` (rows `rowcap`), or exact when `cap` is None), differentiable in
+    the bond table through the gradients it returns
+    (`torsion_op.TorsionEnergy`).  A center with more than `ks` candidate
+    bonds raises, where rxmd_tpu drops them; with `counts` (a dict) their
+    maximum goes to counts["ks"] instead, and the torsions' count to
+    counts["tor"] as build_torsion_list reports it (ROW_OVERFLOW where a
+    center holds more than `rowcap`): device tensors the caller holds
+    against the caps."""
+    if tl is not None:
+        return torsion_energy(tl, bo.bo[..., 0], bo.bo[..., 2], bo.drb,
+                              bo.delta, types, ffd)
     bo0 = bo.bo[..., 0]
+    cand_cnt = (bo.mask & (bo0.detach() > units.CUTOF2_ESUB)).sum(dim=1)
+    if counts is not None:
+        if cand_cnt.numel():
+            _count(counts, "ks", cand_cnt.max())
+    else:
+        _check_ks(cand_cnt, ks)
+    tab = torsion_op.TorsionTables(
+        types=types, gid=gid, amask=amask, maskb=bo.mask.contiguous(),
+        img=img._replace(shift=img.shift.to(bo0.dtype)), nbrs=nbrs, ffd=ffd,
+        ks=ks, cap=cap, rowcap=rowcap)
+    etors, econj, cnt = torsion_op.TorsionEnergy.apply(
+        bo0.contiguous(), bo.bo[..., 2].contiguous(), bo.drb.contiguous(),
+        bo.delta.contiguous(), tab)
+    if counts is not None:
+        _count(counts, "tor", cnt)
+    return etors, econj
+
+
+def torsion_energy(tl: TorsionList, bo0, bopi, drb, delta, types,
+                   ffd: FFDev):
+    """(E_tors, E_conj) over the flat torsion list `tl`, re-gated with the
+    live bond orders: BO0 `bo0` and pi BO `bopi` (N, kb), bond vectors
+    `drb` (N, kb, 3) and `delta` (N,)."""
+    j, a, c, ok, e = tl.j, tl.a, tl.c, tl.ok, tl.e
     esub = units.CUTOF2_ESUB
     n, kb = bo0.shape
-    delta_ang_n = bo.delta + ffd.Val[types] - ffd.Valangle[types]
+    delta_ang_n = delta + ffd.Val[types] - ffd.Valangle[types]
 
-    bpack = torch.cat([bo.bo[..., 0:1], bo.bo[..., 2:3], bo.drb],
+    bpack = torch.cat([bo0[..., None], bopi[..., None], drb],
                       dim=-1).reshape(n * kb, 5)
     rowa = _take(bpack, j * kb + a)
     rowc = _take(bpack, j * kb + c)

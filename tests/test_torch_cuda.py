@@ -1,6 +1,6 @@
-"""rxmd_tpu_torch's CUDA kernels (the pair kernels and the hydrogen-bond
-kernel) against their plain PyTorch versions, on a card (every case skips
-without one).
+"""rxmd_tpu_torch's CUDA kernels (the pair kernels, the hydrogen-bond
+kernel and the torsion kernel) against their plain PyTorch versions, on a
+card (every case skips without one).
 
 This file imports no jax, so it also runs where jax is not installed;
 tests/conftest.py imports jax, so there run it as
@@ -23,6 +23,7 @@ import torch
 from rxmd_tpu_torch import config, ffield, md, neighbors, reax, system
 from rxmd_tpu_torch.ops import hbond as hb
 from rxmd_tpu_torch.ops import pairsweep as ps
+from rxmd_tpu_torch.ops import torsion as tor
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 FF = os.path.join(DATA, "ffield_chon_synth")
@@ -286,10 +287,10 @@ def test_pqeq_and_lg_step_on_the_card(what):
 # ----------------------------------------------------------------------
 # the hydrogen-bond kernel (csrc/hbond.cu) against its plain version
 
-def _hbond_deck(mc, dtype, device):
-    """The cell replicated `mc` on `device`: positions, box, types, image
-    table, neighbor lists (built in float64, then held) and force field
-    in `dtype`, and the hydrogen cap."""
+def _card_deck(mc, dtype, device):
+    """The cell replicated `mc` on `device`: positions, box, types, global
+    ids, image table, neighbor lists (built in float64, then held) and
+    force field in `dtype`, and the engine's capacities."""
     ff = ffield.parse_ffield(FF)
     st = system.from_cellfile(CELL, ff.name_to_type, mc=mc, device=device)
     ffd = reax.ffdev_from(ff, device=device)
@@ -301,10 +302,10 @@ def _hbond_deck(mc, dtype, device):
                      rc2b, rctap2, kb, knb)
     img = neighbors.make_image_table(st.n, nimg, dtype, device)
     return dict(pos=st.pos.to(dtype), H=st.H.to(dtype), types=st.types,
-                img=img, nbrs=nbrs, ffd=reax.ffdev_from(ff, dtype=dtype,
-                                                        device=device),
+                gid=st.gid, img=img, nbrs=nbrs,
+                ffd=reax.ffdev_from(ff, dtype=dtype, device=device),
                 amask=torch.ones(st.n, dtype=torch.bool, device=device),
-                kh=caps["kh"])
+                kh=caps["kh"], caps=caps)
 
 
 def _hbond_inputs(d):
@@ -328,7 +329,7 @@ def test_hbond_kernel_matches_plain(mc, dtype):
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dt = getattr(torch, dtype)
     bar = 1e-4 if dt == torch.float32 else 1e-10
-    d = _hbond_deck(mc, dt, "cuda")
+    d = _card_deck(mc, dt, "cuda")
     tab, bo0 = _hbond_inputs(d)
     n0 = hb.launches["hbond"]
     got = hb.hbond(d["pos"], d["H"], bo0, tab, want_dh=True)
@@ -356,7 +357,7 @@ def test_hbond_term_on_the_card_matches_cpu():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     out = {}
     for dev in ("cuda", "cpu"):
-        d = _hbond_deck((1, 1, 1), torch.float64, dev)
+        d = _card_deck((1, 1, 1), torch.float64, dev)
         p = d["pos"].clone().requires_grad_(True)
         H = d["H"].clone().requires_grad_(True)
         bo = reax.bond_order(p, H, d["types"], d["img"], d["nbrs"], d["ffd"])
@@ -379,7 +380,7 @@ def test_hbond_refuses_what_it_does_not_take():
     did before the kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    d = _hbond_deck((1, 1, 1), torch.float32, "cuda")
+    d = _card_deck((1, 1, 1), torch.float32, "cuda")
     tab, bo0 = _hbond_inputs(d)
     pos, H = d["pos"], d["H"]
     n0 = hb.launches["hbond"]
@@ -405,3 +406,144 @@ def test_hbond_refuses_what_it_does_not_take():
         reax.e_hbond_rows(pos, H, d["types"], d["img"], d["nbrs"], bo,
                           d["amask"], d["ffd"], kh=1)
     assert hb.launches["hbond"] == n0
+
+
+# ----------------------------------------------------------------------
+# the torsion kernel (csrc/torsion.cu) against its plain version
+
+def _torsion_inputs(d):
+    """The term's tables (the engine's capacities) and its inputs that
+    carry a gradient: BO0, the pi BO, drb, delta."""
+    bo = reax.bond_order(d["pos"], d["H"], d["types"], d["img"], d["nbrs"],
+                         d["ffd"])
+    caps = d["caps"]
+    tab = tor.TorsionTables(
+        types=d["types"], gid=d["gid"], amask=d["amask"],
+        maskb=bo.mask.contiguous(), img=d["img"], nbrs=d["nbrs"],
+        ffd=d["ffd"], ks=caps["ks"], cap=caps["tor"], rowcap=caps["tor_row"])
+    return tab, (bo.bo[..., 0].contiguous(), bo.bo[..., 2].contiguous(),
+                 bo.drb.contiguous(), bo.delta.contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mc", [(1, 1, 1), (4, 4, 3)], ids=["168", "8064"])
+def test_torsion_kernel_matches_plain(mc, dtype):
+    """The kernel against `torsion_plain` on the same CUDA tensors, one
+    launch: the same count of torsions; each energy within 1e-4 (float32)
+    or 1e-10 (float64) of itself, and its gradients with respect to BO0,
+    the pi BO, drb and delta within that of their largest magnitude.  Both
+    keep the same torsions (the same products of the same float32 bond
+    orders); the kernel takes cos 2w and cos 3w as polynomials of cos w
+    where the plain version takes arccos, and sums in another order, with
+    atomics in any order: float32 rounding, ~1e-6 of the largest
+    gradient, and float64's, ~1e-15."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    bar = 1e-4 if dt == torch.float32 else 1e-10
+    d = _card_deck(mc, dt, "cuda")
+    tab, x = _torsion_inputs(d)
+    n0 = tor.launches["torsion"]
+    got = tor.torsion(*x, tab)
+    ref = tor.torsion_plain(*x, tab)
+    torch.cuda.synchronize()
+    assert tor.launches["torsion"] == n0 + 1
+    assert int(got[3]) == int(ref[3]) > 0
+    for a, b in zip(got[:2], ref[:2]):
+        assert abs(float(b)) > 0
+        assert abs(float(a - b)) <= bar * abs(float(b))
+    N, kb = tab.maskb.shape
+    for k in (0, 1):
+        for a, b, what in zip(tor.split(got[2][k], N, kb),
+                              tor.split(ref[2][k], N, kb),
+                              ("BO0", "pi", "drb", "delta")):
+            assert bool(torch.isfinite(a).all()), (k, what)
+            err = float((a - b).abs().max())
+            assert err <= bar * float(b.abs().max()), (k, what, err)
+
+
+@pytest.mark.gpu
+def test_torsion_term_on_the_card_matches_cpu():
+    """`reax.e_4body` without a list through autograd (the kernel's
+    gradients carried through the bond order and the box) on the card
+    against the plain version on the CPU, float64: each energy within
+    1e-12, dE/dpos and dE/dH within 1e-10 of their largest magnitude; one
+    launch per call on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = _card_deck((1, 1, 1), torch.float64, dev)
+        p = d["pos"].clone().requires_grad_(True)
+        H = d["H"].clone().requires_grad_(True)
+        bo = reax.bond_order(p, H, d["types"], d["img"], d["nbrs"], d["ffd"])
+        n0 = tor.launches["torsion"]
+        et, ec = reax.e_4body(p, H, d["types"], d["img"], d["nbrs"], bo,
+                              d["amask"], d["gid"], d["ffd"],
+                              ks=d["caps"]["ks"])
+        gp, gh = torch.autograd.grad(et + ec, (p, H))
+        assert tor.launches["torsion"] == n0 + (dev == "cuda")
+        out[dev] = [t.detach().cpu() for t in (et, ec, gp, gh)]
+    (t1, c1, gp1, gh1), (t0, c0, gp0, gh0) = out["cuda"], out["cpu"]
+    for a, b in ((t1, t0), (c1, c0)):
+        assert abs(float(a - b)) <= 1e-12 * abs(float(b))
+    for a, b in ((gp1, gp0), (gh1, gh0)):
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_torsion_launches_in_the_ell_step():
+    """The pair-list engine with uncached terms (the benchmark's _ell
+    cells) launches the kernel in its steps, captured into its graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    ff = ffield.parse_ffield(FF)
+    st = system.from_cellfile(CELL, ff.name_to_type)
+    e = md.Engine(ff, st, config.RunConfig(
+        dtype="float32", isQEq=2, term_cache=False, dense_direct_max=0,
+        pstep=100), device="cuda")
+    assert e.pair_engine == "ell" and e.uses_graphs()
+    e.init_velocity(seed=1)
+    e.prepare()
+    n0 = tor.launches["torsion"]
+    e.run(12, log=None)
+    torch.cuda.synchronize()
+    assert e.timers.counters.get("graph captures", 0) > 0
+    assert tor.launches["torsion"] > n0
+    assert bool(torch.isfinite(e.comps).all())
+
+
+@pytest.mark.gpu
+def test_torsion_refuses_what_it_does_not_take():
+    """A tensor on another device, a wrong dtype or a strided input raise
+    before any launch; a center with more candidate bonds than ks raises
+    on the exact path as it did before the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    d = _card_deck((1, 1, 1), torch.float32, "cuda")
+    tab, (bo0, bopi, drb, delta) = _torsion_inputs(d)
+    n0 = tor.launches["torsion"]
+    calls = [
+        lambda: tor.torsion(bo0, bopi.cpu(), drb, delta, tab),
+        lambda: tor.torsion(bo0, bopi.double(), drb, delta, tab),
+        lambda: tor.torsion(bo0, bopi, drb.transpose(0, 1).contiguous()
+                            .transpose(0, 1), delta, tab),
+        lambda: tor.torsion(bo0, bopi, drb, delta,
+                            tab._replace(gid=tab.gid.int())),
+        lambda: tor.torsion(bo0, bopi, drb, delta,
+                            tab._replace(maskb=tab.maskb.byte())),
+        lambda: tor.torsion(bo0, bopi, drb, delta, tab._replace(
+            nbrs=tab.nbrs._replace(idxb=tab.nbrs.idxb.cpu()))),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="takes a"):
+            call()
+    with pytest.raises(ValueError, match="float32 or float64"):
+        tor.torsion(bo0.half(), bopi.half(), drb.half(), delta.half(), tab)
+    bo = reax.bond_order(d["pos"], d["H"], d["types"], d["img"], d["nbrs"],
+                         d["ffd"])
+    with pytest.raises(RuntimeError, match="many-body candidate overflow"):
+        reax.e_4body(d["pos"], d["H"], d["types"], d["img"], d["nbrs"], bo,
+                     d["amask"], d["gid"], d["ffd"], ks=2)
+    assert tor.launches["torsion"] == n0
