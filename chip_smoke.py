@@ -20,8 +20,7 @@ first failure ends the run with a non-zero exit code and no result line.
      kernel on the engine's walk against `gather_rows` of `sweep_plain`,
      each timed by CUDA events beside its plain version and its bound;
      the apply with q and without timed in turns in one call, and the
-     apply beside torch.sparse.mm over the same list, with their ratio
-     (scripts/qeq_apply_forms.py times other forms of the apply);
+     apply beside torch.sparse.mm over the same list, with their ratio;
      then the hydrogen-bond kernel (csrc/hbond.cu, `phase_hbond`) on the
      pair-list engine's lists at --mc against hbond_plain, timed beside
      its bound, its plain version and the autograd grid it replaced, and
@@ -441,7 +440,7 @@ def phase_kernels(engine, seed):
     e = engine
     e._rebuild(e.state)
     s = e.state
-    ops = e._make_pair_ops(s.pos, s.H, s.types, e._slotmap)
+    ops = e.pairs.data(s.pos, s, None, e._layout)
     rng = np.random.default_rng(seed)
     n = s.n
     q = rng.normal(scale=0.2, size=n)
@@ -449,8 +448,8 @@ def phase_kernels(engine, seed):
     hs, ht = rng.normal(size=(2, n))
     t = lambda a: torch.as_tensor(a, dtype=e.dtype, device=e.device)
     q, hs, ht = t(q), t(hs), t(ht)
-    grid, walk, own = e.pairk, ops.walk, ops.own
-    nb_fn, qeq_fn = e._nb_fn, e._qeq_fn
+    grid, walk, own = ops.grid, ops.walk, ops.own
+    nb_fn, qeq_fn = ops.nb_fn, ops.fn
     nb_planes, qeq_planes = ops.nonbond_planes(q), ops.qeq_planes()
     # the filled slots lead walk.slots (its padding is never read)
     T, M = walk.tslot.shape[0], int(walk.cell_start[-1])
@@ -503,7 +502,7 @@ def phase_kernels(engine, seed):
 
     # qeq_build: the kernel's list against qeq_build_plain's, both at the
     # engine's fixed capacity (the main path's form: no host read)
-    cap = e._qcap
+    cap = ops.cap
     lst = ps.qeq_build(grid, walk, qeq_planes, qeq_fn, own, n, cap)
     torch.cuda.synchronize()
     ref = ps.qeq_build_plain(grid, walk, qeq_planes, qeq_fn, own, n, cap)
@@ -580,10 +579,10 @@ def phase_kernels(engine, seed):
     # build + apply (the engine's sweep3) and the nonbond kernel on the
     # engine's walk against sweep_plain over the TPU kernel's target
     # layout (every filled target, ghosts included), rows gathered
-    okf = (e._slotmap.slot_src >= 0).to(e.dtype)
+    okf = (e._layout.sm.slot_src >= 0).to(e.dtype)
     packed = torch.cat([qeq_planes,
                         torch.stack([hs, ht, q])[:, own.long()] * okf])
-    slot_of_atom = e._slotmap.slot_of_atom
+    slot_of_atom = e._layout.sm.slot_of_atom
     got = torch.stack(ops.sweep3(X, q))
     check_qeq_rows("sweep3 (build + apply)", got, ps.gather_rows(
         grid, ps.sweep_plain(grid, packed, qeq_fn), slot_of_atom))
@@ -617,10 +616,10 @@ def phase_hbond(mc, smi):
     forward + backward); then 3 steps of that engine and one probe of the
     sweep engine, each launching the kernel.  Returns the kernel's
     record."""
-    from rxmd_tpu_torch import reax, units
+    from rxmd_tpu_torch import native, reax, units
     from rxmd_tpu_torch.ops import hbond as hb
     from rxmd_tpu_torch.ops import pairsweep as ps
-    so, secs, msgs = ps.build(force=True, verbose=True, src=hb._SRC)
+    so, secs, msgs = native.build(hb._SRC, force=True, verbose=True)
     log(f"build: nvcc {HB_SOURCE} -> {os.path.relpath(so, REPO)} in "
         f"{secs:.1f} s")
     for line in msgs.splitlines():
@@ -749,10 +748,10 @@ def phase_torsion(mc, smi):
     autograd: its forward as a step ran it, and forward + backward beside
     the kernel's); then 3 steps of that engine and one probe of the sweep
     engine, each launching the kernel.  Returns the kernel's record."""
-    from rxmd_tpu_torch import reax, units
+    from rxmd_tpu_torch import native, reax, units
     from rxmd_tpu_torch.ops import pairsweep as ps
     from rxmd_tpu_torch.ops import torsion as tor
-    so, secs, msgs = ps.build(force=True, verbose=True, src=tor._SRC)
+    so, secs, msgs = native.build(tor._SRC, force=True, verbose=True)
     log(f"build: nvcc {TOR_SOURCE} -> {os.path.relpath(so, REPO)} in "
         f"{secs:.1f} s")
     for line in msgs.splitlines():
@@ -926,9 +925,10 @@ def drive(engine, steps, seed, echo):
 def phase_slice(mc, steps, seed):
     from rxmd_tpu_torch.ops import pairsweep as ps
     e = make_engine(mc, DEVICE)
-    log(f"slice: {e.state.n} atoms, pair grid nslots {e.pairk.nslots}, "
-        f"{len(e.pairk.cols)} stencil columns, z-reach per column "
-        f"{min(ps._reach_table(e.pairk))}-{e.pairk.zreach} cells")
+    grid = e.pairs.grid
+    log(f"slice: {e.state.n} atoms, pair grid nslots {grid.nslots}, "
+        f"{len(grid.cols)} stencil columns, z-reach per column "
+        f"{min(ps._reach_table(grid))}-{grid.zreach} cells")
     kres = phase_kernels(e, seed)
 
     e = make_engine(mc, DEVICE)
@@ -1419,6 +1419,7 @@ def row_layout_cost(e):
     from rxmd_tpu_torch import neighbors, qeq, reax
     from rxmd_tpu_torch.parallel import halo
     from rxmd_tpu_torch.md import _trim
+    from rxmd_tpu_torch.pairs import PairList
     from rxmd_tpu_torch.parallel.engine import identity_image
     s, spec, comm, ncap, dev = e.sstate, e.spec, e.comm, e.ncap, e.device
     plan, frac_ext, valid_ext = halo.build_plan(s.frac, s.valid, spec, comm)
@@ -1488,18 +1489,19 @@ def row_layout_cost(e):
         def solve():
             if name == "cut":
                 return qeq.solve(
-                    pos_rel[:ncap], s.q, s.qsfp, tex[:ncap], e.ffd,
-                    amask=s.valid, isqeq=2, lex_fqs=e.cfg.Lex_fqs, img=img,
-                    nbrs=nbrs, pre=(ctx, None, None), allreduce=comm.psum,
-                    refresh=refresh, resident_ext=amask).q
+                    s.q, s.qsfp, tex[:ncap], e.ffd, PairList.operator(
+                        ctx, None, tex[:ncap], e.ffd, img, nbrs,
+                        refresh=refresh, resident_ext=amask),
+                    amask=s.valid, isqeq=2, lex_fqs=e.cfg.Lex_fqs,
+                    allreduce=comm.psum).q
             # every row a CG entry, its ghost rows refreshed from the
             # residents before each matvec
             return qeq.solve(
-                pos_rel, q_ext, refresh(s.qsfp), tex, e.ffd, amask=amask,
-                isqeq=2, lex_fqs=e.cfg.Lex_fqs, img=img, nbrs=nbrs,
-                pre=(ctx, None, None), allreduce=comm.psum,
-                refresh=lambda x: refresh(x[:ncap]),
-                resident_ext=amask).q[:ncap]
+                q_ext, refresh(s.qsfp), tex, e.ffd, PairList.operator(
+                    ctx, None, tex, e.ffd, img, nbrs,
+                    refresh=lambda x: refresh(x[:ncap]), resident_ext=amask),
+                amask=amask, isqeq=2, lex_fqs=e.cfg.Lex_fqs,
+                allreduce=comm.psum).q[:ncap]
         t_qeq, q = wall_ms(solve)
         res[name] = dict(rows=m, centers=rows, t=(t_nb, t_lists, t_force,
                                                    t_qeq),
@@ -1701,8 +1703,8 @@ def md_rebuild_check(label, e, profile=False):
     s0 = e.state
     rec = rebuild_check(
         label, e, lambda: e._rebuild(s0),
-        lambda: ((e.nbrs, e.tlists, e._slotmap, e._pos_ref),
-                 (e._qcap, dict(e._sizes))))
+        lambda: ((e.nbrs, e.tlists, e._layout, e._pos_ref),
+                 (e.pairs.capacity(e._layout), dict(e._sizes))))
     if profile:
         busy, wall, idle, top = idle_share(lambda: e._rebuild(s0))
         e.graphs = False
@@ -2700,13 +2702,14 @@ def main():
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from rxmd_tpu_torch import native
     from rxmd_tpu_torch.ops import pairsweep as ps
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     log(f"device: {kind} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}); nvidia-smi: {smi}")
 
-    so, secs, msgs = ps.build(force=True, verbose=True)
+    so, secs, msgs = native.build(ps._SRC, force=True, verbose=True)
     log(f"build: nvcc {SOURCE} -> {os.path.relpath(so, REPO)} in "
         f"{secs:.1f} s")
     for line in msgs.splitlines():

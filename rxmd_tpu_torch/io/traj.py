@@ -19,51 +19,25 @@ to 3) and a type outside the name table (C takes type 0).  `write_pdb` and
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shlex
-import subprocess
 
 import numpy as np
 
+from .. import native
 from ..system import State
 from . import host
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "trajio.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rxmd_tpu_torch")
-_CXX_FLAGS = ["-O2", "-fPIC", "-shared"]
+_SRC = native.source("trajio.cpp")
 _lib = None
 
 
-def _compiler():
-    """The host C++ compiler: $CXX (split as a shell would), else g++."""
-    return shlex.split(os.environ.get("CXX") or "g++")
-
-
 def build():
-    """Compile csrc/trajio.cpp into build/rxmd_tpu_torch (keyed by a hash
-    of the source, the compiler and its flags) unless that library exists;
-    returns its path.  Raises with the compiler's message if it fails."""
-    cxx = _compiler()
-    with open(_SRC, "rb") as fh:
-        key = hashlib.sha256(fh.read() + " ".join(cxx + _CXX_FLAGS).encode())
-    so = os.path.join(_BUILD_DIR, f"libtrajio_{key.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    try:
-        res = subprocess.run([*cxx, *_CXX_FLAGS, "-o", tmp, _SRC],
-                             capture_output=True, text=True)
-    except OSError as err:
-        raise RuntimeError(f"C++ compiler {cxx} failed on {_SRC}: "
-                           f"{err}") from err
-    if res.returncode != 0:
-        raise RuntimeError(f"C++ compiler {cxx} failed on {_SRC}:\n"
-                           f"{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    """Compile csrc/trajio.cpp with the host C++ compiler ($CXX, split as a
+    shell would, else g++) unless built (native.build); returns the
+    library's path.  Raises with the compiler's message if it fails."""
+    cxx = shlex.split(os.environ.get("CXX") or "g++")
+    return native.build(_SRC, cxx=cxx)[0]
 
 
 def _library():

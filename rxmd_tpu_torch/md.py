@@ -6,22 +6,14 @@ thermostat (every sstep) -> half kick -> extended-Lagrangian charge DOF
 leapfrog -> [momentum reset under a field] -> drift -> QEq (every qstep)
 -> FORCE (+ field and spring forces) -> kinetic stress -> half kick.  A
 rebuild wraps the positions and rebuilds the skinned neighbor lists, the
-cached angle / torsion / hbond lists and the pair sweep's slot layout; the
+cached angle / torsion / hbond lists and the pair engine's layout; the
 host loop rebuilds on a fixed cadence or when the drift monitor trips,
 prints PRINTE lines, writes frames and keeps the per-phase timers.
 
-The pair engine (`Engine.pair_engine`), chosen at construction:
-  * "sweep": the cell-column pair sweep (ops/pairsweep, CUDA kernels on a
-    card, float32 there): closed-form kernels, orthogonal box, cached term
-    lists, no tighten_lists, neither PQEq nor LG; taken by default
-    wherever it can run;
-  * "dense": the dense minimum-image (n, n) forms (closed form, orthogonal
-    box with min(L) > 2*rctap, n <= dense_direct_max, no PQEq), as
-    rxmd_tpu;
-  * "ell": the pair context over the nonbonded list, closed-form or the
-    reference's interpolation tables (the float64 default), as rxmd_tpu;
-    under PQEq the pair terms of `pqeq.solve` and `reax.e_nonbond_pqeq`
-    walk the skinned nonbonded list.
+The pair engine (`Engine.pairs`, pairs.py; `Engine.pair_engine` names
+it), chosen at construction, makes its layout at a rebuild and a probe,
+its pair data each step, solves QEq and gives the nonbond; the programs
+carry its layout without knowing which engine runs.
 Boxes may be triclinic; the term lists may be cached or enumerated in
 every energy call (term_cache=False), and the neighbor lists tightened to
 the true cutoffs every step (tighten_lists).  mdmodes 0, 1, 4-8 (and 10
@@ -45,16 +37,16 @@ list) have fixed capacities, and their counts come out with the step for
 the host to check at a block's end (`_check_lists`).
 
 The optimizer's probe (mdmode 10, `probe`) is a program too: rxmd_tpu's
-jitted evaluation (`_probe_fn`: wrap, neighbor lists, the sweep's slot
-layout, a full QEq solve, the uncached terms' forces at the engine's
+jitted evaluation (`_probe_fn`: wrap, neighbor lists, the pair layout,
+a full QEq solve, the uncached terms' forces at the engine's
 capacities), run as a CUDA graph on a card in a cache of its own, its PE
 and every count a capacity bounds read by the host in one transfer.  So
 is the rebuild (`_rebuild`): rxmd_tpu's jitted rebuild programs
 (`_rebuild_fn`: wrap, neighbor lists, the bond order and the term lists
-at their full capacities, the sweep's slot layout and its walk's
-candidates), a CUDA graph on a card in a cache of its own, its counts and
-the steps' pending ones read in one transfer, the lists then cut to the
-window's buckets on the host.
+at their full capacities, the pair layout and its counts), a CUDA graph
+on a card in a cache of its own, its counts and the steps' pending ones
+read in one transfer, the lists then cut to the window's buckets on the
+host.
 
 Tracing (utils/timers.py): each dispatch names its program ("prepare",
 "step", "block", "probe", "rebuild") for the device marks of the phases
@@ -74,11 +66,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import graphs, neighbors, pqeq, qeq, reax, units
+from . import graphs, neighbors, pairs, pqeq, reax, units
 from .config import RunConfig
 from .ffield import ForceField, effective_maxrc
 from .io import refbin, traj
-from .ops import pairsweep
 from .system import State
 from .utils import timers as trace
 from .utils.timers import RunProfile, Timers
@@ -218,8 +209,7 @@ class ProbeIn(NamedTuple):
     """An optimizer probe's input (`Engine._probe_fn`)."""
     state: State          # the engine's state at the probe's positions
     hinv: torch.Tensor    # (3, 3) H^-1: the box is fixed under mdmode 10
-    qcap: int             # the sweep's QEq list capacity (None: exact, or
-                          # no sweep)
+    layout: object        # the pair layout's capacities (pairs.py)
 
 
 class ProbeOut(NamedTuple):
@@ -232,9 +222,9 @@ class ProbeOut(NamedTuple):
 
 
 # a probe's counts, in ProbeOut.counts' order: the densest neighbor cell,
-# the largest bonded and nonbonded neighbor rows, the densest slot cell
-# and the QEq list's entries of the sweep, then the capacity counts of
-# CAP_NAMES (0 where a configuration counts none)
+# the largest bonded and nonbonded neighbor rows, the pair layout's densest
+# slot cell and QEq list entries (pairs.PairEngine.counts), then the
+# capacity counts of CAP_NAMES (0 where a configuration counts none)
 PROBE_COUNTS = ("cells", "kb", "knb", "slots", "qeq") + CAP_NAMES
 
 
@@ -253,15 +243,14 @@ class RebuildOut(NamedTuple):
     nbrs: neighbors.Neighbors   # the skinned neighbor lists
     lists: tuple          # (angle, torsion, hbond) lists at their full
                           # capacities (caps "ang", "tor", "hbf"), or None
-    sm: object            # the sweep's pairsweep.SlotMap, or None
+    layout: object        # the pair layout (pairs.py), None off the sweep
     counts: torch.Tensor  # int64, REBUILD_COUNTS' order
 
 
 # a rebuild's counts, in RebuildOut.counts' order: the densest neighbor
 # cell, the largest bonded and nonbonded neighbor rows, the angle, torsion
-# and hbond lists' entries, the densest slot cell and the QEq list's
-# candidates of the sweep's walk (pairsweep.walk_candidates); 0 where a
-# configuration has none
+# and hbond lists' entries, the pair layout's densest slot cell and QEq
+# list candidates (pairs.PairEngine.counts); 0 where there are none
 REBUILD_COUNTS = ("cells", "kb", "knb", "ang", "tor", "hbf", "slots", "qeq")
 
 
@@ -316,35 +305,6 @@ def probe_capacities(ff: ForceField, state: State, ffd, rctap,
     return kb, knb, caps
 
 
-def _pair_engine(cfg: RunConfig, closed_form, H, n, rctap, lg=False):
-    """The nonbond and QEq pair engine of a configuration (see the module
-    docstring): where rxmd_tpu routes, except that pair_kernel=None takes
-    the sweep wherever it can run, and pair_kernel=True on a
-    configuration the sweep cannot take raises, naming why.  The sweep's
-    kernels know neither the PQEq core/shell terms nor the LG terms, and
-    the dense forms not PQEq (ref: rxmd_tpu md.py:248, 272)."""
-    ortho = bool(np.allclose(H, np.diag(np.diag(H))))
-    no_sweep = [name for cond, name in (
-        (not closed_form, "the interpolation tables (nonbond_closed_form="
-                          "False, the float64 default)"),
-        (not ortho, "a triclinic box"),
-        (not cfg.term_cache, "term_cache=False"),
-        (cfg.tighten_lists, "tighten_lists"),
-        (cfg.isPQEq, "PQEq"),
-        (lg, "LG dispersion"),
-    ) if cond]
-    if cfg.pair_kernel is not False and not no_sweep:
-        return "sweep"
-    if cfg.pair_kernel:
-        raise ValueError("pair_kernel=True: the pair sweep cannot run "
-                         + ", ".join(no_sweep))
-    if (closed_form and ortho and not cfg.isPQEq
-            and float(np.diag(H).min()) > 2.0 * rctap
-            and n <= cfg.dense_direct_max):
-        return "dense"
-    return "ell"
-
-
 class Engine:
     """Single-device MD engine on `device` ("cuda" needs a card: without
     one the constructor raises; it never moves to the CPU by itself)."""
@@ -389,15 +349,8 @@ class Engine:
         # cached term lists index the skinned neighbor slots, which the
         # per-step tightening renumbers
         self.term_cache = cfg.term_cache and not cfg.tighten_lists
-        self.pair_engine = _pair_engine(cfg, self.closed_form, H, state.n,
-                                        rctap, lg=ff.is_lg)
-        if (self.pair_engine == "sweep" and device.type == "cuda"
-                and dtype != torch.float32):
-            raise ValueError(
-                f"Engine(device='cuda', dtype={dtype}): the CUDA sweep "
-                "kernels are float32; pass --dtype float32 (dtype="
-                "torch.float32), or nonbond_closed_form=False for the "
-                "pair-list engine, or run on the CPU")
+        self.pair_engine = pairs.choose(cfg, self.closed_form, H, state.n,
+                                        rctap, ff.is_lg, device, dtype)
         if cfg.mdmode == 0:
             # ref: init.F90:56-63, on a copy: the caller's RunConfig keeps
             # its own
@@ -435,19 +388,9 @@ class Engine:
         self.kb = cfg.kb_cap or kb
         self.knb = cfg.knb_cap or knb
 
-        # the cell-column pair sweep's slot grid and pair functions (no
-        # slot-count cap: the slot table lives in device memory)
-        self.pairk = None
-        if self.pair_engine == "sweep":
-            self.pairk = pairsweep.make_pair_grid(H, rctap, skin=self.skin,
-                                                  ccap=8)
-            rc2 = float(self.ffd.rctap2)
-            self._nb_fn = pairsweep.make_nonbond_pair_fn(self.ffd, ff.nso,
-                                                         rc2)
-            self._qeq_fn = pairsweep.make_qeq_pair_fn(self.ffd, ff.nso, rc2)
-        # the pair ops run the CUDA kernels for CUDA tensors (the plain
-        # versions for CPU tensors); a reference run may set this to run the
-        # plain versions on any device
+        self.pairs = pairs.make(self, H)
+        # a reference run may set this to run the sweep's plain versions,
+        # which CPU tensors take, on any device
         self.plain_sweeps = False
         # QEq solves, and CG iterations summed over them (on the device)
         self.qeq_solves = 0
@@ -465,13 +408,13 @@ class Engine:
         self._hinv = None
         # steps per block dispatch (rxmd_tpu md.py:308), the schedule's
         # velocity bound and last block drift, the rebuild window's id,
-        # the QEq list's capacity and its entries since the last check,
-        # and the capacity counts (CAP_NAMES) since the last check
+        # the QEq list's entries and the capacity counts (CAP_NAMES) since
+        # the last check
         self.block_steps = max(int(cfg.block_steps), 1)
         self._vmax = self._last_maxdr = None
         self._window_id = 0
         self._sizes = {}
-        self._qcap = self._qeq_need = self._over = None
+        self._qeq_need = self._over = None
 
         # rebuild trigger: pair lists are valid while drift < skin/2, cached
         # term lists while drift < term_margin/2 (0 without a cache)
@@ -523,129 +466,10 @@ class Engine:
             counts["knb_t"] = tight.cntnb.max()
         return tight
 
-    def _pair_data(self, pos, s: State, nbrs, sm, qcap=None):
-        """This step's pair data, shared by QEq and the nonbond term: the
-        sweep's PairOps over the slot map `sm` (`qcap` the QEq list's
-        capacity, None for a list of exactly its entries); for the
-        pair-list engine the pair context and, with the tables, its table
-        rows (as reax.pair_rows gives them); nothing for the dense forms
-        or PQEq, whose pair terms walk the list themselves."""
+    def _pair_data(self, pos, s: State, nbrs, layout):
+        """This step's pair data, shared by QEq and the nonbond term."""
         with trace.phase("pairs"):
-            if self.pair_engine == "sweep":
-                return self._make_pair_ops(pos, s.H, s.types, sm, qcap,
-                                           s.gid)
-            if self.pair_engine == "dense" or self.pq is not None:
-                return None
-            amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
-            ctx = reax.nb_ctx(pos, None, s.H, s.types, self.img, nbrs, s.gid,
-                              amask, self.ffd)
-            rows = (None if self.closed_form
-                    else reax.pair_rows(ctx, s.types, self.ffd))
-            return ctx, rows
-
-    def _bin_pair_slots(self, pos, H):
-        """Cell-slot binning for the pair sweep (at a rebuild and in each
-        probe)."""
-        pose = neighbors.ext_positions(pos, H, self.img)
-        valid = torch.ones(pose.shape[0], dtype=torch.bool,
-                           device=pose.device)
-        return pairsweep.bin_slots(pose, valid, self.pairk, pos.shape[0])
-
-    def _make_pair_ops(self, pos, H, types, sm, qcap=None, gid=None):
-        """Closures running the pair kernels for this step's positions over
-        the slot map's walk (the primary atoms in slot order): sweep3 (the
-        QEq matvec of the CG's (n, 2) state and, unless q is None, the Est
-        rows; the hessian list, of capacity `qcap` (None: the size its
-        layout asks, one host read), is built at its first call, once per
-        QEq solve, and applied at every call) and nonbond (energy/force/
-        virial rows), each (rows, n) per primary atom; `need()` the
-        capacity the list asks (QeqList.need) once built.  `gid` defaults
-        to the engine state's; a step passes its own, which a CUDA graph
-        copies in."""
-        ps = pairsweep
-        pg = self.pairk
-        n = pos.shape[0]
-        S = self.img.n_images
-        pose = neighbors.ext_positions(pos, H, self.img)
-        src = sm.slot_src
-        ok = src >= 0
-        srcc = torch.where(ok, src, 0)
-        own = srcc % n if S > 1 else srcc
-        pos3 = torch.where(ok[:, None], pose[srcc], ps.FAR).T     # (3, ns)
-        tslot = torch.where(ok, types[own].to(pos.dtype), 0.0)
-        gid = self.state.gid if gid is None else gid
-        gidf = torch.where(ok, gid[own].to(pos.dtype), -1.0)
-        isprim = ((src < n) & ok).to(pos.dtype)
-        walk = ps.atom_walk(sm)
-        own32 = own.to(torch.int32)
-        qeq_fn, nb_fn = self._qeq_fn, self._nb_fn
-        if self.plain_sweeps:
-            build, apply, nb_rows = (ps.qeq_build_plain, ps.qeq_apply_plain,
-                                     ps.nonbond_plain)
-        else:
-            build, apply, nb_rows = ps.qeq_build, ps.qeq_apply, ps.nonbond
-        hessian = []                   # the QEq list, at the first sweep3
-
-        class PairOps:
-            @staticmethod
-            def qeq_planes():
-                """(5, nslots) planes x, y, z, type, is_primary."""
-                return torch.cat([pos3, tslot[None], isprim[None]])
-
-            @staticmethod
-            def nonbond_planes(q):
-                """(6, nslots) planes x, y, z, type, gid, q."""
-                qs = torch.where(ok, q[own], 0.0)[None]
-                return torch.cat([pos3, tslot[None], gidf[None], qs])
-
-            @staticmethod
-            def sweep3(X, qc):
-                if not hessian:
-                    hessian.append(build(pg, walk, PairOps.qeq_planes(),
-                                         qeq_fn, own32, n, qcap))
-                rows = apply(hessian[0], walk, X, qc)
-                return rows[0], rows[1], rows[2]
-
-            @staticmethod
-            def nonbond(q):
-                return nb_rows(pg, walk, PairOps.nonbond_planes(q), nb_fn)
-
-            @staticmethod
-            def need():
-                return hessian[0].need if hessian else None
-
-        PairOps.walk, PairOps.own = walk, own32
-        return PairOps
-
-    def _external_nonbond(self, pos, q, s: State, pairs, with_virial):
-        """(evdw, eclmb, echarge, f_nb, w_nb or None) of the pair engine;
-        None under PQEq, whose nonbond joins the autograd pass."""
-        if self.pq is not None:
-            return None
-        types = s.types
-        amask = torch.ones(s.n, dtype=torch.bool, device=pos.device)
-        if self.pair_engine == "dense":
-            out = reax.nonbond_dense(pos, q, s.H, types, amask, self.ffd,
-                                     with_virial=with_virial)
-            return out if with_virial else (*out, None)
-        if self.pair_engine == "ell":
-            ctx, rows = pairs
-            out = reax.nonbond_ctx_energy_forces(
-                ctx, q, types, amask, self.ffd, self.closed_form,
-                with_virial=with_virial, pre=rows, img=self.img)
-            return out if with_virial else (*out, None)
-        rows = pairs.nonbond(q)
-        evdw = torch.sum(rows[0])
-        eclmb = torch.sum(rows[1])
-        echarge = reax.charge_energy(q, types, amask, self.ffd)
-        f_nb = rows[2:5].T
-        w_nb = None
-        if with_virial:
-            v = torch.sum(rows[5:11], dim=1)   # xx,yy,zz,yz,zx,xy
-            w_nb = torch.stack([torch.stack([v[0], v[5], v[4]]),
-                                torch.stack([v[5], v[1], v[3]]),
-                                torch.stack([v[4], v[3], v[2]])])
-        return evdw, eclmb, echarge, f_nb, w_nb
+            return self.pairs.data(pos, s, nbrs, layout)
 
     def _wrap(self, pos, H, hinv=None):
         """Wrap positions into the primary cell (`hinv`: H^-1 if known;
@@ -656,41 +480,19 @@ class Engine:
 
     def _qeq_step(self, pos, q, qsfp, qsfv, s: State, nbrs, pairs,
                   isqeq=None, spos=None, loop=None):
-        """(q, qsfp, qsfv, CG iterations, spos) after a QEq solve, or under
-        PQEq a PQEq solve and its shell step from `spos`; `loop` drives
-        the CG's chunks (qeq.solve).  Mutates nothing: a CUDA graph holds
-        it."""
-        cfg = self.cfg
-        isqeq = cfg.isQEq if isqeq is None else isqeq
+        """(q, qsfp, qsfv, CG iterations, spos) after the pair engine's
+        solve (under PQEq with its shell step from `spos`; `loop` drives the
+        CG's chunks).  Mutates nothing: a CUDA graph holds it."""
+        isqeq = self.cfg.isQEq if isqeq is None else isqeq
         if isqeq == 0:
             return q, qsfp, qsfv, 0, spos
-        if self.pq is not None:
-            with trace.phase("qeq"):
-                qn, spos_n, iters, _ = pqeq.solve(
-                    pos, spos, q, qsfp, s.H, s.types, self.img, nbrs,
-                    self.ffd, self.pq, isqeq=isqeq, nmax=cfg.NMAXQEq,
-                    tol=cfg.QEq_tol, lex_fqs=cfg.Lex_fqs,
-                    efield_dir=cfg.eFieldDir if cfg.isEfield else None,
-                    efield_strength=cfg.eFieldStrength, loop=loop)
-            if isqeq == 1:
-                return qn, q, torch.zeros_like(qsfv), iters, spos_n
-            return qn, qsfp, qsfv, iters, spos_n
-        sweep = self.pair_engine == "sweep"
-        pre = None
-        if self.pair_engine == "ell":
-            ctx, rows = pairs
-            pre = (ctx, None, None) if rows is None else (ctx, *rows)
         with trace.phase("qeq"):
-            res = qeq.solve(pos, q, qsfp, s.types, self.ffd,
-                            pairs if sweep else None, isqeq=isqeq,
-                            nmax=cfg.NMAXQEq, tol=cfg.QEq_tol,
-                            lex_fqs=cfg.Lex_fqs, H=s.H, img=self.img,
-                            nbrs=nbrs, pre=pre, dense_max=cfg.qeq_dense_max,
-                            direct=self.pair_engine == "dense", loop=loop)
+            qn, iters, spos = self.pairs.solve(pos, q, qsfp, s, nbrs, pairs,
+                                               isqeq, spos, loop)
         if isqeq == 1:
             # fictitious charges re-seeded from pre-QEq q (ref: qeq.F90:42-43)
-            return res.q, q, torch.zeros_like(qsfv), res.iters, spos
-        return res.q, qsfp, qsfv, res.iters, spos
+            return qn, q, torch.zeros_like(qsfv), iters, spos
+        return qn, qsfp, qsfv, iters, spos
 
     def _potential(self, pos, q, s: State, nbrs, lists, pairs, with_virial,
                    spos=None, counts=None):
@@ -701,15 +503,12 @@ class Engine:
         overflow, or with `counts` (a dict) lists of the engine's
         capacities, their counts left in it (reax.energy_components)."""
         with trace.phase("nonbond"):
-            ext_nb = self._external_nonbond(pos, q, s, pairs, with_virial)
-        ctx = pairs[0] if pairs is not None and self.pair_engine == "ell" \
-            else None
+            ext_nb = self.pairs.nonbond(pos, q, s, pairs, with_virial)
         with trace.phase("bonded"):
             return reax.energy_and_forces(
                 pos, q, s.H, s.types, s.gid, self.img, nbrs, self.ffd,
                 lists, with_virial=with_virial, external_nonbond=ext_nb,
-                caps=self.caps, ctx=ctx, pq=self.pq, spos=spos,
-                counts=counts)
+                caps=self.caps, pq=self.pq, spos=spos, counts=counts)
 
     def _external_forces(self, pos, q, types=None):
         """Electric-field and spring forces, or None without either."""
@@ -821,14 +620,13 @@ class Engine:
         into the box (by `carry.hinv`), the skinned neighbor lists, with
         cached terms the bond order and the angle, torsion and hbond lists
         (slackened gates, `term_slack`/`term_margin`) at their full
-        capacities, and for the sweep the slot layout and its walk's QEq
-        list candidates.  It reads the engine's constants, mutates nothing
-        and reads nothing on the host, so a CUDA graph can hold it; every
-        count a capacity bounds comes out in `counts`, for the host to
-        check (`_rebuild`)."""
+        capacities, and the pair layout with its counts.  It reads the
+        engine's constants, mutates nothing and reads nothing on the host,
+        so a CUDA graph can hold it; every count a capacity bounds comes
+        out in `counts`, for the host to check (`_rebuild`)."""
         pos0, H, types, gid, hinv = carry
         counts = {}
-        lists = sm = None
+        lists = None
         with trace.phase("rebuild"):
             pos = self._wrap(pos0, H, hinv)
             nbrs = self._build_nbrs(pos, H, types, counts)
@@ -852,32 +650,29 @@ class Engine:
                         pos, H, types, self.img, nbrs, bo, amask, self.ffd,
                         cap=caps["hbf"], kh=caps["kh"],
                         rowcap=caps["hb_row"], **kw))
-            if self.pair_engine == "sweep":
-                sm = self._bin_pair_slots(pos, H)
-                cand = pairsweep.walk_candidates(self.pairk,
-                                                 pairsweep.atom_walk(sm))
+            layout = self.pairs.layout(pos, H)
+            pcounts = self.pairs.counts(layout)
         vec = torch.stack([t.to(torch.int64) for t in (
             counts.get("cells", z), nbrs.cntb.max(), nbrs.cntnb.max(),
             *((z,) * 3 if lists is None else (lst.cnt for lst in lists)),
-            z if sm is None else sm.overflow, z if sm is None else cand)])
-        return RebuildOut(pos, nbrs, lists, sm, vec)
+            *(pcounts or (z, z)))])
+        return RebuildOut(pos, nbrs, lists, layout, vec)
 
     @torch.no_grad()
     def _rebuild(self, s: State):
         """Wrap positions into the box, rebuild the skinned neighbor lists,
         the cached many-body lists (slackened gates; none for uncached
-        terms) and the sweep's slot layout with its QEq list capacity:
-        the rebuild program (`_rebuild_fn`) as a CUDA graph where
-        `uses_graphs()` (a cache of its own), else eagerly, then one host
-        read of its counts together with the steps' counts since the last
-        check.  The steps' lists are checked first (`_check_lists`), then
-        the rebuild's, each raising with its message; the term lists are
-        then cut to the window's padded lengths (`_size`, views of the
-        program's output) and the QEq list's capacity is the walk's
-        candidates, padded so (`_qcap`).  Counted after the read: the
-        neighbor build's row passes ("nbr build passes",
-        neighbors.passes) and, on a card, the level "reserved free GiB":
-        memory the allocator reserves and no tensor takes."""
+        terms) and the pair layout: the rebuild program (`_rebuild_fn`) as
+        a CUDA graph where `uses_graphs()` (a cache of its own), else
+        eagerly, then one host read of its counts together with the steps'
+        counts since the last check.  The steps' lists are checked first
+        (`_check_lists`), then the rebuild's, each raising with its
+        message; the term lists are then cut to the window's padded
+        lengths (`_size`, views of the program's output) and the pair
+        layout sized for the window.  Counted after the read: the neighbor
+        build's row passes ("nbr build passes", neighbors.passes) and, on
+        a card, the level "reserved free GiB": memory the allocator
+        reserves and no tensor takes."""
         H = s.H
         if self._hinv is None or self._hinv[0] is not H:
             self._hinv = (H, torch.linalg.inv(H))
@@ -922,9 +717,8 @@ class Engine:
                     tm.peak(name, c, cap)
                 lists = tuple(_trim(lst, self._size(nm, c, cap)) for lst,
                               nm, c, cap in zip(lists, names, cnts, caps))
-            if out.sm is not None:
-                self._qcap = self._size("qeq list", got["qeq"])
-        self.nbrs, self.tlists, self._slotmap = out.nbrs, lists, out.sm
+            layout = self.pairs.window(out.layout, got)
+        self.nbrs, self.tlists, self._layout = out.nbrs, lists, layout
         self.state = dataclasses.replace(s, pos=out.pos)
         self._pos_ref = out.pos
         self._steps_since_rebuild = 0
@@ -948,10 +742,10 @@ class Engine:
 
     def _check_lists(self, vals=None):
         """Raise if a list of the steps since the last check overflowed
-        its capacity: the sweep's QEq list (`_qcap`) and the steps' own
-        lists (CAP_NAMES against `caps`: the uncached terms and the
-        tightened neighbor lists).  One host read, none if `vals` (the
-        values of `_pending()`, in order) was read already.  The steps
+        its capacity: the pair engine's QEq list and the steps' own lists
+        (CAP_NAMES against `caps`: the uncached terms and the tightened
+        neighbor lists).  One host read, none if `vals` (the values of
+        `_pending()`, in order) was read already.  The steps
         run a block or more past an overflow before this raises (the
         host reads at a block's end, a rebuild and a run's end); rxmd_tpu
         drops the entries past a capacity, and the port raises."""
@@ -962,10 +756,8 @@ class Engine:
         need = vals[0] if self._qeq_need is not None else None
         over = vals[-len(CAP_NAMES):] if self._over is not None else None
         self._qeq_need = self._over = None
-        if need is not None and need > self._qcap:
-            raise RuntimeError(
-                f"QEq list overflow: {int(need)} entries > capacity "
-                f"{self._qcap} (pairsweep.walk_candidates bounds them)")
+        if need is not None:
+            self.pairs.check_need(need, self._layout)
         if over is not None:
             self._check_over(dict(zip(CAP_NAMES, (int(v) for v in over))))
 
@@ -1013,12 +805,6 @@ class Engine:
                     "main.F90:402-407)")
         return None
 
-    def _check_slot_overflow(self, ov):
-        if ov > self.pairk.ccap:
-            raise RuntimeError(
-                f"pair-sweep cell overflow: {ov} > ccap={self.pairk.ccap} "
-                "(increase ccap or cell size)")
-
     @torch.no_grad()
     def prepare(self):
         """Initial rebuild, QEq and FORCE before the main loop
@@ -1027,8 +813,7 @@ class Engine:
         s = self.state
         with trace.program("prepare", self.device):
             nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
-            pairs = self._pair_data(s.pos, s, nbrs, self._slotmap,
-                                    self._qcap)
+            pairs = self._pair_data(s.pos, s, nbrs, self._layout)
             # cold-start extended Lagrangian: one full CG solve seeds the
             # fictitious charge DOF
             isq = 1 if self.cfg.isQEq == 2 else None
@@ -1046,20 +831,20 @@ class Engine:
         self.nqeq = nq
         self.cg_iters = self.cg_iters + nq
         self.qeq_solves += bool(self.cfg.isQEq)
-        if self.pair_engine == "sweep" and self.cfg.isQEq:
-            self._qeq_need = pairs.need()
+        if self.cfg.isQEq:
+            self._qeq_need = self.pairs.need(pairs)
             self._check_lists()
         self._astr = torch.zeros((6,), dtype=self.dtype, device=self.device)
         self._astr_steps = 0
         return comps
 
-    def _step_fn(self, s: State, f, nbrs, lists, sm, qcap, pos_ref, astr,
+    def _step_fn(self, s: State, f, nbrs, lists, layout, pos_ref, astr,
                  do_scale, do_qeq, loop=None):
         """One velocity-Verlet step as a function of its inputs (rxmd_tpu's
         `_step_fn`, md.py:637-714): a StepOut.  It reads the engine's
         constants and mutates nothing, so a CUDA graph can hold it;
         `do_scale` and `do_qeq` are the host's decisions for this step,
-        `qcap` the QEq list's capacity, `loop` runs the CG's chunks.  The
+        `layout` the pair layout, `loop` runs the CG's chunks.  The
         step's own lists (tightened neighbors, uncached terms) have fixed
         capacities: their counts come out in `over`, for the host to
         check at the block's end."""
@@ -1081,14 +866,13 @@ class Engine:
 
         counts = {}
         nbrs = self._tight_nbrs(pos, s.H, s.types, nbrs, counts)
-        pairs = self._pair_data(pos, s, nbrs, sm, qcap)
+        pairs = self._pair_data(pos, s, nbrs, layout)
         need = None
         if do_qeq:
             q, qsfp, qsfv, nq, spos = self._qeq_step(
                 pos, s.q, qsfp, qsfv, s, nbrs, pairs, spos=s.spos,
                 loop=loop)
-            if self.pair_engine == "sweep":
-                need = pairs.need()
+            need = self.pairs.need(pairs)
         else:
             q, nq, spos = s.q, 0, s.spos
         if not isinstance(nq, torch.Tensor):
@@ -1115,8 +899,8 @@ class Engine:
         return StepOut(s2, f2, comps, nq, nq, ke, maxdr2, astr, need, None,
                        _over_vector(counts))
 
-    def _multi_step(self, pattern, s: State, f, nbrs, lists, sm, qcap,
-                    pos_ref, astr, loop=None):
+    def _multi_step(self, pattern, s: State, f, nbrs, lists, layout, pos_ref,
+                    astr, loop=None):
         """len(pattern) steps, (do_scale, do_qeq) each (rxmd_tpu's
         `_make_multi_step`, md.py:717-738): the last step's StepOut with
         the CG iterations summed over the steps (`nq_sum`), the block's
@@ -1125,7 +909,7 @@ class Engine:
         v^2 (`vmax2`)."""
         out = None
         for do_scale, do_qeq in pattern:
-            o = self._step_fn(s, f, nbrs, lists, sm, qcap, pos_ref, astr,
+            o = self._step_fn(s, f, nbrs, lists, layout, pos_ref, astr,
                               do_scale, do_qeq, loop)
             if out is not None:
                 o = o._replace(nq_sum=out.nq_sum + o.nq,
@@ -1136,17 +920,18 @@ class Engine:
             s, f, astr = o.state, o.force, o.astr
         return out._replace(vmax2=torch.max(torch.sum(s.vel * s.vel, dim=1)))
 
-    def _block_fn(self, pattern, qcap, window, carry, loop):
+    def _block_fn(self, pattern, window, carry, loop):
         """The program a dispatch runs, as graphs.GraphCache takes it: a
         single step for one entry of `pattern`, else a block.  window =
-        (nbrs, lists, slot map, pos_ref); carry = (state, force, astr)."""
-        nbrs, lists, sm, pos_ref = window
+        (nbrs, lists, pair layout, pos_ref); carry = (state, force,
+        astr)."""
+        nbrs, lists, layout, pos_ref = window
         s, f, astr = carry
         if len(pattern) == 1:
-            return self._step_fn(s, f, nbrs, lists, sm, qcap, pos_ref, astr,
+            return self._step_fn(s, f, nbrs, lists, layout, pos_ref, astr,
                                  *pattern[0], loop)
-        return self._multi_step(pattern, s, f, nbrs, lists, sm, qcap,
-                                pos_ref, astr, loop)
+        return self._multi_step(pattern, s, f, nbrs, lists, layout, pos_ref,
+                                astr, loop)
 
     def uses_graphs(self):
         """Whether dispatches run as CUDA graphs: on a card, for every
@@ -1167,7 +952,7 @@ class Engine:
         pattern = tuple((scale and (s0 + i) % cfg.sstep == 0,
                          bool(cfg.isQEq) and (s0 + i) % cfg.qstep == 0)
                         for i in range(K))
-        window = (self.nbrs, self.tlists, self._slotmap, self._pos_ref)
+        window = (self.nbrs, self.tlists, self._layout, self._pos_ref)
         # the host's step count stays out of the program (and its key)
         carry = (dataclasses.replace(self.state, step=0), self.force,
                  self._astr)
@@ -1176,12 +961,12 @@ class Engine:
                 if self._graphs is None:
                     self._graphs = graphs.GraphCache(self.device)
                 out = self._run_graph(
-                    self._graphs, (pattern, self._qcap),
-                    functools.partial(self._block_fn, pattern, self._qcap),
-                    window, carry, self._window_id)
+                    self._graphs,
+                    (pattern, self.pairs.capacity(self._layout)),
+                    functools.partial(self._block_fn, pattern), window,
+                    carry, self._window_id)
             else:
-                out = self._block_fn(pattern, self._qcap, window, carry,
-                                     None)
+                out = self._block_fn(pattern, window, carry, None)
         self.state = dataclasses.replace(out.state, step=s0 + K)
         self.force, self.comps, self.nqeq, self._ke = (
             out.force, out.comps, out.nq, out.ke)
@@ -1223,26 +1008,22 @@ class Engine:
         """One optimizer probe as a function of its inputs (rxmd_tpu's
         jitted `evaluate`, opt.py:40-50): a ProbeOut.  The positions
         wrapped (by `carry.hinv`), the skinned neighbor lists (tightened
-        under tighten_lists), for the sweep its slot layout and pair data
-        with a QEq list of capacity `carry.qcap`, a full QEq solve
-        (isQEq=1; under PQEq a PQEq solve and its shell step from the
-        state's shells, which the forces read and nothing keeps; `loop`
-        runs the CG's chunks), then the forces over the uncached terms at
-        the engine's capacities (`caps`), rxmd_tpu's evaluation and the
-        exact-gate lists' set.  It reads the engine's constants, mutates
-        nothing and reads nothing on the host, so a CUDA graph can hold
-        it; every count a capacity bounds comes out in `counts`, for the
-        host to check (`probe`)."""
-        s, hinv, qcap = carry
+        under tighten_lists), the pair layout (`carry.layout`'s capacities)
+        and data, a full QEq solve (under PQEq its shell step too, which
+        the forces read and nothing keeps; `loop` runs the CG's chunks),
+        then the forces over the uncached terms at the engine's `caps`.
+        It reads the engine's constants, mutates nothing and reads nothing
+        on the host, so a CUDA graph can hold it; every count a capacity
+        bounds comes out in `counts`, for the host to check (`probe`)."""
+        s, hinv, layout = carry
         counts = {}
-        sweep = self.pair_engine == "sweep"
         with trace.phase("rebuild"):
             pos = self._wrap(s.pos, s.H, hinv)
             nbrs = self._build_nbrs(pos, s.H, s.types, counts)
             rows = [nbrs.cntb.max(), nbrs.cntnb.max()]
             nbrs = self._tight_nbrs(pos, s.H, s.types, nbrs, counts)
-            sm = self._bin_pair_slots(pos, s.H) if sweep else None
-        pairs = self._pair_data(pos, s, nbrs, sm, qcap)
+            layout = self.pairs.layout(pos, s.H, layout)
+        pairs = self._pair_data(pos, s, nbrs, layout)
         q, _, _, nq, spos = self._qeq_step(pos, s.q, s.qsfp, s.qsfv, s,
                                            nbrs, pairs, isqeq=1,
                                            spos=s.spos, loop=loop)
@@ -1251,8 +1032,8 @@ class Engine:
         z = rows[0].new_zeros(())
         over = _over_vector(counts)
         vec = torch.stack([t.to(torch.int64) for t in (
-            counts.get("cells", z), *rows, sm.overflow if sweep else z,
-            pairs.need() if sweep else z)])
+            counts.get("cells", z), *rows,
+            *(self.pairs.counts(layout, pairs) or (z, z)))])
         return ProbeOut(comps[0], f, q, nq, torch.cat(
             [vec, z.new_zeros(len(CAP_NAMES)) if over is None else over]))
 
@@ -1260,59 +1041,43 @@ class Engine:
     def probe(self, pos, hinv=None):
         """(PE as a float, forces, charges) at `pos`, which stays
         untouched: the probe program (`_probe_fn`) as a CUDA graph where
-        `uses_graphs()` (a cache of its own, keyed by its input's shapes
-        and the QEq list's capacity), else eagerly, then one host read of
-        its PE and counts.  A count past one of the engine's capacities
-        raises, naming it.  The sweep's QEq list is sized by the first
-        probe, run eagerly with a list of exactly its entries, as a
-        window's lists are (`_size`); a probe whose list outgrows that
-        capacity grows it and runs again.  `hinv`: H^-1 (else inverted
-        here)."""
+        `uses_graphs()` (a cache of its own), else eagerly, then one host
+        read of its PE and counts; a count past a capacity raises, naming
+        it.  The pair engine may rerun it (pairs.Sweep.probe).  `hinv`:
+        H^-1 (else inverted here)."""
         with self.timers("probe"):
-            return self._probe(pos, hinv)
+            s = dataclasses.replace(self.state, pos=pos, step=0)
+            hinv = torch.linalg.inv(s.H) if hinv is None else hinv
 
-    def _probe(self, pos, hinv):
-        s = dataclasses.replace(self.state, pos=pos, step=0)
-        hinv = torch.linalg.inv(s.H) if hinv is None else hinv
-        sweep = self.pair_engine == "sweep"
-        tm = self.timers
-        while True:
-            qcap = self._sizes.get("probe qeq list") if sweep else None
-            carry = ProbeIn(s, hinv, qcap)
-            tm.count("probes", 1)
-            with trace.span("dispatch"), trace.program("probe", self.device):
-                if self.uses_graphs() and not (sweep and qcap is None):
-                    if self._probe_graphs is None:
-                        self._probe_graphs = graphs.GraphCache(self.device)
-                    out = self._run_graph(
-                        self._probe_graphs, "probe",
-                        lambda _, c, loop: self._probe_fn(c, loop), (),
-                        carry, 0)
-                else:
-                    out = self._probe_fn(carry)
-            self.cg_iters = self.cg_iters + out.nq
-            self.qeq_solves += 1
-            with trace.span("read"):
-                pe, *vals = torch.cat([out.pe[None].double(),
-                                       out.counts.double()]).tolist()
-            trace.drain()
-            with trace.span("checks"):
-                got = dict(zip(PROBE_COUNTS, (int(v) for v in vals)))
-                self._check_probe(got)
-            if sweep and (qcap is None or got["qeq"] > qcap):
-                self._size("probe qeq list", got["qeq"])
-                if qcap is not None:
-                    tm.count("probe QEq list regrowths", 1)
-                    continue
-            break
-        tm.peak("bonded nbr list", got["kb"], self.kb)
-        tm.peak("nonbonded nbr list", got["knb"], self.knb)
-        tm.peak("angle list", got["ang"], self.caps["ang"])
-        tm.peak("torsion list", got["tor"], self.caps["tor"])
-        if sweep:
-            tm.peak("probe QEq list", got["qeq"],
-                    self._sizes["probe qeq list"])
-        return pe, out.force, out.q
+            def run(layout, graph):
+                carry = ProbeIn(s, hinv, layout)
+                self.timers.count("probes", 1)
+                with trace.span("dispatch"), trace.program("probe",
+                                                           self.device):
+                    if self.uses_graphs() and graph:
+                        if self._probe_graphs is None:
+                            self._probe_graphs = graphs.GraphCache(self.device)
+                        out = self._run_graph(
+                            self._probe_graphs, "probe",
+                            lambda _, c, loop: self._probe_fn(c, loop), (),
+                            carry, 0)
+                    else:
+                        out = self._probe_fn(carry)
+                self.cg_iters = self.cg_iters + out.nq
+                self.qeq_solves += 1
+                with trace.span("read"):
+                    pe, *vals = torch.cat([out.pe[None].double(),
+                                           out.counts.double()]).tolist()
+                trace.drain()
+                with trace.span("checks"):
+                    got = dict(zip(PROBE_COUNTS, (int(v) for v in vals)))
+                    self._check_probe(got)
+                self.timers.peak("bonded nbr list", got["kb"], self.kb)
+                self.timers.peak("nonbonded nbr list", got["knb"], self.knb)
+                self.timers.peak("angle list", got["ang"], self.caps["ang"])
+                self.timers.peak("torsion list", got["tor"], self.caps["tor"])
+                return (pe, out.force, out.q), got
+            return self.pairs.probe(run)
 
     def _check_grids(self, got):
         """Raise where a rebuild's or probe's densest neighbor cell, largest
@@ -1321,8 +1086,7 @@ class Engine:
         if self.grid is not None:
             _check_cells(got["cells"], self.grid)
         neighbors.check_counts(got["kb"], got["knb"], self.kb, self.knb)
-        if self.pairk is not None:
-            self._check_slot_overflow(got["slots"])
+        self.pairs.check_slots(got)
 
     def _check_probe(self, got):
         """Raise where a probe's count (`got`: PROBE_COUNTS -> value)
@@ -1516,7 +1280,7 @@ class Engine:
             self._rebuild(self.state)
         s = self.state
         nbrs = self._tight_nbrs(s.pos, s.H, s.types, self.nbrs)
-        pairs = self._pair_data(s.pos, s, nbrs, self._slotmap)
+        pairs = self._pair_data(s.pos, s, nbrs, self._layout)
         _, _, w = self._potential(s.pos, s.q, s, nbrs, self.tlists, pairs,
                                   True, s.spos)
         m = (2.0 * self.hmas)[s.types]

@@ -21,21 +21,18 @@ energy's gradient.
 from __future__ import annotations
 
 import ctypes
-import os
+import functools
 from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from .. import units
-from .pairsweep import _check, _device_kind, _stream, build
+from .. import native, units
 
 # launches of the kernel, counted by its wrapper where it launches it
 launches = {"hbond": 0}
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "hbond.cu")
-_lib = None
+_SRC = native.source("hbond.cu")
 
 
 class HBondTables(NamedTuple):
@@ -53,25 +50,19 @@ class HBondTables(NamedTuple):
     cos_bound: float        # the angle's clamp (reax._cos_bound)
 
 
+@functools.cache
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build(src=_SRC)[0])
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.rxmd_hbond.argtypes = ([ci] + [vp] * 10 + [ci] * 5
-                                   + [ctypes.c_longlong, cd, cd] + [vp] * 5)
-        lib.rxmd_hbond.restype = ci
-        lib.rxmd_hbond_error_string.argtypes = [ci]
-        lib.rxmd_hbond_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    return native.load(_SRC, "rxmd_hbond_error_string", rxmd_hbond=(
+        [ci] + [vp] * 10 + [ci] * 5 + [ctypes.c_longlong, cd, cd]
+        + [vp] * 5))
 
 
 def hbond(pos, H, bo0, tab: HBondTables, want_dh: bool = False):
     """(energy, dE/dpos (N, 3), dE/dBO0 (n, kb), dE/dH (3, 3) or None):
     the CUDA kernel for a CUDA tensor (or raises), `hbond_plain` for a CPU
     tensor."""
-    if _device_kind(pos, "hbond") == "cpu":
+    if native.device_kind(pos, "hbond") == "cpu":
         return hbond_plain(pos, H, bo0, tab, want_dh)
     dev, dt = pos.device, pos.dtype
     if dt not in (torch.float32, torch.float64):
@@ -90,7 +81,7 @@ def hbond(pos, H, bo0, tab: HBondTables, want_dh: bool = False):
             ("idxnb", tab.idxnb, torch.int64, (n, knb)),
             ("inxn3hb", tab.inxn3hb, torch.int64, (nso, nso, nso)),
             ("hbprm", tab.hbprm, dt, (tab.hbprm.shape[0], 4))):
-        _check(what, t, dtype, shape, dev)
+        native.check(what, t, dtype, shape, dev)
     # every output in one zeroed buffer: energy by donor, dE/dpos,
     # dE/dBO0, dE/dH
     buf = torch.zeros(n + 3 * N + n * kb + 9, dtype=dt, device=dev)
@@ -98,18 +89,14 @@ def hbond(pos, H, bo0, tab: HBondTables, want_dh: bool = False):
     gpos = buf[n:n + 3 * N].view(N, 3)
     gbo = buf[n + 3 * N:n + 3 * N + n * kb].view(n, kb)
     gH = buf[n + 3 * N + n * kb:].view(3, 3)
-    lib = _library()
-    err = lib.rxmd_hbond(
+    _library().rxmd_hbond(
         int(dt == torch.float64), pos.data_ptr(), H.data_ptr(),
         tab.shift.data_ptr(), tab.types.data_ptr(), tab.idxb.data_ptr(),
         tab.hmask.data_ptr(), bo0.data_ptr(), tab.idxnb.data_ptr(),
         tab.inxn3hb.data_ptr(), tab.hbprm.data_ptr(), n, kb, knb, nso,
         tab.h_type, tab.nown, units.RCHB2, tab.cos_bound, e_part.data_ptr(),
         gpos.data_ptr(), gbo.data_ptr(), gH.data_ptr() if want_dh else None,
-        _stream(dev))
-    if err:
-        raise RuntimeError("hbond launch failed: "
-                           + lib.rxmd_hbond_error_string(err).decode())
+        native.stream(dev))
     launches["hbond"] += 1
     return e_part.sum(), gpos, gbo, gH if want_dh else None
 

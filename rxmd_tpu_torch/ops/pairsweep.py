@@ -33,23 +33,20 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain version for a CPU tensor.  `sweep_plain` keeps the TPU kernel's
 contract, (out_k, n_targets) rows over its target layout, independently
 of the walk, over each target's own z-cell +- zreach cells shifted to
-stay inside the column (`_pair_list`); `sweep` runs it for a CPU tensor.
+stay inside the column (`_pair_list`): the tests' reference for the walk.
+The kernels build at first use (native.py).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import units
+from .. import native, units
 
 
 FAR = 1.0e4          # padded-slot coordinate sentinel: dr2 ~ 1e8 fails every
@@ -784,71 +781,20 @@ def qeq_apply_plain(lst: QeqList, walk: Walk, X, q=None):
 # the CUDA kernels (csrc/pairsweep.cu), built with nvcc at first use
 # ---------------------------------------------------------------------------
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "pairsweep.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rxmd_tpu_torch")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_lib = None
+_SRC = native.source("pairsweep.cu")
 
 
-def _nvcc():
-    path = shutil.which("nvcc")
-    if path is None:
-        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-        path = cand if os.path.exists(cand) else None
-    if path is None:
-        raise RuntimeError("nvcc not found: the port's kernels are built "
-                           "from csrc/ at first use")
-    return path
-
-
-def build(force: bool = False, verbose: bool = False, src: str = _SRC):
-    """Compile `src` (csrc/pairsweep.cu, or another source of csrc/ with a
-    plain C interface) into build/rxmd_tpu_torch (keyed by a hash of the
-    source and flags) unless that library exists or `force`; returns its
-    path, the seconds spent compiling (0.0 when it was already built) and
-    nvcc's messages (with `verbose`, ptxas's registers, shared memory and
-    spills of each kernel: -Xptxas -v, which leaves the binary as it
-    is)."""
-    with open(src, "rb") as fh:
-        key = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode())
-    stem = os.path.splitext(os.path.basename(src))[0]
-    so = os.path.join(_BUILD_DIR, f"lib{stem}_{key.hexdigest()[:16]}.so")
-    if os.path.exists(so) and not force:
-        return so, 0.0, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    flags = _NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
-    os.replace(tmp, so)
-    return so, time.perf_counter() - t0, res.stderr
-
-
+@functools.cache
 def _library():
-    global _lib
-    if _lib is None:
-        so = build()[0]
-        lib = ctypes.CDLL(so)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        walk = [vp] * 8 + [ci] * 6 + [cf]
-        lib.pairsweep_nonbond.argtypes = walk + [vp, vp, ci] + [cf] * 3 + [vp]
-        lib.pairsweep_qeq_build.argtypes = (
-            walk + [ci] + [vp] * 3 + [ci, ci] + [vp] * 2 + [ci, cf, vp])
-        lib.pairsweep_qeq_apply.argtypes = [vp] * 7 + [ci] * 3 + [vp]
-        lib.pairsweep_qeq_build_occupancy.argtypes = [ci] * 4 + [vp] * 3
-        for f in ("nonbond", "qeq_build", "qeq_apply",
-                  "qeq_build_occupancy"):
-            getattr(lib, f"pairsweep_{f}").restype = ci
-        lib.pairsweep_error_string.argtypes = [ci]
-        lib.pairsweep_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    walk = [vp] * 8 + [ci] * 6 + [cf]
+    return native.load(
+        _SRC, "pairsweep_error_string",
+        pairsweep_nonbond=walk + [vp, vp, ci] + [cf] * 3 + [vp],
+        pairsweep_qeq_build=(walk + [ci] + [vp] * 3 + [ci, ci] + [vp] * 2
+                             + [ci, cf, vp]),
+        pairsweep_qeq_apply=[vp] * 7 + [ci] * 3 + [vp],
+        pairsweep_qeq_build_occupancy=[ci] * 4 + [vp] * 3)
 
 
 _tables = {}
@@ -864,34 +810,23 @@ def _device_tables(grid: PairGrid, device):
     return _tables[key]
 
 
-def _check(what, t, dtype, shape, device):
-    """Raise unless t is a contiguous `dtype` tensor of `shape` on
-    `device`."""
-    if (t.device != device or t.dtype != dtype or not t.is_contiguous()
-            or tuple(t.shape) != tuple(shape)):
-        got = "" if t.is_contiguous() else ", strided"
-        raise ValueError(f"{what}: takes a contiguous {str(dtype)[6:]} "
-                         f"{tuple(shape)} tensor on {device}, got "
-                         f"{str(t.dtype)[6:]} {tuple(t.shape)} on {t.device}"
-                         f"{got}")
-
-
 def _walk_args(grid: PairGrid, walk: Walk, planes, fn: PairFn, K: int):
     """Check a walk kernel's inputs; its leading ctypes arguments."""
     dev = planes.device
     T = walk.tslot.shape[0]
     nso = fn.table.shape[0]
-    _check(f"{fn.name} planes", planes, torch.float32, (K, grid.nslots), dev)
+    native.check(f"{fn.name} planes", planes, torch.float32,
+                 (K, grid.nslots), dev)
     for what, t, shape in (("walk.tslot", walk.tslot, (T,)),
                            ("walk.trow", walk.trow, (T,)),
                            ("walk.cell_start", walk.cell_start,
                             (grid.nslots // grid.ccap + 1,)),
                            ("walk.slots", walk.slots,
                             (walk.slots.shape[0],))):
-        _check(what, t, torch.int32, shape, dev)
-    _check(f"{fn.name} table", fn.table, torch.float32,
-           (nso, nso, fn.table.shape[2]), dev)
-    _check(f"{fn.name} ctap", fn.ctap, torch.float32, (8,), dev)
+        native.check(what, t, torch.int32, shape, dev)
+    native.check(f"{fn.name} table", fn.table, torch.float32,
+                 (nso, nso, fn.table.shape[2]), dev)
+    native.check(f"{fn.name} ctap", fn.ctap, torch.float32, (8,), dev)
     coloffs, zr = _device_tables(grid, dev)
     return (planes.data_ptr(), walk.tslot.data_ptr(), coloffs.data_ptr(),
             zr.data_ptr(), walk.cell_start.data_ptr(), walk.slots.data_ptr(),
@@ -900,37 +835,20 @@ def _walk_args(grid: PairGrid, walk: Walk, planes, fn: PairFn, K: int):
             grid.ccap.bit_length() - 1, nso, grid.nslots, fn.rc2)
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{_library().pairsweep_error_string(err).decode()}")
-
-
-def _device_kind(t, what):
-    """'cuda' or 'cpu' for the wrapper's branch; any other device raises."""
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no {what} kernel for device {t.device}")
-    return t.device.type
-
-
 def nonbond(grid: PairGrid, walk: Walk, planes, fn: PairFn):
     """(11, walk.nrows) nonbond rows of the walk's targets: the CUDA kernel
     for a CUDA tensor (or raises), `nonbond_plain` for a CPU tensor."""
-    if _device_kind(planes, "nonbond") == "cpu":
+    if native.device_kind(planes, "nonbond") == "cpu":
         return nonbond_plain(grid, walk, planes, fn)
     args = _walk_args(grid, walk, planes, fn, 6)
     T = walk.tslot.shape[0]
     new = torch.zeros if T < walk.nrows else torch.empty
     out = new((11, walk.nrows), dtype=torch.float32, device=planes.device)
     if T:
-        _raise_on(_library().pairsweep_nonbond(
+        _library().pairsweep_nonbond(
             *args, walk.trow.data_ptr(), out.data_ptr(), walk.nrows,
             fn.pvdW1h, fn.pvdW1inv, units.CCLMB0,
-            _stream(planes.device)), "nonbond")
+            native.stream(planes.device))
         launches["nonbond"] += 1
     return out
 
@@ -943,25 +861,25 @@ def qeq_build(grid: PairGrid, walk: Walk, planes, fn: PairFn, own,
     entries from its offset `walk.qstart[i]` on, up to `cap` records, and
     its count; `need` is walk.qstart[-1] (QeqList): no host read.  Without
     `cap` the host reads that total and the list holds exactly it."""
-    if _device_kind(planes, "qeq_build") == "cpu":
+    if native.device_kind(planes, "qeq_build") == "cpu":
         return qeq_build_plain(grid, walk, planes, fn, own, nown, cap)
     dev = planes.device
     args = _walk_args(grid, walk, planes, fn, 5)
-    _check("own", own, torch.int32, (grid.nslots,), dev)
+    native.check("own", own, torch.int32, (grid.nslots,), dev)
     T = walk.tslot.shape[0]
-    _check("walk.qstart", walk.qstart, torch.int32, (T + 1,), dev)
-    _check("walk.qblocks", walk.qblocks, torch.int32,
-           (walk.qblocks.shape[0], 2), dev)
+    native.check("walk.qstart", walk.qstart, torch.int32, (T + 1,), dev)
+    native.check("walk.qblocks", walk.qblocks, torch.int32,
+                 (walk.qblocks.shape[0], 2), dev)
     if cap is None:
         cap = int(walk.qstart[-1])
     rec = torch.empty((cap, 2), dtype=torch.int32, device=dev)
     count = torch.zeros(T, dtype=torch.int32, device=dev)
     if T:
-        _raise_on(_library().pairsweep_qeq_build(
+        _library().pairsweep_qeq_build(
             *args, grid.zreach, own.data_ptr(), walk.qstart.data_ptr(),
             walk.qblocks.data_ptr(), walk.qblocks.shape[0],
             BUILD_TARGETS, rec.data_ptr(), count.data_ptr(), cap,
-            units.CCLMB0_QEQ, _stream(dev)), "qeq_build")
+            units.CCLMB0_QEQ, native.stream(dev))
         launches["qeq_build"] += 1
     return QeqList(start=walk.qstart[:-1], count=count, rec=rec, nown=nown,
                    need=walk.qstart[-1])
@@ -971,10 +889,9 @@ def qeq_build_occupancy(grid: PairGrid, fn: PairFn):
     """(blocks resident an SM, threads a block, shared memory bytes a
     block) of the QEq build kernel on the current card for this grid."""
     out = [ctypes.c_int() for _ in range(3)]
-    _raise_on(_library().pairsweep_qeq_build_occupancy(
+    _library().pairsweep_qeq_build_occupancy(
         fn.table.shape[0], len(grid.cols), grid.zreach,
-        grid.ccap.bit_length() - 1, *(ctypes.byref(x) for x in out)),
-        "qeq_build occupancy")
+        grid.ccap.bit_length() - 1, *(ctypes.byref(x) for x in out))
     return tuple(x.value for x in out)
 
 
@@ -985,7 +902,7 @@ def qeq_apply(lst: QeqList, walk: Walk, X, q=None):
     state itself, contiguous (row stride 2, column stride 1), each source's
     pair read as one 8-byte gather; q an (nown,) vector, or None, which
     skips its gather and leaves the Est row 0 (the CG's gradient)."""
-    if _device_kind(X, "qeq_apply") == "cpu":
+    if native.device_kind(X, "qeq_apply") == "cpu":
         return qeq_apply_plain(lst, walk, X, q)
     dev = X.device
     T = walk.tslot.shape[0]
@@ -996,28 +913,16 @@ def qeq_apply(lst: QeqList, walk: Walk, X, q=None):
             ("list rec", lst.rec, torch.int32, (lst.rec.shape[0], 2)),
             ("walk.trow", walk.trow, torch.int32, (T,)),
             *([] if q is None else [("q", q, torch.float32, (lst.nown,))])):
-        _check(what, t, dtype, shape, dev)
+        native.check(what, t, dtype, shape, dev)
     if X.data_ptr() % 8:
         raise ValueError("X: takes an (n, 2) state aligned to 8 bytes")
     new = torch.zeros if T < walk.nrows else torch.empty
     out = new((3, walk.nrows), dtype=torch.float32, device=dev)
     if T:
-        _raise_on(_library().pairsweep_qeq_apply(
+        _library().pairsweep_qeq_apply(
             lst.start.data_ptr(), lst.count.data_ptr(), lst.rec.data_ptr(),
             walk.trow.data_ptr(), X.data_ptr(),
             None if q is None else q.data_ptr(), out.data_ptr(), T,
-            walk.nrows, lst.rec.shape[0], _stream(dev)),
-            "qeq_apply")
+            walk.nrows, lst.rec.shape[0], native.stream(dev))
         launches["qeq_apply"] += 1
     return out
-
-
-def sweep(grid: PairGrid, packed, fn: PairFn, rows=None):
-    """`sweep_plain` for a CPU tensor: (out_k, n_targets) rows over the TPU
-    kernel's target layout.  Any other device raises: on a card the
-    kernels serve the engine's walk (`atom_walk`), whose rows equal
-    `gather_rows` of these."""
-    if _device_kind(packed, "pair sweep") != "cpu":
-        raise ValueError(f"no pair sweep kernel for device {packed.device}: "
-                         "the kernels run over atom_walk")
-    return sweep_plain(grid, packed, fn, rows)

@@ -30,22 +30,19 @@ them, each scaled by its energy's gradient.
 from __future__ import annotations
 
 import ctypes
-import os
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from .. import units
+from .. import native, units
 from ..neighbors import ImageTable, Neighbors
-from .pairsweep import _check, _device_kind, _stream, build
 
 # launches of the kernel, counted by its wrapper where it launches it
 launches = {"torsion": 0}
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "torsion.cu")
-_lib = None
+_SRC = native.source("torsion.cu")
 
 
 class TorsionTables(NamedTuple):
@@ -63,19 +60,12 @@ class TorsionTables(NamedTuple):
                             # reax.ROW_OVERFLOW (with `cap`)
 
 
+@functools.cache
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build(src=_SRC)[0])
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.rxmd_torsion.argtypes = ([ci] + [vp] * 14 + [ci] * 4
-                                     + [ctypes.c_longlong] + [cd] * 5
-                                     + [vp] * 4)
-        lib.rxmd_torsion.restype = ci
-        lib.rxmd_torsion_error_string.argtypes = [ci]
-        lib.rxmd_torsion_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    return native.load(_SRC, "rxmd_torsion_error_string", rxmd_torsion=(
+        [ci] + [vp] * 14 + [ci] * 4 + [ctypes.c_longlong] + [cd] * 5
+        + [vp] * 4))
 
 
 def split(g, N: int, kb: int):
@@ -90,7 +80,7 @@ def torsion(bo0, bopi, drb, delta, tab: TorsionTables):
     """(E_tors, E_conj, their gradients (2, 5 N kb + N), count): the CUDA
     kernel for a CUDA tensor (or raises), `torsion_plain` for a CPU
     tensor.  The count is a device tensor."""
-    if _device_kind(bo0, "torsion") == "cpu":
+    if native.device_kind(bo0, "torsion") == "cpu":
         return torsion_plain(bo0, bopi, drb, delta, tab)
     from .. import reax                       # reax imports this module
     dev, dt = bo0.device, bo0.dtype
@@ -114,7 +104,7 @@ def torsion(bo0, bopi, drb, delta, tab: TorsionTables):
             ("Valangle", ffd.Valangle, dt, (nso,)),
             ("inxn4", ffd.inxn4, torch.int64, (nso,) * 4),
             ("torprm", ffd.torprm, dt, (ffd.torprm.shape[0], 9))):
-        _check(what, t, dtype, shape, dev)
+        native.check(what, t, dtype, shape, dev)
     if n > N:
         raise ValueError(f"torsion: {n} center rows > {N} rows")
     # every output in one zeroed buffer: each energy's part by center, then
@@ -122,7 +112,7 @@ def torsion(bo0, bopi, drb, delta, tab: TorsionTables):
     buf = torch.zeros(2 * (n + 5 * N * kb + N), dtype=dt, device=dev)
     e_part, grad = buf[:2 * n].view(2, n), buf[2 * n:].view(2, -1)
     rows = torch.zeros(n, dtype=torch.int32, device=dev)
-    err = _library().rxmd_torsion(
+    _library().rxmd_torsion(
         int(dt == torch.float64), bo0.data_ptr(), bopi.data_ptr(),
         drb.data_ptr(), delta.data_ptr(), tab.types.data_ptr(),
         tab.gid.data_ptr(), tab.amask.data_ptr(), tab.maskb.data_ptr(),
@@ -131,11 +121,7 @@ def torsion(bo0, bopi, drb, delta, tab: TorsionTables):
         ffd.torprm.data_ptr(), n, N, kb, nso, tab.img.n_own,
         units.CUTOF2_ESUB, units.MINBO0, reax._cos_bound(dt), units.NSMALL,
         reax._cross_floor(dt), e_part.data_ptr(), grad.data_ptr(),
-        rows.data_ptr(), _stream(dev))
-    if err:
-        raise RuntimeError("torsion launch failed: "
-                           + _library().rxmd_torsion_error_string(
-                               err).decode())
+        rows.data_ptr(), native.stream(dev))
     launches["torsion"] += 1
     e = e_part.sum(dim=1)
     cnt = rows.sum()

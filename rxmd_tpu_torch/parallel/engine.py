@@ -57,6 +57,7 @@ from ..ffield import ForceField, effective_maxrc
 from ..md import (CAP_NAMES, MDMODES, Engine as MDEngine, _max_or,
                   _over_vector, _skinned_cutoffs, _trim, probe_capacities)
 from ..neighbors import _select_k
+from ..pairs import PairList
 from ..system import State, make_state
 from ..utils import timers as trace
 from ..utils.timers import Timers
@@ -777,14 +778,13 @@ class ShardedEngine:
                         allreduce=self.comm.psum, refresh=refresh, loop=loop)
                     spos_new = torch.where(valid[:, None], sp, 0.0)
                 else:
-                    pre = (ctx, None, None) if rows_pre is None \
-                        else (ctx, *rows_pre)
                     res = qeq.solve(
-                        pos_rel[:ncap], s.q, s.qsfp, tr, ffd, amask=valid,
-                        isqeq=isqeq, nmax=cfg.NMAXQEq, tol=cfg.QEq_tol,
-                        lex_fqs=cfg.Lex_fqs, img=img, nbrs=nbrs, pre=pre,
-                        allreduce=self.comm.psum, refresh=refresh,
-                        resident_ext=resident_ext, loop=loop)
+                        s.q, s.qsfp, tr, ffd, PairList.operator(
+                            ctx, rows_pre, tr, ffd, img, nbrs,
+                            refresh=refresh, resident_ext=resident_ext),
+                        amask=valid, isqeq=isqeq, nmax=cfg.NMAXQEq,
+                        tol=cfg.QEq_tol, lex_fqs=cfg.Lex_fqs,
+                        allreduce=self.comm.psum, loop=loop)
                     qn, nq = res.q, res.iters
             q_new = torch.where(valid, qn, 0.0)
         if isqeq == 1 and do_qeq and not (prep and cfg.isQEq == 2):

@@ -4,13 +4,8 @@
 The (s, t) vectors are solved jointly as one (N, 2) state; each CG
 iteration applies the shielded-Coulomb hessian to both and sums the
 electrostatic energy Est in one pass (ref: get_hsh, qeq.F90:271-318).
-The hessian comes from one of three pair engines:
-  * the pair sweep (`pair_ops`): a pair list built at the solve's first
-    matvec and applied at every one by the CUDA kernels;
-  * the dense minimum-image form (`direct`): (n, n) matrices and matmuls;
-  * the pair context over the nonbonded list (ELL, from `pre` or built
-    here), closed-form or table column 4; a full CG (isQEq=1) at
-    n <= `dense_max` folds it into a dense (n, n) matrix once.
+The hessian is the operator the pair engine hands in (pairs.py); the
+solve runs one CG over it.
 Termination follows the reference's two tests on Est (ref:
 qeq.F90:114-115).  The loop is rxmd_tpu's `lax.while_loop` (qeq.py:268-316)
 as a masked update: every iteration computes the next iterate and keeps the
@@ -21,10 +16,10 @@ iterations run in chunks of CG_CHUNK; between chunks `loop` reads one
 extended Lagrangian's single iteration does).  The iteration count and Est
 stay on the device.  A domain of the sharded engine solves over its residents:
 `allreduce` sums the CG's scalars over the domains (the reference's
-batched MPI buffer, qeq.F90:126-131), `refresh` brings a resident vector
-to the ghost rows the pair context indexes (MODE_QCOPY1/2,
-qeq.F90:86-164), each the identity on one device.  `lmin_f32` stores the line-minimization step in float32 as
-the reference does (qeq.F90:23), so iteration counts match its.
+batched MPI buffer, qeq.F90:126-131); its operator brings a resident vector
+to the ghost rows its pair context indexes (MODE_QCOPY1/2,
+qeq.F90:86-164).  `lmin_f32` stores the line-minimization step in float32
+as the reference does (qeq.F90:23), so iteration counts match its.
 """
 from __future__ import annotations
 
@@ -32,9 +27,6 @@ import math
 from typing import NamedTuple
 
 import torch
-
-from .reax import (_table_rows, cf_qeq_kernel, ctx_prm, nb_ctx,
-                   pair_bond_type, qeq_dense_direct)
 
 
 # CG iterations per chunk: the host reads one "finished" flag per chunk
@@ -74,134 +66,38 @@ def eager_loop(chunk, carry, nchunks):
     return carry
 
 
-def solve(pos, q, qsfp, types, ffd, pair_ops=None, amask=None,
-          isqeq: int = 1, nmax: int = 500, tol: float = 1e-7,
-          lex_fqs: float = 1.0, *, H=None, img=None, nbrs=None,
-          lmin_f32: bool = False, closed_form=None, pre=None,
-          dense_max: int = 8192, direct: bool = False, allreduce=None,
-          refresh=None, resident_ext=None, loop=None) -> QEqResult:
+def solve(q, qsfp, types, ffd, hessian, amask=None, isqeq: int = 1,
+          nmax: int = 500, tol: float = 1e-7, lex_fqs: float = 1.0, *,
+          lmin_f32: bool = False, allreduce=None, loop=None) -> QEqResult:
     """Solve for charges.  isqeq=1: full CG (ref: qeq.F90:39-48); isqeq=2:
     extended-Lagrangian warm start, one iteration (ref: qeq.F90:51-57).
 
-    The engine, in order: `direct` (the dense minimum-image hessian, needs
-    H); `pair_ops`, whose `sweep3(X, q)` returns the per-atom (H·X[:, 0],
-    H·X[:, 1], Est pair sum) rows of the pair sweep for the (n, 2) state X
-    (q None: no Est sum, that row 0); else the pair context:
-    `pre` = (ctx, table rows, ok) from reax.pair_rows, or (ctx, None, None)
-    for the closed form, or None to build it from (H, img, nbrs) with the
-    closed form if `closed_form` else the tables.
-
-    Multi-domain hooks (rxmd_tpu qeq.py:60-64), each None on one device:
-    `allreduce` sums a tensor over the domains, `refresh` maps a vector
-    over the rows (`pos`, `q`) to the extended rows the pair context
-    indexes, `resident_ext` marks the extended rows that are this
-    domain's own (the Est pair weights, ref: qeq.F90:304-306).  With
-    `refresh` the pair context (`pre`) is required and no dense fold is
-    made.
-
-    `loop(run_chunk, carry, nchunks)` drives the CG's chunks of CG_CHUNK
-    iterations (`eager_loop` if None; a CUDA graph capture passes its
-    own)."""
-    n = pos.shape[0]
-    local_only = refresh is None
-    if refresh is None:
-        refresh = lambda x: x
-    dtype = pos.dtype
+    `hessian`: the pair engine's hessian operator (pairs.py).  `allreduce`
+    sums a tensor over the sharded engine's domains (rxmd_tpu
+    qeq.py:60-64).  `loop(run_chunk, carry, nchunks)` drives the CG's
+    chunks (`eager_loop` if None; a CUDA graph capture passes its own)."""
+    n, dtype = q.shape[0], q.dtype
     # the stop tests are RELATIVE energy changes; below ~20 ulp of the
     # working precision they never trigger and the CG burns iterations on
     # rounding noise — floor the tolerance (f64 keeps the reference's)
     tol = max(tol, 20.0 * float(torch.finfo(dtype).eps))
     if amask is None:
-        amask = torch.ones((n,), dtype=torch.bool, device=pos.device)
+        amask = torch.ones((n,), dtype=torch.bool, device=q.device)
     eta = torch.where(amask, ffd.eta[types], 0.0)
     chi = torch.where(amask, ffd.chi[types], 0.0)
     w = amask.to(dtype)
+    matvec, matvec_est = hessian(eta)
 
-    def cg(matvec2, matvec2_and_est):
-        def gradient(X):
-            rhs = torch.stack([-chi, -w], dim=1)
-            return torch.where(amask[:, None], rhs - matvec2(X), 0.0)
-        return _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs,
-                   lmin_f32, matvec2_and_est, gradient, allreduce, loop)
-
-    def est_of(pair_sum, qcur):
-        per_atom = chi * qcur + 0.5 * eta * qcur * qcur + pair_sum * qcur
-        return torch.sum(torch.where(amask, per_atom, 0.0))
-
-    if direct:
-        Hd, Hw = qeq_dense_direct(pos, H, types, ffd)
-        return cg(lambda X: eta[:, None] * X + Hd @ X,
-                  lambda Hv, qc: (eta[:, None] * Hv + Hd @ Hv,
-                                  est_of(Hw @ qc, qc)))
-
-    if pair_ops is not None:
-        def matvec2(X):
-            mvs, mvt, _ = pair_ops.sweep3(X, None)
-            return eta[:, None] * X + torch.stack([mvs, mvt], dim=1)
-
-        def matvec2_and_est(Hv, qcur):
-            mvs, mvt, estp = pair_ops.sweep3(Hv, qcur)
-            mv = eta[:, None] * Hv + torch.stack([mvs, mvt], dim=1)
-            return mv, est_of(estp, qcur)
-        return cg(matvec2, matvec2_and_est)
-
-    # the pair context: QEq keeps periodic self-images (ref: qeq.F90:200-
-    # 256), so its notself mask is unused and gid may be a dummy
-    if pre is not None:
-        ctx, rows, ok = pre
-        if rows is None:
-            hess = cf_qeq_kernel(ctx.dr2, ctx_prm(ctx, types, ffd), ffd,
-                                 ctx.mask & (ctx.dr2 < ffd.rctap2))
-        else:
-            hess = torch.where(ok & (ctx.dr2 < ffd.rctap2), rows[..., 4], 0.0)
-    else:
-        ctx = nb_ctx(pos, None, H, types, img, nbrs, torch.zeros_like(types),
-                     amask, ffd)
-        in_range = nbrs.masknb & (ctx.dr2 < ffd.rctap2)
-        if closed_form:
-            hess = cf_qeq_kernel(ctx.dr2, ctx_prm(ctx, types, ffd), ffd,
-                                 in_range)
-        else:
-            bc = pair_bond_type(ctx, types, ffd)
-            ok = in_range & (bc >= 0)
-            rows = _table_rows(ffd, torch.where(ok, bc, 0), ctx.dr2, ok)
-            hess = torch.where(ok, rows[..., 4], 0.0)
-    mask = nbrs.masknb
-    oj = img.owner_of(ctx.idx)
-    hz = torch.where(mask, hess, 0.0)
-    # Est pair weight: 0.5 per directed entry plus another 0.5 when the
-    # neighbor is an atom of this domain, not an image or a ghost (ref:
-    # qeq.F90:304-306)
-    own = ctx.idx < n if resident_ext is None else resident_ext[ctx.idx]
-    est_w = torch.where(own, 1.0, 0.5).to(dtype)
-
-    if local_only and n <= dense_max and isqeq != 2:
-        # a full CG: fold the list into a dense (n, n) matrix once, each
-        # matvec a matmul; index_put_ with accumulate sums repeated
-        # (row, owner) entries in a fixed order
-        row = torch.arange(n, device=pos.device)[:, None].expand_as(oj)
-        Hd = torch.zeros((n, n), dtype=dtype, device=pos.device)
-        Hd.index_put_((row.reshape(-1), oj.reshape(-1)), hz.reshape(-1),
-                      accumulate=True)
-
-        def matvec2_and_est(Hv, qcur):
-            qj = torch.where(mask, qcur[oj], 0.0)
-            return (eta[:, None] * Hv + Hd @ Hv,
-                    est_of(torch.sum(est_w * hz * qj, dim=1), qcur))
-        return cg(lambda X: eta[:, None] * X + Hd @ X, matvec2_and_est)
-
-    def matvec2(X):
-        Xs = torch.where(mask[..., None], refresh(X)[oj], 0.0)   # (n, knb, 2)
-        return eta[:, None] * X + torch.einsum("nk,nkc->nc", hz, Xs)
+    def gradient(X):
+        rhs = torch.stack([-chi, -w], dim=1)
+        return torch.where(amask[:, None], rhs - matvec(X), 0.0)
 
     def matvec2_and_est(Hv, qcur):
-        """One (n, knb, 3) gather feeds both H·(hs, ht) and the Est pair
-        sum (cf. the reference's single get_hsh pass)."""
-        Y = torch.cat([Hv, qcur[:, None]], dim=1)
-        Ys = torch.where(mask[..., None], refresh(Y)[oj], 0.0)
-        mv = eta[:, None] * Hv + torch.einsum("nk,nkc->nc", hz, Ys[..., :2])
-        return mv, est_of(torch.sum(est_w * hz * Ys[..., 2], dim=1), qcur)
-    return cg(matvec2, matvec2_and_est)
+        mv, pair_sum = matvec_est(Hv, qcur)
+        per_atom = chi * qcur + 0.5 * eta * qcur * qcur + pair_sum * qcur
+        return mv, torch.sum(torch.where(amask, per_atom, 0.0))
+    return _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
+               matvec2_and_est, gradient, allreduce, loop)
 
 
 def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,

@@ -1732,8 +1732,7 @@ def energy_components(pos, q, H, types, gid, img: ImageTable,
 def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
                       amask=None, with_virial=False, external_nonbond=None,
                       caps=None, fast_nonbond=True, closed_form=None,
-                      ctx=None, rows_pre=None, pq=None, spos=None,
-                      counts=None):
+                      pq=None, spos=None, counts=None):
     """(PE components, forces[, virial]).
 
     Bonded forces are -dE/dpos by autograd; the ghost-force reduction
@@ -1745,18 +1744,18 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
     The nonbond term: `external_nonbond` = (evdw, eclmb, echarge, f_nb,
     w_nb), computed by the caller (the pair sweep, the dense form or the
     pair context), is spliced in; else, with `fast_nonbond`, the closed-form
-    (`closed_form`) or table kernels run over the pair context `ctx` (built
-    here if None; `rows_pre` reuses `pair_rows`) with the analytic
-    derivative columns and row-local forces (ref: pot.F90:736-761); else
-    the table energy `e_nonbond` joins the autograd pass, as the PQEq
-    energy `e_nonbond_pqeq` always does (`pq`, `spos`; ref: rxmd_tpu takes
-    no row-local nonbond under PQEq).  `closed_form` None means the
-    tables, as in rxmd_tpu.  `counts`: see energy_components.
+    (`closed_form`) or table kernels run over a pair context built here
+    with the analytic derivative columns and row-local forces (ref:
+    pot.F90:736-761); else the table energy `e_nonbond` joins the autograd
+    pass, as the PQEq energy `e_nonbond_pqeq` always does (`pq`, `spos`;
+    ref: rxmd_tpu takes no row-local nonbond under PQEq).  `closed_form`
+    None means the tables, as in rxmd_tpu.  `counts`: see
+    energy_components.
     """
     use_fast = fast_nonbond and external_nonbond is None and pq is None
     if amask is None:
         amask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
-    if ctx is None and use_fast:
+    if use_fast:
         ctx = nb_ctx(pos, q, H, types, img, nbrs, gid, amask, ffd)
     kw = dict(lists=lists, amask=amask, caps=caps, pq=pq,
               spos=spos, counts=counts,
@@ -1786,7 +1785,7 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, lists=None,
     if use_fast:
         external_nonbond = nonbond_ctx_energy_forces(
             ctx, q, types, amask, ffd, closed_form, with_virial=with_virial,
-            pre=rows_pre, img=img)
+            img=img)
     if external_nonbond is not None:
         evdw, eclmb, echarge, f_nb = external_nonbond[:4]
         w_nb = external_nonbond[4] if len(external_nonbond) > 4 else None

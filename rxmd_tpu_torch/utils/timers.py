@@ -43,20 +43,21 @@ record stays after the session closes: `last_session()`.
 from __future__ import annotations
 
 import ctypes
-import os
+import functools
 import time
 from contextlib import contextmanager
 
 import torch
 import torch.autograd.profiler as _profiler
 
+from .. import native
+
 try:
     _Range = torch._C._profiler._RecordFunctionFast
 except AttributeError:             # a torch without it: spans, no ranges
     _Range = None
 
-_MARKS_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "marks.cu")
+_MARKS_SRC = native.source("marks.cu")
 RING_SLOTS = 1 << 16               # marks the ring holds between reads
 
 _stack = []           # the open spans, innermost last
@@ -69,7 +70,6 @@ _program = None       # (kind, device) being dispatched, or None
 _capturing = False    # a CUDA graph capture is running
 _rings = {}           # device -> _Ring
 _levels = {}          # level name -> the value set last (Timers.level)
-_lib = None
 
 
 def _poll():
@@ -212,18 +212,11 @@ class Timers:
 # device marks
 # ---------------------------------------------------------------------------
 
+@functools.cache
 def _library():
-    global _lib
-    if _lib is None:
-        from ..ops import pairsweep
-        lib = ctypes.CDLL(pairsweep.build(src=_MARKS_SRC)[0])
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.rxmd_mark.argtypes = [vp, ll, ll, vp]
-        lib.rxmd_mark.restype = ctypes.c_int
-        lib.rxmd_mark_error_string.argtypes = [ctypes.c_int]
-        lib.rxmd_mark_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    return native.load(_MARKS_SRC, "rxmd_mark_error_string",
+                       rxmd_mark=[vp, ll, ll, vp])
 
 
 class _Ring:
@@ -237,12 +230,8 @@ class _Ring:
         self.read = 0          # marks read so far
 
     def mark(self, mid):
-        err = self.lib.rxmd_mark(
-            self.buf.data_ptr(), RING_SLOTS - 1, mid,
-            torch.cuda.current_stream(self.buf.device).cuda_stream)
-        if err:
-            raise RuntimeError("mark launch failed: "
-                               + self.lib.rxmd_mark_error_string(err).decode())
+        self.lib.rxmd_mark(self.buf.data_ptr(), RING_SLOTS - 1, mid,
+                           native.stream(self.buf.device))
 
     def reset(self):
         """Restart the count, in stream order (no host read)."""

@@ -211,27 +211,27 @@ def test_qeq_list_capacity_overflow(monkeypatch):
     e = _engine(isQEq=1, NMAXQEq=4)
     e._rebuild(e.state)
     s = e.state
-    ops = e._make_pair_ops(s.pos, s.H, s.types, e._slotmap)
-    planes, walk = ops.qeq_planes(), ops.walk
-    full = tps.qeq_build_plain(e.pairk, walk, planes, e._qeq_fn, ops.own,
-                               s.n)
+    ops = e.pairs.data(s.pos, s, None, e._layout)
+    planes, walk, grid, fn = ops.qeq_planes(), ops.walk, ops.grid, ops.fn
+    qcap = e._layout.qcap
+    full = tps.qeq_build_plain(grid, walk, planes, fn, ops.own, s.n)
     E = int(full.need)
     assert E == full.rec.shape[0] == int(walk.qstart[-1]) > int(
         full.count.sum()) > 0
     # the engine's capacity (the walk's candidates, padded) holds the
     # list; the padding past its records adds nothing
-    assert e._qcap >= E
-    roomy = tps.qeq_build_plain(e.pairk, walk, planes, e._qeq_fn, ops.own,
-                                s.n, cap=e._qcap)
-    assert int(roomy.need) == E and roomy.rec.shape[0] == e._qcap
+    assert qcap >= E
+    roomy = tps.qeq_build_plain(grid, walk, planes, fn, ops.own, s.n,
+                                cap=qcap)
+    assert int(roomy.need) == E and roomy.rec.shape[0] == qcap
     assert torch.equal(roomy.rec[:E], full.rec)
     X = torch.as_tensor(np.random.default_rng(0).normal(size=(s.n, 2)))
     q = torch.as_tensor(np.random.default_rng(2).normal(size=s.n))
     assert torch.allclose(tps.qeq_apply_plain(roomy, walk, X, q),
                           tps.qeq_apply_plain(full, walk, X, q),
                           rtol=0, atol=1e-12)
-    small = tps.qeq_build_plain(e.pairk, walk, planes, e._qeq_fn, ops.own,
-                                s.n, cap=E // 2)
+    small = tps.qeq_build_plain(grid, walk, planes, fn, ops.own, s.n,
+                                cap=E // 2)
     assert int(small.need) == E > small.rec.shape[0] == E // 2
     assert torch.equal(small.rec, full.rec[:E // 2])
     assert torch.equal(small.count, full.count)
@@ -246,7 +246,7 @@ def test_qeq_list_capacity_overflow(monkeypatch):
     monkeypatch.undo()
     e = _engine(isQEq=2, NMAXQEq=4)
     e.prepare()
-    e._qcap = 64
+    e._layout = e._layout._replace(qcap=64)
     with pytest.raises(RuntimeError, match="QEq list overflow"):
         e.run(2, log=None)
 

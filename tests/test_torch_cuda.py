@@ -39,20 +39,20 @@ def planes():
     e = md.Engine(ff, st, config.RunConfig(dtype="float32"), device="cuda")
     e._rebuild(e.state)
     s = e.state
-    ops = e._make_pair_ops(s.pos, s.H, s.types, e._slotmap)
+    ops = e.pairs.data(s.pos, s, None, e._layout)
     rng = np.random.default_rng(3)
     q = rng.normal(scale=0.2, size=s.n)
     q -= q.mean()
     hs, ht = rng.normal(size=(2, s.n))
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
     q, hs, ht = t(q), t(hs), t(ht)
-    okf = (e._slotmap.slot_src >= 0).float()
+    okf = (e._layout.sm.slot_src >= 0).float()
     qeq8 = torch.cat([ops.qeq_planes(),
                       torch.stack([hs, ht, q])[:, ops.own.long()] * okf])
-    return dict(grid=e.pairk, n=s.n, ops=ops, nb_fn=e._nb_fn,
-                qeq_fn=e._qeq_fn, nb=ops.nonbond_planes(q), qeq8=qeq8,
+    return dict(grid=ops.grid, n=s.n, ops=ops, nb_fn=ops.nb_fn,
+                qeq_fn=ops.fn, nb=ops.nonbond_planes(q), qeq8=qeq8,
                 hs=hs, ht=ht, q=q, X=torch.stack([hs, ht], dim=1),
-                slot_of_atom=e._slotmap.slot_of_atom)
+                slot_of_atom=e._layout.sm.slot_of_atom)
 
 
 def _live(lst):
@@ -191,13 +191,13 @@ def test_qeq_build_tall_box_matches_plain():
     e = md.Engine(ff, st, config.RunConfig(dtype="float32"), device="cuda")
     e._rebuild(e.state)
     s = e.state
-    ops = e._make_pair_ops(s.pos, s.H, s.types, e._slotmap)
-    grid, walk = e.pairk, ops.walk
+    ops = e.pairs.data(s.pos, s, None, e._layout)
+    grid, walk = ops.grid, ops.walk
     groups = _build_groups(grid, walk)
     stage = 4096 - (16 + 2 * grid.zreach) * grid.ccap
     assert len(groups) > int((walk.qblocks[:, 1] > walk.qblocks[:, 0]).sum())
     assert max(slots for _, slots in groups) > stage
-    args = (grid, walk, ops.qeq_planes(), e._qeq_fn, ops.own, s.n, e._qcap)
+    args = (grid, walk, ops.qeq_planes(), ops.fn, ops.own, s.n, ops.cap)
     lst = ps.qeq_build(*args)
     ref = ps.qeq_build_plain(*args)
     assert torch.equal(lst.count, ref.count)
@@ -247,8 +247,6 @@ def test_kernel_refuses_what_it_does_not_take(planes):
     for call in calls:
         with pytest.raises(ValueError, match="takes a"):
             call()
-    with pytest.raises(ValueError, match="no pair sweep kernel"):
-        ps.sweep(grid, d["qeq8"], d["qeq_fn"])
     assert dict(ps.launches) == n0
 
 
@@ -272,7 +270,7 @@ def test_pqeq_and_lg_step_on_the_card(what):
     for dev in ("cuda", "cpu"):
         st = system.from_cellfile(CELL, ff.name_to_type)
         e = md.Engine(ff, st, config.RunConfig(**kw), device=dev)
-        assert e.pair_engine == "ell" and e.pairk is None
+        assert e.pair_engine == "ell" and not hasattr(e.pairs, "grid")
         n0 = dict(ps.launches)
         e.init_velocity(seed=2)
         e.prepare()

@@ -145,7 +145,8 @@ def test_defaults_route_to_the_tables():
     _, _, cell = _states("cell")
     _, _, tric = _states("tric")
     e = tmd.Engine(tf, cell, tcfg.RunConfig(), device="cpu")
-    assert e.pair_engine == "ell" and not e.closed_form and e.pairk is None
+    assert e.pair_engine == "ell" and not e.closed_form \
+        and not hasattr(e.pairs, "grid")
     e = tmd.Engine(tf, cell, tcfg.RunConfig(dtype="float32"), device="cpu")
     assert e.pair_engine == "sweep" and e.closed_form
     for cfg, why in ((dict(nonbond_closed_form=False), "tables"),
@@ -192,7 +193,7 @@ def optimizer_runs():
 
 def test_optimizer_on_the_pair_list(optimizer_runs):
     te, probes, jpe, tpe = optimizer_runs
-    assert te.pair_engine == "ell" and te.pairk is None
+    assert te.pair_engine == "ell" and not hasattr(te.pairs, "grid")
     pj, pt = np.array(probes["jax"]), np.array(probes["port"])
     assert len(pj) == len(pt) > 2
     assert np.abs(pt - pj).max() <= 1e-8 * np.abs(pj).max()

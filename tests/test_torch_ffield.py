@@ -139,11 +139,20 @@ def test_engine_names_missing_paths(kw, exc, what, tmp_path):
 
 
 def test_sweep_refuses_other_devices():
+    """The sweep's kernel wrappers take CUDA and CPU tensors alone: any
+    other device raises before the walk is read."""
     grid = tps.make_pair_grid(np.diag([13.182, 11.574, 10.709]), 10.0,
                               skin=0.4)
     tf, _ = _state()
     fn = tps.make_qeq_pair_fn(trx.ffdev_from(tf, dtype=torch.float32),
                               tf.nso, 100.0)
-    packed = torch.zeros((8, grid.nslots), device="meta")
-    with pytest.raises(ValueError, match="no pair sweep"):
-        tps.sweep(grid, packed, fn)
+    planes = torch.zeros((5, grid.nslots), device="meta")
+    X = torch.zeros((4, 2), device="meta")
+    for what, call in (
+            ("nonbond", lambda: tps.nonbond(grid, None, planes, fn)),
+            ("qeq_build", lambda: tps.qeq_build(grid, None, planes, fn,
+                                                None, 4)),
+            ("qeq_apply", lambda: tps.qeq_apply(None, None, X))):
+        with pytest.raises(ValueError, match=f"no {what} kernel for device "
+                                             "meta"):
+            call()

@@ -42,7 +42,7 @@ import torch
 
 from rxmd_tpu import config as jcfg, ffield as jff, md as jmd, system as jsys
 from rxmd_tpu_torch import config as tcfg, ffield as tff, md as tmd, \
-    reax as trx, system as tsys
+    pairs as tpairs, reax as trx, system as tsys
 from rxmd_tpu_torch.parallel import dryrun
 
 torch.set_num_threads(1)
@@ -131,12 +131,12 @@ def prepared():
 @pytest.mark.parametrize("name", list(GUARD_CONFIGS))
 def test_no_host_read_inside_the_step(prepared, guard, name, steps):
     e = prepared(name)
-    window = (e.nbrs, e.tlists, e._slotmap, e._pos_ref)
+    window = (e.nbrs, e.tlists, e._layout, e._pos_ref)
     carry = (dataclasses.replace(e.state, step=0), e.force, e._astr)
     pattern = ((False, True),) * steps
     guard.active = True
     with torch.no_grad():
-        out = e._block_fn(pattern, e._qcap, window, carry, guard.loop)
+        out = e._block_fn(pattern, window, carry, guard.loop)
     guard.active = False
     assert bool(torch.isfinite(out.comps).all())
     assert torch.equal(out.state.pos, out.state.pos)
@@ -187,7 +187,8 @@ def test_no_host_read_inside_the_probe(prepared, guard, monkeypatch, name):
         e.probe(pos)                 # sizes the QEq list, eagerly
     carry = tmd.ProbeIn(dataclasses.replace(e.state, pos=pos, step=0),
                         torch.linalg.inv(e.state.H),
-                        e._sizes["probe qeq list"] if sweep else None)
+                        tpairs.SweepLayout(None, e._sizes["probe qeq list"])
+                        if sweep else None)
     with torch.no_grad():
         ref = e._probe_fn(carry)
         guard.active = True
@@ -239,14 +240,14 @@ def test_window_shapes_settle(name):
     ff, st = _deck(kind, lg)
     e = tmd.Engine(ff, st, tcfg.RunConfig(**dict(
         GUARD_BASE, **over, rebuild_every=2, block_steps=1)), device="cpu")
-    assert e.pair_engine == engine and e.pairk is None
+    assert e.pair_engine == engine and not hasattr(e.pairs, "grid")
     e.init_velocity(seed=1)
     sigs = []
     rebuild = e._rebuild
 
     def rebuilt(s):
         rebuild(s)
-        sigs.append(graphs.signature((e.nbrs, e.tlists, e._slotmap,
+        sigs.append(graphs.signature((e.nbrs, e.tlists, e._layout,
                                       e._pos_ref)))
     e._rebuild = rebuilt
     e.run(12 if kind == "cell" else 7, log=None)

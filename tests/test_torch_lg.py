@@ -31,7 +31,7 @@ import torch
 from rxmd_tpu import config as jcfg, ffield as jff, md as jmd, \
     neighbors as jnb, reax as jrx, system as jsys
 from rxmd_tpu_torch import config as tcfg, ffield as tff, md as tmd, \
-    neighbors as tnb, reax as trx, system as tsys
+    neighbors as tnb, pairs as tpairs, reax as trx, system as tsys
 
 # the suite runs in several worker processes at once; one torch thread
 # each keeps them from oversubscribing the cores
@@ -232,7 +232,7 @@ def test_engine_pe_per_step(runs):
     want = CONFIGS[runs["name"]][2]
     assert te.pair_engine == want and te.ffd.is_lg
     assert ("dense" if je.dense_direct else "ell") == want
-    assert je.pairk is None and te.pairk is None
+    assert je.pairk is None and not hasattr(te.pairs, "grid")
     jc, tc = runs["jc"], runs["tc"]
     assert np.isfinite(tc).all()
     err = np.abs(jc - tc) / np.maximum(np.abs(jc), 1.0)
@@ -273,12 +273,12 @@ def test_pqeq_and_lg_never_take_the_sweep(what):
                        tcfg.RunConfig(**kw), device="cpu")
         assert e.pair_engine == ("dense" if lg and mc == (2, 2, 2)
                                  else "ell"), (mc, e.pair_engine)
-        assert e.pairk is None and what in e.describe()
+        assert not hasattr(e.pairs, "grid") and what in e.describe()
     # a box the dense forms take (min L > 2 rctap), without PQEq
     cfg = tcfg.RunConfig(**kw)
     big = np.diag([30.0, 30.0, 30.0])
-    assert tmd._pair_engine(cfg, True, big, 100, 12.5, lg=lg) == (
-        "dense" if lg else "ell")
+    assert tpairs.choose(cfg, True, big, 100, 12.5, lg, torch.device("cpu"),
+                         torch.float32) == ("dense" if lg else "ell")
     pos, types, H = deck_arrays((1, 1, 1), tf.name_to_type)
     with pytest.raises(ValueError, match=what):
         tmd.Engine(tf, tsys.make_state(pos, types, H),

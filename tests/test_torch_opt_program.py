@@ -102,7 +102,7 @@ def _exact_gate_lists(e, pos, s):
     """The rebuild program's products at `pos` with exact gates (slack 1,
     margin 0) and term lists whatever the engine caches: the wrapped
     positions, the neighbor lists, the term lists cut to their counts and
-    the slot map."""
+    the pair layout."""
     kept = e.term_slack, e.term_margin, e.term_cache
     e.term_slack, e.term_margin, e.term_cache = 1.0, 0.0, True
     try:
@@ -113,7 +113,7 @@ def _exact_gate_lists(e, pos, s):
     for lst in out.lists:
         assert int(lst.cnt) <= lst.valid.shape[0]
     return out.pos, out.nbrs, tuple(tmd._trim(lst) for lst in out.lists), \
-        out.sm
+        out.layout
 
 
 @torch.no_grad()
@@ -121,8 +121,8 @@ def _eager_probe(e, pos):
     """The port's probe before the program: fresh lists with exact gates
     (slack 1, margin 0), the rebuild's checks, an exact-size QEq list."""
     s = e.state
-    pw, nbrs, lists, sm = _exact_gate_lists(e, pos, s)
-    pairs = e._pair_data(pw, s, nbrs, sm)
+    pw, nbrs, lists, layout = _exact_gate_lists(e, pos, s)
+    pairs = e._pair_data(pw, s, nbrs, layout)
     q, _, _, _, spos = e._qeq_step(pw, s.q, s.qsfp, s.qsfv, s, nbrs, pairs,
                                    isqeq=1, spos=s.spos)
     comps, f = e._forces(pw, q, s, nbrs, lists, pairs, False, spos)
@@ -238,7 +238,8 @@ class _Cache:
         _Cache.made.append(self)
 
     def run(self, key, fn, window, carry, window_id):
-        self.keys.append((key, window, getattr(carry, "qcap", None),
+        layout = getattr(carry, "layout", None)
+        self.keys.append((key, window, getattr(layout, "qcap", None),
                           window_id))
         self.replays += 1
         return fn(window, carry, None)

@@ -24,7 +24,7 @@ import torch
 from rxmd_tpu import ffield as jff, neighbors as jnb, qeq as jqeq, \
     reax as jrx, system as jsys
 from rxmd_tpu_torch import ffield as tff, md as tmd, neighbors as tnb, \
-    qeq as tqeq, reax as trx, system as tsys
+    pairs as tpairs, qeq as tqeq, reax as trx, system as tsys
 
 # the suite runs in several worker processes at once; one torch thread
 # each keeps them from oversubscribing the cores
@@ -204,7 +204,8 @@ def test_dense_forms(replica):
         close(a, b, what=name)
 
 
-# qeq.solve's branches: (name, decks, rxmd_tpu kwargs, port kwargs)
+# qeq.solve's branches, as rxmd_tpu.qeq.solve's keywords; the port builds
+# each one's operator (`_operator`)
 QEQ_BRANCHES = {
     "direct": dict(direct=True),
     "ell_fold_closed": dict(closed_form=True),
@@ -216,6 +217,25 @@ QEQ_BRANCHES = {
 }
 
 
+def _operator(t, kw, ctx, isqeq):
+    """The port's hessian operator of a branch (`kw`, rxmd_tpu.qeq.solve's
+    keywords): the dense form, or the pair context (`ctx`, else built from
+    the deck's lists as rxmd_tpu's solve builds it) with the closed form
+    or the tables, folded into a dense matrix up to `dense_max` atoms (the
+    default of both packages' RunConfig.qeq_dense_max)."""
+    if kw.get("direct"):
+        return tpairs.Dense.operator(t["pos"], t["H"], t["types"], t["ffd"])
+    if ctx is None:
+        ctx = trx.nb_ctx(t["pos"], None, t["H"], t["types"], t["img"],
+                         t["nbrs"], torch.zeros_like(t["types"]), t["amask"],
+                         t["ffd"])
+    rows = None if kw["closed_form"] else trx.pair_rows(ctx, t["types"],
+                                                        t["ffd"])
+    return tpairs.PairList.operator(ctx, rows, t["types"], t["ffd"],
+                                    t["img"], t["nbrs"], isqeq,
+                                    kw.get("dense_max", 8192))
+
+
 def _solve_both(deck, isqeq, kw, tol=1e-12, lmin_f32=False, nmax=500):
     j, t = deck["j"], deck["t"]
     n = deck["n"]
@@ -223,26 +243,25 @@ def _solve_both(deck, isqeq, kw, tol=1e-12, lmin_f32=False, nmax=500):
     qsfp = rng.normal(scale=0.2, size=n)
     qsfp -= qsfp.mean()
     kw = dict(kw)
-    jkw, tkw = dict(kw), dict(kw)
+    jkw, tc = dict(kw), None
     if kw.get("pre"):
         form = kw.pop("pre")
         jc = jrx.nb_ctx(*_args(j, CTX_ARGS[:1]), None,
                         *_args(j, CTX_ARGS[2:]))
         tc = trx.nb_ctx(*_args(t, CTX_ARGS[:1]), None,
                         *_args(t, CTX_ARGS[2:]))
+        kw["closed_form"] = form == "closed"
         if form == "closed":
             jkw = dict(pre=(jc, None, None))
-            tkw = dict(pre=(tc, None, None))
         else:
             jkw = dict(pre=(jc, *jrx.pair_rows(jc, j["types"], j["ffd"])))
-            tkw = dict(pre=(tc, *trx.pair_rows(tc, t["types"], t["ffd"])))
     common = dict(isqeq=isqeq, nmax=nmax, tol=tol, lmin_f32=lmin_f32)
     jr = jqeq.solve(j["pos"], jnp.zeros(n), jnp.asarray(qsfp), j["H"],
                     j["types"], j["img"], j["nbrs"], j["ffd"], **common,
                     **jkw)
-    tr = tqeq.solve(t["pos"], torch.zeros(n, dtype=torch.float64),
-                    torch.tensor(qsfp), t["types"], t["ffd"], H=t["H"],
-                    img=t["img"], nbrs=t["nbrs"], **common, **tkw)
+    tr = tqeq.solve(torch.zeros(n, dtype=torch.float64), torch.tensor(qsfp),
+                    t["types"], t["ffd"], _operator(t, kw, tc, isqeq),
+                    **common)
     return jr, tr
 
 

@@ -116,7 +116,7 @@ def test_slot_binning_matches(f32, f64, dtype):
 
 def _plain_rows(d, planes, fn):
     _, tp = _packed(d, planes)
-    out = tps.sweep(d["tgrid"], tp, fn)          # CPU tensor: plain sweep
+    out = tps.sweep_plain(d["tgrid"], tp, fn)
     return tps.gather_rows(d["tgrid"], out, d["tsm"].slot_of_atom).numpy()
 
 

@@ -286,7 +286,8 @@ def runs(request):
 
 def test_engine_pe_per_step(runs):
     te, jc, tc = runs["te"], runs["jc"], runs["tc"]
-    assert te.pair_engine == "ell" and te.pairk is None and te.pq is not None
+    assert te.pair_engine == "ell" and not hasattr(te.pairs, "grid") \
+        and te.pq is not None
     assert te.ffd.is_lg == runs["name"].endswith("lg")
     assert te.rctap == RCTAP and float(te.ffd.rctap2) == RCTAP ** 2
     assert np.isfinite(tc).all()

@@ -37,7 +37,9 @@ def setup():
                     device="cpu")
     te._rebuild(te.state)
     s = te.state
-    ops = te._make_pair_ops(s.pos, s.H, s.types, te._slotmap)
+    # the sweep's pair kernels over the rebuild's slot map, with a QEq list
+    # of exactly its entries
+    ops = te.pairs.data(s.pos, s, None, te._layout._replace(qcap=None))
     ff = jff.parse_ffield(FF)
     jffd = jrx.ffdev_from(ff, dtype=jnp.float64)
     pos, H = jnp.asarray(s.pos.numpy()), jnp.asarray(s.H.numpy())
@@ -57,7 +59,7 @@ def setup():
 
     def tsolve(**kw):
         z = torch.zeros(s.n, dtype=torch.float64)
-        return tqeq.solve(s.pos, z, torch.tensor(qsfp), s.types, te.ffd, ops,
+        return tqeq.solve(z, torch.tensor(qsfp), s.types, te.ffd, ops.hessian,
                           **kw)
 
     return jsolve, tsolve

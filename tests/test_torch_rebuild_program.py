@@ -140,7 +140,8 @@ def test_rebuild_fn_reads_nothing(engines, name):
     assert (got["cells"] > 0) == (e.grid is not None), got
     assert (min(got["ang"], got["tor"]) > 0) == e.term_cache, got
     assert (out.lists is not None) == e.term_cache
-    assert (got["slots"] > 0) == (got["qeq"] > 0) == (e.pairk is not None)
+    sweep = e.pair_engine == "sweep"
+    assert (got["slots"] > 0) == (got["qeq"] > 0) == sweep
     if out.lists is not None:
         assert [lst.valid.shape[0] for lst in out.lists] == [
             e.caps["ang"], e.caps["tor"], e.caps["hbf"]]
@@ -189,16 +190,16 @@ def test_rebuild_matches_rxmd_tpu(engines, name):
                                       np.asarray(getattr(jl, f))[:n]), f
     else:
         assert out.lists is None and jlists == ()
-    if e.pairk is not None:
+    if e.pair_engine == "sweep":
         jgrid = jps.make_pair_grid(np.asarray(H), e.rctap, skin=e.skin,
-                                   ccap=e.pairk.ccap)
+                                   ccap=e.pairs.grid.ccap)
         jpose = jnb.ext_positions(js.pos, js.H, je.img)
         jsm = jps.bin_slots(jpose, jnp.ones(jpose.shape[0], bool), jgrid,
                             js.n)
         for f in ("slot_src", "slot_of_atom"):
-            assert np.array_equal(getattr(out.sm, f).numpy(),
+            assert np.array_equal(getattr(out.layout.sm, f).numpy(),
                                   np.asarray(getattr(jsm, f))), f
-        assert int(out.sm.overflow) == int(jsm.overflow) > 0
+        assert int(out.layout.sm.overflow) == int(jsm.overflow) > 0
 
 
 # ----------------------------------------------------------------------
@@ -213,7 +214,8 @@ def test_one_host_read_per_rebuild(name):
     e._advance(1)
     # the steps' counts wait for a check: the sweep's QEq list, the
     # uncached terms' and the tightened lists' counts
-    assert bool(e._pending()) == (e.pairk is not None or not e.term_cache
+    sweep = e.pair_engine == "sweep"
+    assert bool(e._pending()) == (sweep or not e.term_cache
                                   or e.cfg.tighten_lists)
     with dryrun.HostReadGuard(count=True) as guard:
         e._rebuild(e.state)
@@ -227,10 +229,10 @@ def test_one_host_read_per_rebuild(name):
             assert got[nm] <= size == e._sizes[nm] <= full.valid.shape[0]
             assert torch.equal(lst.j if nm != "hbf" else lst.i,
                                (full.j if nm != "hbf" else full.i)[:size])
-    if e.pairk is not None:
-        assert got["qeq"] <= e._qcap == e._sizes["qeq list"]
+    if sweep:
+        assert got["qeq"] <= e._layout.qcap == e._sizes["qeq list"]
         assert got["qeq"] == int(tps.walk_candidates(
-            e.pairk, tps.atom_walk(e._slotmap)))
+            e.pairs.grid, tps.atom_walk(e._layout.sm)))
 
 
 # ----------------------------------------------------------------------
@@ -242,8 +244,10 @@ def _set(attr, value):
             e.caps[attr[5:]] = value
         elif attr == "grid.ccap":
             e.grid = e.grid._replace(ccap=value)
-        elif attr == "pairk.ccap":
-            e.pairk = e.pairk._replace(ccap=value)
+        elif attr == "pairs.grid.ccap":
+            e.pairs.grid = e.pairs.grid._replace(ccap=value)
+        elif attr == "_layout.qcap":
+            e._layout = e._layout._replace(qcap=value)
         else:
             setattr(e, attr, value)
     return f
@@ -259,10 +263,10 @@ OVERFLOWS = {
     "tor": (_set("caps.tor", 1), r"total overflow: tor \d+/1"),
     "hbf": (_set("caps.hbf", 1), r"total overflow: .*hbf \d+/1"),
     "ang_row": (_set("caps.ang_row", 1), r"PER-ROW overflow in ang_row"),
-    "slots": (_set("pairk.ccap", 2), r"pair-sweep cell overflow: \d+ > "
-                                     r"ccap=2"),
-    "qeq_pending": (_set("_qcap", 1), r"QEq list overflow: \d+ entries > "
-                                      r"capacity 1"),
+    "slots": (_set("pairs.grid.ccap", 2),
+              r"pair-sweep cell overflow: \d+ > ccap=2"),
+    "qeq_pending": (_set("_layout.qcap", 1),
+                    r"QEq list overflow: \d+ entries > capacity 1"),
 }
 
 
