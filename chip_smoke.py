@@ -26,7 +26,11 @@ first failure ends the run with a non-zero exit code and no result line.
      its bound, its plain version and the autograd grid it replaced, and
      launched by the pair-list steps and by a probe of the sweep; then the
      torsion kernel (csrc/torsion.cu, `phase_torsion`) the same way,
-     against torsion_plain and the grid's list under autograd;
+     against torsion_plain and the grid's list under autograd; then the
+     pair list's nonbond kernel (csrc/nonbond_list.cu,
+     `phase_nonbond_list`) at --mc and its (2, 2, 2) replica against
+     nonbond_list_plain, timed beside its bound and the (n, knb) planes it
+     replaced, launched by the pair-list steps and not by a sweep probe;
   4. slice: prepare + --steps NVE steps with full-CG QEq (isQEq=1), PRINTE
      lines (every step, so each step is a single-step dispatch, a CUDA
      graph after its key's first use); launch counts: nonbond once a step,
@@ -193,6 +197,7 @@ REPLACES = "rxmd_tpu/ops/pairsweep.py:289"
 KERNELS = ("nonbond", "qeq_build", "qeq_apply")
 HB_SOURCE = "rxmd_tpu_torch/csrc/hbond.cu"
 TOR_SOURCE = "rxmd_tpu_torch/csrc/torsion.cu"
+NBL_SOURCE = "rxmd_tpu_torch/csrc/nonbond_list.cu"
 
 # kernel vs plain sweep, float32, same candidate pairs, other summation
 # order: the bars of tests/test_pairsweep.py (energy sums 2e-3 relative,
@@ -224,6 +229,18 @@ OPS_TORSION = 420
 # torsions (both gate on the same float32 products), cos 2w and cos 3w as
 # polynomials against arccos, summed in another order and with atomics
 TOL_TOR = 1e-4
+# operations per pair that passes the gates of csrc/nonbond_list.cu's pair
+# body, counted the same way (the distance, the taper and its derivative,
+# vdW, Coulomb, their r-derivatives, the force and the virial products)
+OPS_NONBOND_LIST = 99
+# the pair list's nonbond kernel against nonbond_list_plain, float32 on the
+# card, at the QEq charges of the engine's start: the same pairs, each term
+# a few ulp apart (the kernel's float32 powers, exponential, cube root and
+# divisions are the special-function unit's), summed in another order
+# (a warp's lanes, then rows, against PyTorch's reductions over the
+# planes): each energy within TOL_NBL_E of itself, the forces within
+# TOL_NBL_F of their rms, the virial within TOL_NBL_W of its largest entry
+TOL_NBL_E, TOL_NBL_F, TOL_NBL_W = 1e-5, 1e-4, 1e-5
 # per-step total energy of the kernel run against the plain-sweep run on
 # the card: both float32, so they part only through summation order and
 # CG stops; at 1e-4 relative that is ~10x above the float32 noise of a
@@ -870,6 +887,128 @@ def phase_torsion(mc, smi):
     torch.cuda.empty_cache()
     return dict(max_rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=grid_ms)
+
+
+def phase_nonbond_list(mcs, smi):
+    """The pair list's closed-form nonbond kernel (csrc/nonbond_list.cu) at
+    the pair-list cells' shapes: the engine with uncached terms at each of
+    `mcs` in float32 (8,064 and 64,512 atoms by default), at the charges of
+    its start (prepare's QEq).  Its ptxas report; for each size the kernel
+    against nonbond_list_plain on the card with the virial (the MD step's
+    form) and without: energies within TOL_NBL_E of themselves, forces
+    within TOL_NBL_F of their rms, the virial within TOL_NBL_W of its
+    largest entry; device ms (graph_ms) beside its bound, the plain version
+    (the pair context and the closed form over it) and the closed form
+    alone over a built context (what the step's "nonbond" phase ran before
+    the kernel); then 3 steps of the first engine launch the kernel and a
+    probe of the sweep does not.  Returns the first size's record."""
+    from rxmd_tpu_torch import native, reax
+    from rxmd_tpu_torch.ops import nonbond_list as nbl
+    so, secs, msgs = native.build(nbl._SRC, force=True, verbose=True)
+    log(f"build: nvcc {NBL_SOURCE} -> {os.path.relpath(so, REPO)} in "
+        f"{secs:.1f} s")
+    for line in msgs.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "stack frame")):
+            log(f"  ptxas: {line.strip()}")
+    res = []
+    for mc in mcs:
+        fresh_peak()
+        e = make_engine(mc, DEVICE, term_cache=False, dense_direct_max=0)
+        check(e.pair_engine == "ell", f"pair list engine ({e.pair_engine})")
+        e.prepare()
+        s, nbrs, ffd = e.state, e.nbrs, e.ffd
+        N = s.n
+        n, knb = nbrs.idxnb.shape
+        amask = torch.ones(N, dtype=torch.bool, device=s.pos.device)
+        ctx = reax.nb_ctx(s.pos, None, s.H, s.types, e.img, nbrs, s.gid,
+                          amask, ffd)
+        inp, q = ctx.src, s.q
+        err = {}
+        for wv in (True, False):
+            n0 = nbl.launches["nonbond_list"]
+            got = nbl.nonbond_list(inp, q, None, wv)
+            torch.cuda.synchronize()
+            check(nbl.launches["nonbond_list"] == n0 + 1,
+                  "nonbond_list: one launch")
+            ref = nbl.nonbond_list_plain(inp, q, None, wv)
+            for k, what in ((0, "evdw"), (1, "eclmb")):
+                err[what] = abs(float(got[k] - ref[k])) / abs(float(ref[k]))
+            rms = float(ref[2].double().pow(2).mean().sqrt())
+            err["f"] = float((got[2] - ref[2]).abs().max()) / rms
+            if wv:
+                err["W"] = (float((got[3] - ref[3]).abs().max())
+                            / float(ref[3].abs().max()))
+            else:
+                check(got[3] is None, "no virial asked, none given")
+            log(f"nonbond_list {N} atoms, virial {wv}: evdw "
+                f"{float(got[0]):.6e} (plain {float(ref[0]):.6e}), eclmb "
+                f"{float(got[1]):.6e} ({float(ref[1]):.6e}); relative "
+                f"errors {', '.join(f'{k} {v:.3e}' for k, v in err.items())}")
+            check(bool(torch.isfinite(got[2]).all()), "finite forces")
+            check(max(err["evdw"], err["eclmb"]) <= TOL_NBL_E,
+                  f"nonbond_list energies within {TOL_NBL_E}")
+            check(err["f"] <= TOL_NBL_F,
+                  f"nonbond_list forces within {TOL_NBL_F} of their rms")
+            check(not wv or err["W"] <= TOL_NBL_W,
+                  f"nonbond_list virial within {TOL_NBL_W} of its max")
+
+        # the work: the pairs that pass the gates, and the bytes each input
+        # and output needs once: the rows' indices, the owners' positions,
+        # types, global ids and charges, the live-center mask, and the
+        # forces and the energy and virial parts
+        tj = ctx.tj
+        live = int((ctx.mask & ctx.notself
+                    & (ffd.cf_pair[s.types[:n, None], tj, 0] > 0.5)).sum())
+        nbytes = n * knb * 8 + N * (12 + 8 + 8 + 4 + 1) + n * (3 + 11) * 4
+        bms, by = bound(nbytes, live * OPS_NONBOND_LIST)
+        ms = graph_ms(lambda: nbl.nonbond_list(inp, q, None, True), 20)
+        ms_nov = graph_ms(lambda: nbl.nonbond_list(inp, q, None, False), 20)
+        plain_ms = cuda_ms(lambda: nbl.nonbond_list_plain(inp, q, None,
+                                                          True), 3)
+        grid_ms = cuda_ms(lambda: reax.nonbond_cf_energy_forces(
+            ctx, q, s.types, amask, ffd, with_virial=True, img=e.img), 3)
+        log(f"kernel nonbond_list at {N} atoms: {n} rows of {knb} slots "
+            f"({int(nbrs.cntnb.max())} filled at most), {live} pairs; "
+            f"{ms * 1e3:.1f} us/launch device time with the virial, "
+            f"{ms_nov * 1e3:.1f} without (graph_ms, the energy and virial "
+            f"sums included), bound {bms * 1e3:.2f} us ({by}, {nbytes} "
+            f"bytes, {live * OPS_NONBOND_LIST} operations; {bms / ms:.1%} "
+            f"of it); plain {plain_ms:.3f} ms; the closed form over a "
+            f"built context {grid_ms:.3f} ms (cuda_ms) | {smi}")
+        res.append(dict(atoms=N, max_rel_err=max(err.values()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=grid_ms))
+        if len(res) == 1:
+            # the kernel on the pair list's steps
+            zero = nbl.launches["nonbond_list"]
+            e.init_velocity(seed=1)
+            e.run(3, log=None)
+            torch.cuda.synchronize()
+            md_launches = nbl.launches["nonbond_list"] - zero
+            check(md_launches > 0,
+                  "nonbond_list launched by the pair-list steps")
+        del e, ctx, inp, got, ref
+        torch.cuda.empty_cache()
+
+    # and not on the sweep's probes
+    from rxmd_tpu_torch.ops import pairsweep as ps
+    sw = make_engine(mcs[0], DEVICE)
+    check(sw.pair_engine == "sweep", f"sweep engine ({sw.pair_engine})")
+    sw.prepare()
+    zero = dict(nbl.launches), dict(ps.launches)
+    sw.probe(sw.state.pos.clone())
+    torch.cuda.synchronize()
+    check(nbl.launches == zero[0], "no nonbond_list launch in a probe of "
+          "the sweep")
+    check(ps.launches["nonbond"] > zero[1]["nonbond"],
+          "the sweep's nonbond kernel in its probe")
+    log(f"nonbond_list launches: {md_launches} in 3 steps of the pair list "
+        f"(graphs: counted at eager runs and captures), 0 in a probe of "
+        f"the sweep")
+    del sw
+    torch.cuda.empty_cache()
+    return res[0]
 
 
 def live_records(lst):
@@ -2721,6 +2860,7 @@ def main():
     e, kres, launches = phase_slice(mc, args.steps, args.seed)
     hres = phase_hbond(mc, smi)
     tres = phase_torsion(mc, smi)
+    nres = phase_nonbond_list((mc, tuple(2 * k for k in mc)), smi)
     phase_small_reference(args.seed)
     phase_timing(e, mc, args.steps, args.seed)
     del e
@@ -2742,7 +2882,10 @@ def main():
          "replaces": "none (the autograd grid of reax.e_hbond)", **hres},
         {"name": "torsion", "route": "cuda", "source": TOR_SOURCE,
          "replaces": "none (the autograd grid of reax.build_torsion_list)",
-         **tres}]}
+         **tres},
+        {"name": "nonbond_list", "route": "cuda", "source": NBL_SOURCE,
+         "replaces": "none (the (n, knb) planes of "
+                     "reax.nonbond_cf_energy_forces)", **nres}]}
     log(json.dumps(rec))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ expressions (ref: src/bo.F90, src/pot.F90) as rxmd_tpu writes them;
 bonded forces and the strain virial are the exact negative gradient of
 the energy, taken with torch.autograd; the nonbond forces come from the
 analytic derivative columns (or, with fast_nonbond=False, the table
-energy's autograd).  `energy_and_forces` splices in the nonbond of
-whichever pair engine the caller runs (the cell-column sweep of
-ops/pairsweep, the dense forms, or the pair context).
+energy's autograd); on a card the closed form over the pair list is one
+CUDA kernel (ops/nonbond_list).  `energy_and_forces` splices in the
+nonbond of whichever pair engine the caller runs (the cell-column sweep
+of ops/pairsweep, the dense forms, or the pair context).
 
 Out-of-range scatters (JAX's ``mode="drop"``) write into one extra dump
 slot that is sliced off; out-of-range gathers are masked or clamped
@@ -24,10 +25,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import units
+from . import native, units
 from .ffield import ForceField, build_tables
 from .neighbors import ImageTable, Neighbors, ext_positions
 from .ops import hbond as hbond_op
+from .ops import nonbond_list as nonbond_op
 from .ops import torsion as torsion_op
 from .utils import timers as trace
 
@@ -282,6 +284,8 @@ class NbCtx(NamedTuple):
     dr2: torch.Tensor      # (n, knb)
     qj: torch.Tensor       # (n, knb) neighbor charges, or None
     tj: torch.Tensor       # (n, knb) neighbor types, int64
+    src: nonbond_op.NonbondInputs = None  # what the context was made from:
+                                          # the nonbond kernel reads it
 
 
 def nb_ctx(pos, q, H, types, img: ImageTable, nbrs: Neighbors, gid, amask,
@@ -303,8 +307,10 @@ def nb_ctx(pos, q, H, types, img: ImageTable, nbrs: Neighbors, gid, amask,
     else:
         notself = gid[idx] != gid[:n, None]
     mask = nbrs.masknb & (dr2 <= ffd.rctap2) & amask[:n, None]
+    src = nonbond_op.NonbondInputs(pos.contiguous(), H.detach().contiguous(),
+                                   types, gid, amask, img, nbrs, ffd)
     return NbCtx(idx=idx, mask=mask, notself=notself, dr=dr, dr2=dr2,
-                 qj=None if q is None else q[oj], tj=types[oj])
+                 qj=None if q is None else q[oj], tj=types[oj], src=src)
 
 
 def _n_prm(ffd: FFDev):
@@ -471,7 +477,15 @@ def nonbond_ctx_energy_forces(ctx: NbCtx, q, types, amask, ffd: FFDev,
                               closed_form, with_virial=False, pre=None,
                               img=None):
     """(evdw, eclmb, echarge, f[, virial]) over the pair context: the
-    closed form, or the tables (`pre` as in nonbond_tbl_energy_forces)."""
+    closed form, or the tables (`pre` as in nonbond_tbl_energy_forces).
+    The closed form without LG on a card is one CUDA kernel over the rows
+    the context was made from (ops/nonbond_list, `ctx.src`)."""
+    if (closed_form and not ffd.is_lg
+            and native.device_kind(q, "nonbond_list") == "cuda"):
+        evdw, eclmb, f, w = nonbond_op.nonbond_list(ctx.src, q, ctx.qj,
+                                                    with_virial)
+        echarge = charge_energy(q, types, amask, ffd)
+        return (evdw, eclmb, echarge, f, w)[:5 if with_virial else 4]
     if closed_form:
         return nonbond_cf_energy_forces(ctx, q, types, amask, ffd,
                                         with_virial=with_virial, img=img)

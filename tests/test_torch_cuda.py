@@ -1,6 +1,6 @@
 """rxmd_tpu_torch's CUDA kernels (the pair kernels, the hydrogen-bond
-kernel and the torsion kernel) against their plain PyTorch versions, on a
-card (every case skips without one).
+kernel, the torsion kernel and the pair list's nonbond kernel) against
+their plain PyTorch versions, on a card (every case skips without one).
 
 This file imports no jax, so it also runs where jax is not installed;
 tests/conftest.py imports jax, so there run it as
@@ -545,3 +545,157 @@ def test_torsion_refuses_what_it_does_not_take():
         reax.e_4body(d["pos"], d["H"], d["types"], d["img"], d["nbrs"], bo,
                      d["amask"], d["gid"], d["ffd"], ks=2)
     assert tor.launches["torsion"] == n0
+
+
+# ----------------------------------------------------------------------
+# the pair list's nonbond kernel (csrc/nonbond_list.cu) against its plain
+# version
+
+def _nonbond_inputs(d, layout):
+    """The kernel's inputs from the deck `d` at charges from a seeded
+    normal draw of zero sum: the deck as the pair-list engine holds it
+    ("images"), or in the sharded engine's layout ("rows": the ext atoms
+    as atoms of their own under the identity image, the residents the
+    center rows, some dead, the slots' charges gathered per slot)."""
+    from rxmd_tpu_torch.ops import nonbond_list as nbl
+    dev, dt = d["pos"].device, d["pos"].dtype
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(d["pos"].shape[0], generator=g, dtype=torch.float64)
+    q = (0.2 * (q - q.mean())).to(dt).to(dev)
+    amask = d["amask"].clone()
+    if layout == "images":
+        return nbl.NonbondInputs(d["pos"], d["H"], d["types"], d["gid"],
+                                 amask, d["img"], d["nbrs"], d["ffd"]), q, None
+    amask[::7] = False
+    img = d["img"]
+    own, M = img.owner, img.owner.shape[0]
+    pos = neighbors.ext_positions(d["pos"], d["H"], img).contiguous()
+    ident = neighbors.ImageTable(owner=torch.arange(M, device=dev),
+                                 shift=torch.zeros((M, 3), dtype=dt,
+                                                   device=dev),
+                                 nimg=(0, 0, 0))
+    amask_ext = torch.zeros(M, dtype=torch.bool, device=dev)
+    amask_ext[:amask.shape[0]] = amask
+    qj = q[own][d["nbrs"].idxnb.clamp(min=0)]
+    return nbl.NonbondInputs(pos, d["H"], d["types"][own], d["gid"][own],
+                             amask_ext, ident, d["nbrs"], d["ffd"]), q, qj
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_virial", [True, False], ids=["W", "noW"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mc, layout", [((4, 4, 3), "images"),
+                                        ((1, 1, 1), "rows")],
+                         ids=["8064", "rows"])
+def test_nonbond_list_kernel_matches_plain(mc, layout, dtype, with_virial):
+    """The kernel against `nonbond_list_plain` on the same CUDA tensors,
+    one launch: each energy within 1e-5 (float32) or 1e-12 (float64) of
+    itself, the forces within 1e-4 (1e-11) of their rms and the virial
+    within 1e-5 (1e-12) of its largest entry.  Both take the same pairs
+    (a pair the two gates could part on sits at the taper's cut, where
+    its terms vanish); each pair term is a few ulp apart (the kernel's
+    float32 powers, exponential, cube root and divisions are the
+    special-function unit's) and the sums run in another order (a warp's
+    lanes and then the rows, against PyTorch's reductions over the
+    planes): on an H100, ~3e-7 of an energy and ~8e-6 of the forces'
+    rms in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from rxmd_tpu_torch.ops import nonbond_list as nbl
+    dt = getattr(torch, dtype)
+    e_bar, f_bar = (1e-5, 1e-4) if dt == torch.float32 else (1e-12, 1e-11)
+    d = _card_deck(mc, dt, "cuda")
+    inp, q, qj = _nonbond_inputs(d, layout)
+    n0 = nbl.launches["nonbond_list"]
+    got = nbl.nonbond_list(inp, q, qj, with_virial)
+    ref = nbl.nonbond_list_plain(inp, q, qj, with_virial)
+    torch.cuda.synchronize()
+    assert nbl.launches["nonbond_list"] == n0 + 1
+    for k in (0, 1):
+        assert abs(float(ref[k])) > 0
+        assert abs(float(got[k] - ref[k])) <= e_bar * abs(float(ref[k])), k
+    assert bool(torch.isfinite(got[2]).all())
+    rms = float(ref[2].double().pow(2).mean().sqrt())
+    assert float((got[2] - ref[2]).abs().max()) <= f_bar * rms
+    if layout == "rows":
+        dead = ~inp.amask[:inp.nbrs.center_rows]
+        assert bool(dead.any()) and float(got[2][dead].abs().max()) == 0.0
+    if with_virial:
+        err = float((got[3] - ref[3]).abs().max())
+        assert err <= e_bar * float(ref[3].abs().max())
+    else:
+        assert got[3] is None and ref[3] is None
+
+
+@pytest.mark.gpu
+def test_nonbond_list_is_the_pair_list_path(monkeypatch):
+    """An MD run of the pair-list engine in float32 (the benchmark's _ell
+    cells: closed form, uncached terms, graphs) launches the kernel in its
+    steps and blocks and never runs the planes' closed form
+    (reax.cf_nonbond); a relax probe of the sweep launches it not at
+    all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from rxmd_tpu_torch.ops import nonbond_list as nbl
+
+    def planes(*a, **k):
+        raise AssertionError("reax.cf_nonbond ran on the pair list")
+    monkeypatch.setattr(reax, "cf_nonbond", planes)
+    ff = ffield.parse_ffield(FF)
+    st = system.from_cellfile(CELL, ff.name_to_type)
+    e = md.Engine(ff, st, config.RunConfig(
+        dtype="float32", isQEq=2, term_cache=False, dense_direct_max=0,
+        pstep=100), device="cuda")
+    assert e.pair_engine == "ell" and e.uses_graphs()
+    e.init_velocity(seed=1)
+    e.prepare()
+    n0 = nbl.launches["nonbond_list"]
+    e.run(12, log=None)
+    torch.cuda.synchronize()
+    assert e.timers.counters.get("graph captures", 0) > 0
+    assert nbl.launches["nonbond_list"] > n0
+    assert bool(torch.isfinite(e.comps).all())
+    monkeypatch.undo()
+    sw = md.Engine(ff, system.from_cellfile(CELL, ff.name_to_type),
+                   config.RunConfig(dtype="float32", isQEq=1), device="cuda")
+    assert sw.pair_engine == "sweep"
+    sw.prepare()
+    n0 = nbl.launches["nonbond_list"]
+    sw.probe(sw.state.pos.clone())
+    torch.cuda.synchronize()
+    assert nbl.launches["nonbond_list"] == n0
+
+
+@pytest.mark.gpu
+def test_nonbond_list_refuses_what_it_does_not_take():
+    """A tensor on another device, a wrong dtype or a strided input raise
+    before any launch, and so does LG dispersion."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import dataclasses
+    from rxmd_tpu_torch.ops import nonbond_list as nbl
+    d = _card_deck((1, 1, 1), torch.float32, "cuda")
+    inp, q, _ = _nonbond_inputs(d, "images")
+    n0 = nbl.launches["nonbond_list"]
+    nb = inp.nbrs
+    calls = [
+        lambda: nbl.nonbond_list(inp._replace(H=inp.H.cpu()), q),
+        lambda: nbl.nonbond_list(inp._replace(pos=inp.pos.double()), q),
+        lambda: nbl.nonbond_list(inp._replace(gid=inp.gid.int()), q),
+        lambda: nbl.nonbond_list(inp._replace(amask=inp.amask.byte()), q),
+        lambda: nbl.nonbond_list(inp._replace(
+            pos=inp.pos.t().contiguous().t()), q),
+        lambda: nbl.nonbond_list(inp._replace(nbrs=nb._replace(
+            idxnb=nb.idxnb.t().contiguous().t())), q),
+        lambda: nbl.nonbond_list(inp, q[:10]),
+        lambda: nbl.nonbond_list(inp, q, q[None, :]),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="takes a"):
+            call()
+    with pytest.raises(ValueError, match="float32 or float64"):
+        nbl.nonbond_list(inp, q.half())
+    lg = inp._replace(ffd=dataclasses.replace(inp.ffd, is_lg=True))
+    with pytest.raises(ValueError, match="LG"):
+        nbl.nonbond_list(lg, q)
+    assert nbl.launches["nonbond_list"] == n0
